@@ -1,0 +1,186 @@
+"""The APTAI predictor: batched inference with the reference output schema.
+
+:class:`APTAIPredictor` pads a list of waveforms to one bucketed shape
+(whole seconds; the batch rounded up to a power of two, pad rows being
+full-width silence), uploads it in one of three transfer encodings, decodes
+it on the device, runs ``APTAI.predict`` and slices the pad rows off.
+``get_aptai_output`` gives the single-utterance dict of the reference.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from aptai_tpu_torch import TV_ORDER
+from aptai_tpu_torch.models.aptai import PREDICT_FIELDS
+
+AUDIO_BUCKET = 16_000
+
+
+def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller names
+    another. A CUDA device on a machine without one raises; nothing falls
+    back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the "
+            "CPU explicitly")
+    return dev
+
+
+def _bucket(n: int, bucket: int = AUDIO_BUCKET) -> int:
+    return max(int(math.ceil(n / bucket)) * bucket, bucket)
+
+
+def _batch_bucket(n: int) -> int:
+    """Next power of two ≥ n: a small fixed set of batch shapes."""
+    return 1 << max(0, (n - 1)).bit_length()
+
+
+def quantize_i16(audio: np.ndarray) -> np.ndarray:
+    """float waveform → int16 (half the bytes; lossless for audio decoded
+    from 16-bit PCM, ``round(f · 32768)``)."""
+    return np.clip(np.rint(np.asarray(audio, np.float32)
+                           * np.float32(32768.0)),
+                   -32768, 32767).astype(np.int16)
+
+
+def quantize_mulaw(audio: np.ndarray) -> np.ndarray:
+    """float waveform → 8-bit μ-law (μ=255, lossy), biased by +128 so the
+    wire dtype is uint8."""
+    x = np.clip(np.asarray(audio, np.float32), -1.0, 1.0)
+    mu = np.float32(255.0)
+    y = np.sign(x) * np.log1p(mu * np.abs(x)) / np.log1p(mu)
+    q = np.clip(np.rint(y * 127.0), -127, 127) + 128.0
+    return q.astype(np.uint8)
+
+
+_QUANTIZERS = {"int16": quantize_i16, "uint8_mulaw": quantize_mulaw}
+TRANSFER_DTYPES = ("float32",) + tuple(_QUANTIZERS)
+
+
+def quantize_transfer(audio: np.ndarray, transfer_dtype: str) -> np.ndarray:
+    """Encode a host float waveform for upload per ``transfer_dtype``."""
+    if transfer_dtype == "float32":
+        return np.asarray(audio, np.float32)
+    try:
+        return _QUANTIZERS[transfer_dtype](audio)
+    except KeyError:
+        raise ValueError(
+            f"unknown transfer_dtype {transfer_dtype!r}; expected one of "
+            f"{list(TRANSFER_DTYPES)}") from None
+
+
+def dequantize_transfer(audio: torch.Tensor) -> torch.Tensor:
+    """Device-side inverse of :func:`quantize_transfer`, keyed on dtype:
+    int16 → /32768, uint8 → μ-law expansion, float32 passes through."""
+    if audio.dtype == torch.int16:
+        return audio.float() * (1.0 / 32768.0)
+    if audio.dtype == torch.uint8:
+        y = (audio.float() - 128.0) * (1.0 / 127.0)
+        mu = torch.tensor(255.0, dtype=torch.float32, device=audio.device)
+        return torch.sign(y) * (torch.expm1(y.abs() * torch.log1p(mu)) / mu)
+    return audio
+
+
+def _prepare(wavs: Sequence[np.ndarray], transfer_dtype: str,
+             device: torch.device):
+    lengths = np.asarray([len(w) for w in wavs], np.int32)
+    width = _bucket(int(lengths.max()))
+    rows = _batch_bucket(len(wavs))
+    audio = np.zeros((rows, width), np.float32)
+    for i, w in enumerate(wavs):
+        audio[i, : len(w)] = np.asarray(w, np.float32)
+    # pad rows are full-length silence: a zero-length row would send 0
+    # through the conv length formula; every caller slices them off
+    lengths = np.concatenate(
+        [lengths, np.full(rows - len(wavs), width, np.int32)])
+    audio = quantize_transfer(audio, transfer_dtype)
+    return (torch.from_numpy(audio).to(device),
+            torch.from_numpy(lengths).to(device))
+
+
+def fetch_outputs(out: Dict) -> Dict[str, np.ndarray]:
+    """A dict of tensors → host numpy: one device synchronisation, then
+    one ``.cpu()`` pass (each copy then finds the device idle). Values
+    that are not tensors pass through ``np.asarray``."""
+    for v in out.values():
+        if isinstance(v, torch.Tensor) and v.is_cuda:
+            torch.cuda.synchronize(v.device)
+            break
+    return {k: v.cpu().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v) for k, v in out.items()}
+
+
+def _tv_dict(tvs: np.ndarray) -> Dict[str, List[float]]:
+    """(T, 9) → per-TV dict of lists, in TV_ORDER."""
+    return {k: tvs[:, i].tolist() for i, k in enumerate(TV_ORDER)}
+
+
+def _strip_pad_rows(out: Dict, n: int) -> Dict:
+    """Slice every batch-leading output back to the caller's item count."""
+    return {k: v[:n] for k, v in out.items()}
+
+
+def check_fields(requested, available, owner: str) -> None:
+    """Raise at the call site when ``fields=`` names outputs the forward
+    does not produce."""
+    unknown = set(requested) - set(available)
+    if unknown:
+        raise ValueError(
+            f"unknown output field(s) {sorted(unknown)}; "
+            f"{owner} produces {sorted(available)}")
+
+
+class APTAIPredictor:
+    def __init__(self, model, device: Union[str, torch.device, None] = None,
+                 transfer_dtype: str = "float32"):
+        """``model``: an :class:`aptai_tpu_torch.models.APTAI` with its
+        weights loaded. It is moved to ``device`` (``cuda`` unless named)
+        and put in eval mode. ``transfer_dtype``: "float32", "int16"
+        (lossless for 16-bit PCM, half the upload) or "uint8_mulaw" (lossy,
+        a quarter)."""
+        if transfer_dtype not in TRANSFER_DTYPES:
+            raise ValueError(f"unknown transfer_dtype {transfer_dtype!r}; "
+                             f"expected one of {list(TRANSFER_DTYPES)}")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.transfer_dtype = transfer_dtype
+
+    @torch.inference_mode()
+    def predict_batch(self, wavs: Sequence[np.ndarray],
+                      fields: Optional[Sequence[str]] = None,
+                      real_rows: Optional[int] = None) -> Dict:
+        """Batched forward; every returned tensor has leading dim
+        ``len(wavs)`` and stays on the device (no synchronisation).
+        ``fields`` (e.g. ``("tvs_pred", "phn_fc_pred")``) restricts the
+        outputs, and a head none of them needs is not run.
+        ``real_rows`` (the MicroBatcher protocol) is accepted and ignored:
+        pad rows cost only device work here."""
+        del real_rows
+        if fields is not None:
+            check_fields(fields, PREDICT_FIELDS, "APTAI.predict")
+        audio, lengths = _prepare(wavs, self.transfer_dtype, self.device)
+        out = self.model.predict(dequantize_transfer(audio), lengths,
+                                 fields=fields)
+        return _strip_pad_rows(out, len(wavs))
+
+    def get_aptai_output(self, wav) -> Dict:
+        """Single-utterance dict of the reference schema (probs transposed
+        to (V, T))."""
+        out = self.predict_batch([np.asarray(wav, np.float32)])
+        host = fetch_outputs({k: out[k] for k in (
+            "frame_lengths", "phn_fc_probs", "phn_fc_logits",
+            "phn_fc_pred", "tvs_pred")})
+        n = int(host["frame_lengths"][0])
+        return {
+            "phn_fc_probs": host["phn_fc_probs"][0, :n].T,
+            "phn_fc_logits": host["phn_fc_logits"][0, :n],
+            "phn_fc_pred": host["phn_fc_pred"][0, :n],
+            "tvs_pred": _tv_dict(host["tvs_pred"][0, :n]),
+        }

@@ -1,0 +1,88 @@
+"""Weight bridge from the JAX package's APTAI parameter tree.
+
+:func:`state_dict_from_jax` takes the JAX ``APTAI`` parameters (nested
+dicts of arrays: ``{"encoder": ..., "tv_linear": ..., "phn_linear": ...}``)
+and returns this package's ``APTAI`` state_dict: HF ``Wav2Vec2Model`` names
+under ``wav2vec2.``, plus ``tv_linear`` and ``phn_linear``. Layouts:
+
+* conv kernel (k, Cin, Cout) → (Cout, Cin, k)
+* Dense kernel (in, out) → (out, in); LayerNorm ``scale`` → ``weight``
+* weight-norm ``weight_v`` (k, in/g, C) → (C, in/g, k) and
+  ``weight_g`` (k, 1, 1) → (1, 1, k)
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def encoder_state_dict_from_jax(enc: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ``Wav2Vec2Encoder`` tree → HF ``Wav2Vec2Model`` names."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv(key, kernel):
+        sd[key] = _t(kernel).permute(2, 1, 0).contiguous()
+
+    def dense(base, leaf):
+        sd[f"{base}.weight"] = _t(leaf["kernel"]).T.contiguous()
+        sd[f"{base}.bias"] = _t(leaf["bias"])
+
+    def ln(base, leaf):
+        sd[f"{base}.weight"] = _t(leaf["scale"])
+        sd[f"{base}.bias"] = _t(leaf["bias"])
+
+    fe = enc["feature_extractor"]
+    for i in range(len(fe)):
+        layer, base = fe[f"layers_{i}"], f"feature_extractor.conv_layers.{i}"
+        conv(f"{base}.conv.weight", layer["conv"]["kernel"])
+        if "bias" in layer["conv"]:
+            sd[f"{base}.conv.bias"] = _t(layer["conv"]["bias"])
+        if "layer_norm" in layer:
+            ln(f"{base}.layer_norm", layer["layer_norm"])
+
+    ln("feature_projection.layer_norm",
+       enc["feature_projection"]["layer_norm"])
+    dense("feature_projection.projection",
+          enc["feature_projection"]["projection"])
+    if "masked_spec_embed" in enc:
+        sd["masked_spec_embed"] = _t(enc["masked_spec_embed"])
+
+    pc = enc["pos_conv_embed"]
+    conv("encoder.pos_conv_embed.conv.weight_g", pc["weight_g"])
+    conv("encoder.pos_conv_embed.conv.weight_v", pc["weight_v"])
+    sd["encoder.pos_conv_embed.conv.bias"] = _t(pc["bias"])
+
+    i = 0
+    while f"layers_{i}" in enc:
+        layer, p = enc[f"layers_{i}"], f"encoder.layers.{i}"
+        ln(f"{p}.layer_norm", layer["layer_norm"])
+        ln(f"{p}.final_layer_norm", layer["final_layer_norm"])
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            dense(f"{p}.attention.{name}", layer["attention"][name])
+        dense(f"{p}.feed_forward.intermediate_dense",
+              layer["feed_forward"]["intermediate_dense"])
+        dense(f"{p}.feed_forward.output_dense",
+              layer["feed_forward"]["output_dense"])
+        i += 1
+
+    ln("encoder.layer_norm", enc["layer_norm"])
+    return sd
+
+
+def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ``APTAI`` parameter tree → this package's ``APTAI``
+    state_dict (float32 CPU tensors; ``load_state_dict`` casts them into
+    the model's dtypes)."""
+    sd = {f"wav2vec2.{k}": v for k, v in
+          encoder_state_dict_from_jax(params["encoder"]).items()}
+    for head in ("tv_linear", "phn_linear"):
+        sd[f"{head}.weight"] = _t(params[head]["kernel"]).T.contiguous()
+        sd[f"{head}.bias"] = _t(params[head]["bias"])
+    return sd

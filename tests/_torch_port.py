@@ -1,0 +1,45 @@
+"""Shared helpers of the aptai_tpu_torch parity tests: random weights made
+once and given to both packages.
+
+The weights start in the torch port (HF names), get noise on every leaf so
+biases and LayerNorm scales are not trivial zeros and ones, and cross to
+the JAX tree through the JAX package's own HF converter — a fast path that
+avoids tracing a JAX ``init``. The port then loads the JAX tree back through
+its bridge (``state_dict_from_jax``), which is what the tests hold it to.
+"""
+
+import numpy as np
+import torch
+
+from aptai_tpu.models.hf_convert import convert_wav2vec2_encoder
+from aptai_tpu_torch.models.aptai import APTAI
+from aptai_tpu_torch.models.convert import state_dict_from_jax
+from aptai_tpu_torch.models.wav2vec2 import init_weights_
+
+NO_DROP = dict(hidden_dropout=0.0, activation_dropout=0.0,
+               attention_dropout=0.0, feat_proj_dropout=0.0)
+
+
+def random_jax_aptai_params(cfg_t, num_phonemes: int, seed: int):
+    """A JAX ``APTAI`` parameter tree of numpy arrays for the port config
+    ``cfg_t``, drawn from ``seed``."""
+    model = APTAI(cfg_t, num_phonemes=num_phonemes)
+    init_weights_(model, torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    sd = {k: v.float().numpy()
+          + 0.05 * rng.standard_normal(v.shape).astype(np.float32)
+          for k, v in model.state_dict().items()}
+    enc = convert_wav2vec2_encoder(sd, cfg_t.num_hidden_layers,
+                                   prefix="wav2vec2.")
+    head = lambda n: {"kernel": sd[f"{n}.weight"].T.copy(),
+                      "bias": sd[f"{n}.bias"]}
+    return {"encoder": enc, "tv_linear": head("tv_linear"),
+            "phn_linear": head("phn_linear")}
+
+
+def port_aptai_from_jax(cfg_t, params, num_phonemes: int) -> APTAI:
+    """The port's APTAI holding the JAX tree ``params`` (through the
+    bridge under test), in eval mode on the CPU."""
+    model = APTAI(cfg_t, num_phonemes=num_phonemes)
+    model.load_state_dict(state_dict_from_jax(params), strict=True)
+    return model.eval()
