@@ -6,9 +6,11 @@ parity tests in ``tests/test_torch_*.py``. It imports ``torch`` and numpy
 only. Module names mirror the JAX package so each counterpart is easy to
 find:
 
-``aptai_tpu_torch.ops``     attention (flash forward kernel + plain version),
-                            FIR low-pass
-``aptai_tpu_torch.models``  config, wav2vec2 encoder, APTAI heads, weight bridge
+``aptai_tpu_torch.ops``     attention (flash forward and backward kernels +
+                            plain versions), FIR low-pass
+``aptai_tpu_torch.models``  config, wav2vec2 encoder, APTAI heads and loss,
+                            weight bridge
+``aptai_tpu_torch.train``   ``torch_adam``, ``TrainStep``, the LR schedule
 ``aptai_tpu_torch.infer``   ``APTAIPredictor`` and the ``MicroBatcher``
 ``aptai_tpu_torch.utils``   FLOP count and device peaks
 ``aptai_tpu_torch/csrc``    CUDA sources, built with ``nvcc`` at first use

@@ -8,6 +8,9 @@
 //   online softmax over key tiles with f32 running max m, sum l, acc
 //   p   = exp(s - m), rounded to bf16 before p . v (l sums the f32 p)
 //   out = acc / (l == 0 ? 1 : l)     a row with no valid key gives 0
+//   lse = m + log(l)                 optional, f32 (B, H, T), for the
+//                                    backward; +inf for a row with no
+//                                    valid key, so exp(s - lse) is 0 there
 // Query rows at or after length[b] are computed like any other row (the
 // TV low-pass downstream reads pad frames). Any T is accepted: ragged tiles
 // are zero-filled in shared memory and their keys masked.
@@ -26,27 +29,23 @@
 // length[b] are skipped, since every key in them is masked. TMA, wgmma and
 // warp specialisation are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_attn_common.cuh"
 
 namespace {
 
-constexpr int kHeadDim = 64;
 constexpr int kBlockQ = 64;   // 4 warps x 16 query rows
 constexpr int kBlockK = 64;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-// shared-memory row pitch in elements: 144 bytes keeps every fragment read
-// below free of bank conflicts and every row 16-byte aligned
-constexpr int kPitch = kHeadDim + 8;
 
 struct Params {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* lse;          // (B, H, T) contiguous, or null
   const int* lengths;  // (B,)
   int heads, t;
   long long q_sb, q_sh, q_st;
@@ -55,49 +54,6 @@ struct Params {
   long long o_sb, o_sh, o_st;
   float scale;
 };
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two floats -> bf16x2, the first in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [r0, r0 + 64) of a (T, 64) slice with row stride `stride` into shared
-// memory; rows at or past T are zero-filled
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long stride, int r0, int t) {
-  for (int c = threadIdx.x; c < 64 * (kHeadDim / 8); c += kThreads) {
-    const int r = c / (kHeadDim / 8);
-    const int col = (c % (kHeadDim / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < t) {
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + col);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kPitch + col) = val;
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16_kernel(const Params p) {
@@ -119,20 +75,13 @@ flash_fwd_bf16_kernel(const Params p) {
   const __nv_bfloat16* vg = p.v + b * p.v_sb + h * p.v_sh;
   const int len = min(max(p.lengths[b], 0), p.t);
 
-  load_tile(sQ, qg, p.q_st, q0, p.t);
+  load_tile<kThreads>(sQ, qg, p.q_st, q0, p.t);
   __syncthreads();
 
   // this warp's 16 query rows as A fragments, 4 k-steps of 16 over D
   uint32_t qa[kHeadDim / 16][4];
+  load_a_frags(qa, sQ, warp * 16);
   const int qr = warp * 16 + g;
-#pragma unroll
-  for (int ks = 0; ks < kHeadDim / 16; ++ks) {
-    const int c = ks * 16 + 2 * t4;
-    qa[ks][0] = ld_u32(&sQ[qr * kPitch + c]);
-    qa[ks][1] = ld_u32(&sQ[(qr + 8) * kPitch + c]);
-    qa[ks][2] = ld_u32(&sQ[qr * kPitch + c + 8]);
-    qa[ks][3] = ld_u32(&sQ[(qr + 8) * kPitch + c + 8]);
-  }
 
   // per thread: rows qr (index 0) and qr + 8 (index 1)
   float m[2] = {-INFINITY, -INFINITY};
@@ -147,8 +96,8 @@ flash_fwd_bf16_kernel(const Params p) {
   for (int kt = 0; kt < num_k_tiles; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile(sK, kg, p.k_st, k0, p.t);
-    load_tile(sV, vg, p.v_st, k0, p.t);
+    load_tile<kThreads>(sK, kg, p.k_st, k0, p.t);
+    load_tile<kThreads>(sV, vg, p.v_st, k0, p.t);
     __syncthreads();
 
     // s = q . k^T for 16 rows x 64 keys: 8 n-tiles of 8 keys
@@ -161,8 +110,8 @@ flash_fwd_bf16_kernel(const Params p) {
     for (int ks = 0; ks < kHeadDim / 16; ++ks) {
 #pragma unroll
       for (int n = 0; n < kBlockK / 8; ++n) {
-        const __nv_bfloat16* kr = &sK[(n * 8 + g) * kPitch + ks * 16 + 2 * t4];
-        const uint32_t bf[2] = {ld_u32(kr), ld_u32(kr + 8)};
+        uint32_t bf[2];
+        load_b_cols(bf, sK, n * 8, ks * 16);
         mma_16816(s[n], qa[ks], bf);
       }
     }
@@ -223,14 +172,10 @@ flash_fwd_bf16_kernel(const Params p) {
     // acc += p . v: 4 k-steps of 16 keys, 8 n-tiles of 8 head columns
 #pragma unroll
     for (int ks = 0; ks < kBlockK / 16; ++ks) {
-      const int key = ks * 16 + 2 * t4;
 #pragma unroll
       for (int n = 0; n < kHeadDim / 8; ++n) {
-        const int d = n * 8 + g;
-        const uint32_t bf[2] = {
-            pack_bf16(sV[key * kPitch + d], sV[(key + 1) * kPitch + d]),
-            pack_bf16(sV[(key + 8) * kPitch + d], sV[(key + 9) * kPitch + d]),
-        };
+        uint32_t bf[2];
+        load_b_rows(bf, sV, ks * 16, n * 8);
         mma_16816(acc[n], pa[ks], bf);
       }
     }
@@ -242,6 +187,11 @@ flash_fwd_bf16_kernel(const Params p) {
     const int row = q0 + qr + r * 8;
     if (row >= p.t) continue;
     const float denom = l[r] == 0.f ? 1.f : l[r];
+    // the 4 threads of a group hold the same m and l; one writes the lse
+    if (p.lse != nullptr && t4 == 0) {
+      p.lse[static_cast<long long>(bh) * p.t + row] =
+          l[r] == 0.f ? INFINITY : m[r] + logf(l[r]);
+    }
 #pragma unroll
     for (int n = 0; n < kHeadDim / 8; ++n) {
       const int col = n * 8 + 2 * t4;
@@ -260,6 +210,7 @@ struct ParamsF32 {
   const float* k;
   const float* v;
   float* o;
+  float* lse;
   const int* lengths;
   int heads, t;
   long long q_sb, q_sh, q_st;
@@ -268,20 +219,6 @@ struct ParamsF32 {
   long long o_sb, o_sh, o_st;
   float scale;
 };
-
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              long long stride, int r0,
-                                              int t) {
-  for (int c = threadIdx.x; c < 64 * (kHeadDim / 4); c += blockDim.x) {
-    const int r = c / (kHeadDim / 4);
-    const int col = (c % (kHeadDim / 4)) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < t) {
-      val = *reinterpret_cast<const float4*>(src + (r0 + r) * stride + col);
-    }
-    *reinterpret_cast<float4*>(dst + r * kHeadDim + col) = val;
-  }
-}
 
 __global__ void __launch_bounds__(kBlockQ)
 flash_fwd_f32_kernel(const ParamsF32 p) {
@@ -311,8 +248,8 @@ flash_fwd_f32_kernel(const ParamsF32 p) {
   for (int kt = 0; kt < num_k_tiles; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();
-    load_tile_f32(sK, kg, p.k_st, k0, p.t);
-    load_tile_f32(sV, vg, p.v_st, k0, p.t);
+    load_tile_f32<kBlockQ>(sK, kg, p.k_st, k0, p.t);
+    load_tile_f32<kBlockQ>(sV, vg, p.v_st, k0, p.t);
     __syncthreads();
 
     float s[kBlockK];
@@ -351,6 +288,10 @@ flash_fwd_f32_kernel(const ParamsF32 p) {
 
   if (row >= p.t) return;
   const float denom = l == 0.f ? 1.f : l;
+  if (p.lse != nullptr) {
+    p.lse[static_cast<long long>(bh) * p.t + row] =
+        l == 0.f ? INFINITY : m + logf(l);
+  }
   float* og = p.o + b * p.o_sb + h * p.o_sh + row * p.o_st;
 #pragma unroll
   for (int d = 0; d < kHeadDim; ++d) og[d] = acc[d] / denom;
@@ -358,12 +299,13 @@ flash_fwd_f32_kernel(const ParamsF32 p) {
 
 template <typename P, typename E>
 void fill_params(P& p, const void* q, const void* k, const void* v, void* o,
-                 const void* lengths, int heads, int t,
+                 void* lse, const void* lengths, int heads, int t,
                  const long long* strides, float scale) {
   p.q = static_cast<const E*>(q);
   p.k = static_cast<const E*>(k);
   p.v = static_cast<const E*>(v);
   p.o = static_cast<E*>(o);
+  p.lse = static_cast<float*>(lse);
   p.lengths = static_cast<const int*>(lengths);
   p.heads = heads;
   p.t = t;
@@ -378,14 +320,15 @@ void fill_params(P& p, const void* q, const void* k, const void* v, void* o,
 
 // Both entry points launch on `stream` and return cudaGetLastError() (0 on
 // success). Strides are in elements, in the order q, k, v, o and within
-// each batch, head, time; lengths is a device pointer to B int32 values.
+// each batch, head, time; lengths is a device pointer to B int32 values;
+// lse is null or a contiguous (B, H, T) float32 buffer.
 #define APTAI_FLASH_ARGS                                                     \
-  const void *q, const void *k, const void *v, void *o, const void *lengths, \
-      int batch, int heads, int t, int head_dim, long long q_sb,             \
-      long long q_sh, long long q_st, long long k_sb, long long k_sh,        \
-      long long k_st, long long v_sb, long long v_sh, long long v_st,        \
-      long long o_sb, long long o_sh, long long o_st, float scale,           \
-      void *stream
+  const void *q, const void *k, const void *v, void *o, void *lse,           \
+      const void *lengths, int batch, int heads, int t, int head_dim,        \
+      long long q_sb, long long q_sh, long long q_st, long long k_sb,        \
+      long long k_sh, long long k_st, long long v_sb, long long v_sh,        \
+      long long v_st, long long o_sb, long long o_sh, long long o_st,        \
+      float scale, void *stream
 #define APTAI_FLASH_STRIDES                                                  \
   {q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st}
 
@@ -395,7 +338,7 @@ extern "C" int aptai_flash_attn_fwd_bf16(APTAI_FLASH_ARGS) {
   }
   const long long strides[12] = APTAI_FLASH_STRIDES;
   Params p;
-  fill_params<Params, __nv_bfloat16>(p, q, k, v, o, lengths, heads, t,
+  fill_params<Params, __nv_bfloat16>(p, q, k, v, o, lse, lengths, heads, t,
                                      strides, scale);
   const dim3 grid(batch * heads, (t + kBlockQ - 1) / kBlockQ);
   flash_fwd_bf16_kernel<<<grid, kThreads, 0,
@@ -409,8 +352,8 @@ extern "C" int aptai_flash_attn_fwd_f32(APTAI_FLASH_ARGS) {
   }
   const long long strides[12] = APTAI_FLASH_STRIDES;
   ParamsF32 p;
-  fill_params<ParamsF32, float>(p, q, k, v, o, lengths, heads, t, strides,
-                                scale);
+  fill_params<ParamsF32, float>(p, q, k, v, o, lse, lengths, heads, t,
+                                strides, scale);
   const dim3 grid(batch * heads, (t + kBlockQ - 1) / kBlockQ);
   flash_fwd_f32_kernel<<<grid, kBlockQ, 0,
                          static_cast<cudaStream_t>(stream)>>>(p);

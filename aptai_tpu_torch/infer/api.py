@@ -9,6 +9,7 @@ it on the device, runs ``APTAI.predict`` and slices the pad rows off.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -17,6 +18,7 @@ import torch
 
 from aptai_tpu_torch import TV_ORDER
 from aptai_tpu_torch.models.aptai import PREDICT_FIELDS
+from aptai_tpu_torch.models.wav2vec2 import cast_matmul_weights, compute_dtype
 
 AUDIO_BUCKET = 16_000
 
@@ -141,15 +143,19 @@ class APTAIPredictor:
     def __init__(self, model, device: Union[str, torch.device, None] = None,
                  transfer_dtype: str = "float32"):
         """``model``: an :class:`aptai_tpu_torch.models.APTAI` with its
-        weights loaded. It is moved to ``device`` (``cuda`` unless named)
-        and put in eval mode. ``transfer_dtype``: "float32", "int16"
-        (lossless for 16-bit PCM, half the upload) or "uint8_mulaw" (lossy,
-        a quarter)."""
+        weights loaded. The predictor serves a copy of it on ``device``
+        (``cuda`` unless named), in eval mode, whose encoder Linear and
+        Conv1d weights are cast once to the compute dtype (bf16 under
+        ``dtype="bfloat16"``); ``model`` itself is left as it is.
+        ``transfer_dtype``: "float32", "int16" (lossless for 16-bit PCM,
+        half the upload) or "uint8_mulaw" (lossy, a quarter)."""
         if transfer_dtype not in TRANSFER_DTYPES:
             raise ValueError(f"unknown transfer_dtype {transfer_dtype!r}; "
                              f"expected one of {list(TRANSFER_DTYPES)}")
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        serving = copy.deepcopy(model)
+        cast_matmul_weights(serving.wav2vec2, compute_dtype(model.cfg))
+        self.model = serving.to(self.device).eval()
         self.transfer_dtype = transfer_dtype
 
     @torch.inference_mode()

@@ -64,7 +64,9 @@ class Wav2Vec2Config:
     dtype: str = "float32"  # compute dtype: "float32" | "bfloat16"
     # "auto": tanh-approximate GELU in bfloat16, exact erf in float32
     gelu: str = "auto"
-    remat_policy: str = "none"  # training only
+    # training only: "none" (save every activation) or "full" (per-layer
+    # torch.utils.checkpoint); "dots" is not ported yet
+    remat_policy: str = "none"
     attention_layout: str = "bhtd"
     fused_qkv: bool = False
     quant: str = "none"  # "none" | "w8a8_ffn" | "w8a8"
@@ -80,6 +82,7 @@ class Wav2Vec2Config:
             "activation_partition": self.activation_partition is not None,
             "fused_feature_extractor": self.fused_feature_extractor,
             "do_stable_layer_norm": not self.do_stable_layer_norm,
+            "remat_policy": self.remat_policy == "dots",
         }
         bad = sorted(k for k, v in unported.items() if v)
         if bad:
@@ -89,6 +92,9 @@ class Wav2Vec2Config:
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype must be 'float32' or 'bfloat16', "
                              f"got {self.dtype!r}")
+        if self.remat_policy not in ("none", "full"):
+            raise ValueError(f"remat_policy must be 'none' or 'full', "
+                             f"got {self.remat_policy!r}")
         if self.gelu not in ("auto", "exact", "tanh"):
             raise ValueError(f"gelu must be 'auto', 'exact' or 'tanh', "
                              f"got {self.gelu!r}")

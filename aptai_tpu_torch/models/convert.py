@@ -9,6 +9,10 @@ under ``wav2vec2.``, plus ``tv_linear`` and ``phn_linear``. Layouts:
 * Dense kernel (in, out) → (out, in); LayerNorm ``scale`` → ``weight``
 * weight-norm ``weight_v`` (k, in/g, C) → (C, in/g, k) and
   ``weight_g`` (k, 1, 1) → (1, 1, k)
+
+A gradient tree has the parameter tree's structure, so ``jax.grad`` of the
+JAX model crosses the same bridge into gradients named like this package's
+parameters (the tests compare ``.grad`` with it).
 """
 
 from __future__ import annotations

@@ -1,42 +1,54 @@
-"""wav2vec2-style acoustic encoder, inference path.
+"""wav2vec2-style acoustic encoder, inference and training paths.
 
   raw wave (B, L)
     → conv feature extractor: per layer Conv1d → channel LayerNorm → GELU
-      (layer 0: k10 s5 from 1 channel)
-    → feature projection: LayerNorm → Linear(hidden)
+      (layer 0: k10 s5 from 1 channel); under ``torch.no_grad()`` when the
+      feature encoder is frozen
+    → feature projection: LayerNorm → Linear(hidden) → dropout
+    → [train() only] SpecAugment: sampled time spans replaced by the learned
+      mask embedding, sampled channel spans zeroed (an external
+      ``time_mask`` replaces the time sampling in either mode)
     → pad frames zeroed
     → + weight-normed grouped positional conv (k, groups; trailing frame
-      dropped for even k) → GELU
+      dropped for even k) → GELU, then dropout
     → pre-norm transformer layers (length-masked attention through
-      ``ops.attention``, GELU FFN)
+      ``ops.attention``, dropout on the out-projection output; GELU FFN with
+      dropout after the GELU and after the FFN), each under
+      ``torch.utils.checkpoint`` with ``remat_policy="full"``
     → final LayerNorm
+
+Dropouts sit where the JAX package puts them, not where HF does: attention
+dropout acts on the out-projection's output, so the attention kernels need
+none. Dropout and SpecAugment act only in ``train()`` mode.
 
 Parameter names are those of HF ``Wav2Vec2Model``, so an HF state_dict or
 the JAX package's export (``aptai_tpu.models.hf_convert``) loads as is.
 
-Dtype policy, set once in :func:`_cast_matmul_weights`: with
-``cfg.dtype == "bfloat16"`` the Linear and Conv1d weights (and biases) are
-bf16 from construction on, and activations flow in bf16; LayerNorm
-parameters and the positional conv's weight-norm parameters stay float32,
-LayerNorm statistics are taken in float32, and the weight-normed kernel is
-composed in float32 before its cast. SpecAugment, dropout and the
-training-time options belong to the training path and are not here.
+Dtype policy (the JAX package's): every parameter is float32, and with
+``cfg.dtype == "bfloat16"`` the Linear and Conv1d ops cast their weights
+and biases to the activation dtype (bf16) inside the op, so activations
+flow in bf16 while Adam updates float32 masters. LayerNorm statistics are
+taken in float32 with float32 parameters, and the weight-normed kernel is
+composed in float32 before its cast. For serving,
+:func:`cast_matmul_weights` turns a copy's Linear and Conv1d parameters to
+bf16 once, and the in-op casts become no-ops.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from aptai_tpu_torch.models.configs import Wav2Vec2Config
 from aptai_tpu_torch.ops.attention import multi_head_attention_bhtd
 
 
-def _compute_dtype(cfg: Wav2Vec2Config) -> torch.dtype:
+def compute_dtype(cfg: Wav2Vec2Config) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
@@ -56,6 +68,27 @@ def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
                         ln.eps).to(x.dtype)
 
 
+def _dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    return F.dropout(x, rate, training=True) if training and rate else x
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in the input's dtype: the (float32) weight
+    and bias are cast to it inside the op."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` computing in the input's dtype, like :class:`Linear`."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 class ConvLayerBlock(nn.Module):
     """One feature-extractor layer: valid strided Conv1d → channel
     LayerNorm (``feat_extract_norm == "layer"``) → GELU, on (B, C, L)."""
@@ -64,8 +97,8 @@ class ConvLayerBlock(nn.Module):
                  kernel: int, stride: int):
         super().__init__()
         self.cfg = cfg
-        self.conv = nn.Conv1d(c_in, c_out, kernel, stride=stride,
-                              bias=cfg.conv_bias)
+        self.conv = Conv1d(c_in, c_out, kernel, stride=stride,
+                           bias=cfg.conv_bias)
         self.layer_norm = (nn.LayerNorm(c_out, eps=cfg.layer_norm_eps)
                            if cfg.feat_extract_norm == "layer" else None)
 
@@ -94,12 +127,14 @@ class FeatureExtractor(nn.Module):
 class FeatureProjection(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
+        self.cfg = cfg
         self.layer_norm = nn.LayerNorm(cfg.conv_dim[-1],
                                        eps=cfg.layer_norm_eps)
-        self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
+        self.projection = Linear(cfg.conv_dim[-1], cfg.hidden_size)
 
     def forward(self, x):
-        return self.projection(_layer_norm(self.layer_norm, x))
+        h = self.projection(_layer_norm(self.layer_norm, x))
+        return _dropout(h, self.cfg.feat_proj_dropout, self.training)
 
 
 class WeightNormConv1d(nn.Module):
@@ -146,12 +181,13 @@ class PositionalConvEmbedding(nn.Module):
 class SelfAttention(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
+        self.cfg = cfg
         self.heads = cfg.num_attention_heads
         c = cfg.hidden_size
-        self.q_proj = nn.Linear(c, c)
-        self.k_proj = nn.Linear(c, c)
-        self.v_proj = nn.Linear(c, c)
-        self.out_proj = nn.Linear(c, c)
+        self.q_proj = Linear(c, c)
+        self.k_proj = Linear(c, c)
+        self.v_proj = Linear(c, c)
+        self.out_proj = Linear(c, c)
 
     def forward(self, x, lengths):  # (B, T, C)
         b, t, c = x.shape
@@ -164,19 +200,23 @@ class SelfAttention(nn.Module):
                                         to_heads(self.k_proj),
                                         to_heads(self.v_proj), lengths)
         # free when the kernel wrote its (B, T, H, D) buffer
-        return self.out_proj(ctx.transpose(1, 2).reshape(b, t, c))
+        out = self.out_proj(ctx.transpose(1, 2).reshape(b, t, c))
+        return _dropout(out, self.cfg.attention_dropout, self.training)
 
 
 class FeedForward(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         self.cfg = cfg
-        self.intermediate_dense = nn.Linear(cfg.hidden_size,
-                                            cfg.intermediate_size)
-        self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.intermediate_dense = Linear(cfg.hidden_size,
+                                         cfg.intermediate_size)
+        self.output_dense = Linear(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x):
-        return self.output_dense(_gelu(self.intermediate_dense(x), self.cfg))
+        h = _gelu(self.intermediate_dense(x), self.cfg)
+        h = _dropout(h, self.cfg.activation_dropout, self.training)
+        h = self.output_dense(h)
+        return _dropout(h, self.cfg.hidden_dropout, self.training)
 
 
 class EncoderLayer(nn.Module):
@@ -198,21 +238,83 @@ class EncoderLayer(nn.Module):
 class Encoder(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
+        self.cfg = cfg
         self.pos_conv_embed = PositionalConvEmbedding(cfg)
         self.layers = nn.ModuleList(EncoderLayer(cfg)
                                     for _ in range(cfg.num_hidden_layers))
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def forward(self, h, frame_lengths):
+    def forward(self, h, frame_lengths, output_hidden_states: bool = False):
         h = h + self.pos_conv_embed(h)
-        for layer in self.layers:
-            h = layer(h, frame_lengths)
-        return _layer_norm(self.layer_norm, h)
+        h = _dropout(h, self.cfg.hidden_dropout, self.training)
+        # per-layer recomputation in the backward, like the JAX package's
+        # nn.remat; only while training with a gradient to take
+        remat = (self.cfg.remat_policy == "full" and self.training
+                 and torch.is_grad_enabled())
+        all_hidden = [h] if output_hidden_states else None
+        for i, layer in enumerate(self.layers):
+            if remat:
+                h = checkpoint(layer, h, frame_lengths, use_reentrant=False)
+            else:
+                h = layer(h, frame_lengths)
+            if output_hidden_states and i < len(self.layers) - 1:
+                all_hidden.append(h)
+        h = _layer_norm(self.layer_norm, h)
+        if output_hidden_states:
+            # HF indexing: entry N (the number of layers) is the final
+            # post-LayerNorm state, the encoder's output
+            all_hidden.append(h)
+        return h, all_hidden
 
 
-def _cast_matmul_weights(module: nn.Module, dtype: torch.dtype) -> None:
-    """The dtype policy: Linear and Conv1d parameters in the compute dtype;
-    everything else (LayerNorm, weight-norm g/v, embeddings) float32."""
+def sample_span_starts(generator: Optional[torch.Generator],
+                       lengths: torch.Tensor, t: int, prob: float,
+                       span: int, min_masks: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SpecAugment span sampling, the JAX package's ``_compute_time_mask``:
+    per item about ``prob · length / span`` spans (stochastic rounding, at
+    least ``min_masks``, at most ``max(int(prob · t / span) + 1,
+    min_masks)``), each starting uniformly in ``[0, max(length − span, 1))``.
+    Returns ``(starts, n_spans)``: (B, max_spans) int32 starts, of which the
+    first ``n_spans[b]`` are used. Draws from ``generator`` (the default
+    generator of ``lengths``' device when None)."""
+    b = lengths.shape[0]
+    dev = lengths.device
+    max_starts = max(int(prob * t / span) + 1, min_masks)
+    expected = prob * lengths.float() / span
+    frac = expected - torch.floor(expected)
+    extra = (torch.rand(b, generator=generator, device=dev) < frac).int()
+    n_spans = (torch.floor(expected).int() + extra).clamp(min=min_masks)
+    n_spans = n_spans.clamp(max=max_starts)
+    u = torch.rand((b, max_starts), generator=generator, device=dev)
+    starts = (u * (lengths[:, None] - span).clamp(min=1)).int()
+    return starts, n_spans
+
+
+def spans_to_mask(starts: torch.Tensor, n_spans: torch.Tensor, t: int,
+                  span: int) -> torch.Tensor:
+    """(B, T) bool, True inside the first ``n_spans[b]`` spans of
+    ``span`` frames from ``starts``."""
+    pos = torch.arange(t, device=starts.device)[None, None, :]
+    in_span = ((pos >= starts[:, :, None])
+               & (pos < starts[:, :, None] + span))
+    used = (torch.arange(starts.shape[1], device=starts.device)[None, :]
+            < n_spans[:, None])
+    return (in_span & used[:, :, None]).any(dim=1)
+
+
+def compute_time_mask(generator: Optional[torch.Generator],
+                      lengths: torch.Tensor, t: int, prob: float, span: int,
+                      min_masks: int) -> torch.Tensor:
+    """The SpecAugment span mask (True = masked), (B, T)."""
+    return spans_to_mask(*sample_span_starts(generator, lengths, t, prob,
+                                             span, min_masks), t, span)
+
+
+def cast_matmul_weights(module: nn.Module, dtype: torch.dtype) -> None:
+    """Turn the Linear and Conv1d parameters under ``module`` into
+    ``dtype`` in place (serving: the in-op casts then do nothing).
+    LayerNorm, weight-norm g/v and embeddings stay float32."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv1d)):
             m.to(dtype)
@@ -224,40 +326,95 @@ class Wav2Vec2Model(nn.Module):
     ``forward(input_values, input_lengths)`` returns ``(hidden_states,
     frame_lengths, extract_features)``: the final-LayerNorm output
     (B, T, hidden), the int32 valid frame count per item, and the conv
-    features (B, T, conv_dim[-1]).
+    features (B, T, conv_dim[-1]); with ``output_hidden_states`` a fourth
+    item, the list of ``num_hidden_layers + 1`` hidden states in HF
+    indexing.
     """
 
-    def __init__(self, cfg: Wav2Vec2Config):
+    def __init__(self, cfg: Wav2Vec2Config,
+                 freeze_feature_encoder: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.freeze_feature_encoder = freeze_feature_encoder
         self.feature_extractor = FeatureExtractor(cfg)
         self.feature_projection = FeatureProjection(cfg)
         self.encoder = Encoder(cfg)
         if cfg.apply_spec_augment:
-            # the training path's SpecAugment embedding; carried so that
-            # checkpoints load and save with every HF key
+            # SpecAugment's learned mask embedding
             self.masked_spec_embed = nn.Parameter(
                 torch.rand(cfg.hidden_size))
-        _cast_matmul_weights(self, _compute_dtype(cfg))
 
-    def forward(self, input_values: torch.Tensor,
-                input_lengths: Optional[torch.Tensor] = None):
+    def forward(self, input_values: Optional[torch.Tensor],
+                input_lengths: Optional[torch.Tensor] = None,
+                output_hidden_states: bool = False,
+                time_mask: Optional[torch.Tensor] = None,
+                precomputed_features: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """``time_mask`` (B, T_frames) bool, True = masked: replaces the
+        sampled SpecAugment time mask, in either mode. ``precomputed_
+        features`` (B, T_frames, conv_dim[-1]): the feature extractor's
+        output, replacing its forward (``input_values`` may then be None;
+        ``input_lengths`` stays in audio samples). ``generator``: the
+        source of SpecAugment's random spans in ``train()`` mode (dropout
+        draws from the default generator)."""
         cfg = self.cfg
-        b, l = input_values.shape
-        if input_lengths is None:
-            input_lengths = torch.full((b,), l, dtype=torch.int32,
-                                       device=input_values.device)
-        feats = self.feature_extractor(
-            input_values.to(_compute_dtype(cfg)))
+        dtype = compute_dtype(cfg)
+        if precomputed_features is not None:
+            if input_lengths is None:
+                raise ValueError("precomputed_features needs input_lengths "
+                                 "(audio samples) for the frame masks")
+            feats = precomputed_features.to(dtype)
+        else:
+            b, l = input_values.shape
+            if input_lengths is None:
+                input_lengths = torch.full((b,), l, dtype=torch.int32,
+                                           device=input_values.device)
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and not self.freeze_feature_encoder):
+                feats = self.feature_extractor(input_values.to(dtype))
+        t = feats.shape[1]
         frame_lengths = cfg.feat_extract_output_lengths(
             input_lengths.to(torch.int32))
-        t = feats.shape[1]
         frame_mask = (torch.arange(t, device=feats.device)[None, :]
                       < frame_lengths[:, None])
         h = self.feature_projection(feats)
+        h = self._spec_augment(h, frame_lengths, frame_mask, time_mask,
+                               generator)
         # pad frames are zeroed before the positional conv
         h = h * frame_mask[:, :, None].to(h.dtype)
-        return self.encoder(h, frame_lengths), frame_lengths, feats
+        h, all_hidden = self.encoder(h, frame_lengths, output_hidden_states)
+        if output_hidden_states:
+            return h, frame_lengths, feats, all_hidden
+        return h, frame_lengths, feats
+
+    def _spec_augment(self, h, frame_lengths, frame_mask, time_mask,
+                      generator):
+        cfg = self.cfg
+        train = self.training and cfg.apply_spec_augment
+        if time_mask is not None:
+            if not cfg.apply_spec_augment:
+                raise ValueError("an external time_mask needs "
+                                 "cfg.apply_spec_augment (the learned mask "
+                                 "embedding)")
+            mask = time_mask.to(h.device) & frame_mask
+        elif train and cfg.mask_time_prob > 0:
+            mask = compute_time_mask(
+                generator, frame_lengths, h.shape[1], cfg.mask_time_prob,
+                cfg.mask_time_length, cfg.mask_time_min_masks) & frame_mask
+        else:
+            mask = None
+        if mask is not None:
+            h = torch.where(mask[:, :, None],
+                            self.masked_spec_embed.to(h.dtype), h)
+        if train and cfg.mask_feature_prob > 0:
+            b, _, c = h.shape
+            feat_mask = compute_time_mask(
+                generator, torch.full((b,), c, dtype=torch.int32,
+                                      device=h.device),
+                c, cfg.mask_feature_prob, cfg.mask_feature_length,
+                cfg.mask_feature_min_masks)  # (B, C)
+            h = h.masked_fill(feat_mask[:, None, :], 0.0)
+        return h
 
 
 @torch.no_grad()

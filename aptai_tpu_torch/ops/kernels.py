@@ -27,6 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # kernel name -> its translation unit(s) under csrc/
 SOURCES: Dict[str, tuple] = {
     "flash_attn_fwd": ("flash_attn_fwd.cu",),
+    "flash_attn_bwd": ("flash_attn_bwd.cu",),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -10,9 +10,12 @@ the true sequence length, not the padded work the card executes.
     two FFN GEMMs;
   * the APTAI heads and the FIR.
 
-Elementwise work (LayerNorm, GELU, softmax) is left out. The device peak
-comes from a table keyed by ``torch.cuda.get_device_name()``; an unknown
-card gives no peak and so no MFU.
+Elementwise work (LayerNorm, GELU, softmax) is left out. A training step
+counts 3× the forward (the backward's two products per forward product),
+whatever the remat policy: MFU counts the model's work, not recomputation,
+which :func:`training_step_hfu_flops` adds for hardware utilisation. The
+device peak comes from a table keyed by ``torch.cuda.get_device_name()``;
+an unknown card gives no peak and so no MFU.
 """
 
 from __future__ import annotations
@@ -74,6 +77,19 @@ def aptai_forward_flops(cfg: Wav2Vec2Config, samples: int,
     heads = 2 * t * h * num_tvs + 2 * t * h * num_phonemes
     fir = 2 * t * 51 * num_tvs
     return enc["total"] + heads + fir
+
+
+def training_step_flops(forward_flops: int) -> int:
+    """Model FLOPs of one forward + backward step: 3× the forward, for any
+    remat policy (recomputation is not model work)."""
+    return 3 * forward_flops
+
+
+def training_step_hfu_flops(forward_flops: int,
+                            remat_policy: str = "none") -> int:
+    """Hardware FLOPs of one step: 4× the forward under ``"full"`` remat
+    (the backward replays the forward), 3× otherwise."""
+    return (4 if remat_policy == "full" else 3) * forward_flops
 
 
 def device_peak_tflops(name: Optional[str] = None) -> Optional[float]:

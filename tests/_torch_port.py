@@ -37,9 +37,11 @@ def random_jax_aptai_params(cfg_t, num_phonemes: int, seed: int):
             "phn_linear": head("phn_linear")}
 
 
-def port_aptai_from_jax(cfg_t, params, num_phonemes: int) -> APTAI:
+def port_aptai_from_jax(cfg_t, params, num_phonemes: int,
+                        **kwargs) -> APTAI:
     """The port's APTAI holding the JAX tree ``params`` (through the
-    bridge under test), in eval mode on the CPU."""
-    model = APTAI(cfg_t, num_phonemes=num_phonemes)
+    bridge under test), in eval mode on the CPU; ``kwargs`` go to
+    :class:`APTAI` (e.g. ``tv_drop``)."""
+    model = APTAI(cfg_t, num_phonemes=num_phonemes, **kwargs)
     model.load_state_dict(state_dict_from_jax(params), strict=True)
     return model.eval()

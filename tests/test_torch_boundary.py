@@ -30,6 +30,8 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "aptai_tpu"))
 print("LOADED", len([m for m in sys.modules if m.startswith("aptai_tpu_torch")]))
 print("BAD", bad)
+print("TRAIN", all(m in sys.modules for m in (
+    "aptai_tpu_torch.train.harness", "aptai_tpu_torch.train.schedule")))
 """
 
 
@@ -42,6 +44,7 @@ def test_port_imports_no_jax_or_reference_package():
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
     assert int(res.stdout.split("LOADED")[1].split()[0]) >= 10, res.stdout
+    assert "TRAIN True" in res.stdout, res.stdout
 
 
 def test_predictor_without_cuda_raises(monkeypatch):

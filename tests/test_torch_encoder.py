@@ -15,9 +15,10 @@ import torch
 from aptai_tpu.models import configs as jcfg
 from aptai_tpu.models import wav2vec2 as jw2v
 from aptai_tpu.models.hf_convert import export_wav2vec2_encoder
+from aptai_tpu_torch.infer import APTAIPredictor
 from aptai_tpu_torch.models import configs as tcfg
+from aptai_tpu_torch.models import random_aptai
 from aptai_tpu_torch.models.convert import encoder_state_dict_from_jax
-from aptai_tpu_torch.models.wav2vec2 import Wav2Vec2Model
 
 from _torch_port import NO_DROP, port_aptai_from_jax, random_jax_aptai_params
 
@@ -126,17 +127,30 @@ def test_encoder_matches_jax_flash_path(pair, monkeypatch):
 
 
 def test_bf16_policy_casts_matmul_weights_only():
-    model = Wav2Vec2Model(tcfg.tiny_config(dtype="bfloat16"))
-    for name, p in model.named_parameters():
-        matmul = (name.endswith(("conv.weight", "conv.bias", "proj.weight",
-                                 "proj.bias", "projection.weight",
-                                 "projection.bias", "dense.weight",
-                                 "dense.bias"))
+    """The model holds float32 parameters and computes in bf16 (the JAX
+    package's policy, so Adam updates float32 masters); the predictor's
+    serving copy casts the encoder's Linear and Conv1d parameters, and
+    only those, to bf16 once, and computes the same hidden states."""
+    model = random_aptai(tcfg.tiny_config(dtype="bfloat16"), seed=0,
+                         num_phonemes=11)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    serving = APTAIPredictor(model, device="cpu").model
+    for name, p in serving.named_parameters():
+        matmul = (name.startswith("wav2vec2.")
+                  and name.endswith(("conv.weight", "conv.bias", "proj.weight",
+                                     "proj.bias", "projection.weight",
+                                     "projection.bias", "dense.weight",
+                                     "dense.bias"))
                   and "pos_conv_embed" not in name)
         want = torch.bfloat16 if matmul else torch.float32
         assert p.dtype == want, name
+    # the caller's model is left in float32
+    assert all(p.dtype == torch.float32 for p in model.parameters())
     audio = torch.from_numpy(
         np.random.default_rng(3).standard_normal((2, 4000)).astype(np.float32))
+    lens = torch.tensor([4000, 3000], dtype=torch.int32)
     with torch.no_grad():
-        h, _, _ = model(audio, torch.tensor([4000, 3000], dtype=torch.int32))
+        h, _, _ = model.eval().wav2vec2(audio, lens)
+        h_serving, _, _ = serving.wav2vec2(audio, lens)
     assert h.dtype == torch.bfloat16 and torch.isfinite(h.float()).all()
+    torch.testing.assert_close(h_serving, h, rtol=0, atol=0)
