@@ -22,6 +22,9 @@ from torch import nn
 from aptai_tpu_torch.infer.api import resolve_device
 
 BATCH_KEYS = ("audio", "audio_lengths", "phn_frames", "tv_targets")
+# SpecAugment's generator is seeded this far from dropout's, so the two draw
+# from separate Philox streams instead of repeating each other's uniforms
+SPEC_AUGMENT_SEED_OFFSET = 1 << 62
 
 
 def torch_adam(model: nn.Module, b1: float = 0.9, b2: float = 0.999,
@@ -47,9 +50,11 @@ class TrainStep:
     (B, L), ``audio_lengths`` (B,) in samples, ``phn_frames`` (B, T) and
     ``tv_targets`` (B, T, 9), as tensors or arrays, and returns the step's
     ``loss``, ``mse_loss`` and ``ce_loss`` as device tensors (no
-    synchronisation). Dropout and SpecAugment draw from a generator seeded
-    with ``seed + step * grad_accum + microbatch``; the process's default
-    generators are left as they were.
+    synchronisation). Each microbatch's dropout draws from the default
+    generator seeded with ``s = seed + step * grad_accum + microbatch`` and
+    its SpecAugment from a generator of its own seeded with
+    ``s + SPEC_AUGMENT_SEED_OFFSET``; the process's default generators are
+    left as they were.
     """
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -92,7 +97,8 @@ class TrainStep:
             sub = {n: x[i * mb:(i + 1) * mb] for n, x in data.items()}
             with torch.random.fork_rng(devices=devices):
                 torch.manual_seed(seed)
-                gen = torch.Generator(self.device).manual_seed(seed)
+                gen = torch.Generator(self.device).manual_seed(
+                    (seed + SPEC_AUGMENT_SEED_OFFSET) % (1 << 64))
                 out = self.model(sub["audio"], sub["audio_lengths"],
                                  sub["phn_frames"], sub["tv_targets"],
                                  generator=gen)

@@ -3,8 +3,7 @@
 
 Run from the repository root, on a machine with a CUDA card and ``nvcc``:
 
-    python3 chip_smoke.py                 # every phase
-    python3 chip_smoke.py --kernels-only  # phases 1-2: build and check
+    python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit code):
 
@@ -33,7 +32,11 @@ Phases (any failure ends the run with a non-zero exit code):
    step with ``remat_policy="full"``.
 
 Output: the phases' lines, then one JSON line of kernel records, the card
-line, and last ``{"ok": true, "device": {...}}``.
+line, and last ``{"ok": true, "device": {...}}``. A kernel record's
+``launches`` is its count over one train step of phase 5, and
+``launches_by_path`` holds each path's own count: the batches served in
+phase 3 and that train step, each read with the counts set to 0 just before
+it.
 """
 
 from __future__ import annotations
@@ -301,9 +304,14 @@ def time_training_kernels(gen, lengths):
             ("flash_attn_bwd_dkv", dkv_ms, 8,
              tile * (4 * b * t + 2 * n) + rows * b * t)):
         bound_ms, bound_by = bound(mults * h * 64 * t * n, nbytes)
-        records[name] = {"ms": ms, "plain_ms": plain_bwd_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": None}
+        records[name] = {
+            "ms": ms, "plain_ms": plain_bwd_ms,
+            "plain_covers": "dq, dk and dv: the whole plain backward",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": sdpa_bwd_ms,
+            "library_covers": "dq, dk and dv: the backward of "
+                              "scaled_dot_product_attention, its delta "
+                              "included"}
     fwd_bound_ms, _ = bound(4 * h * 64 * t * n,
                             tile * (2 * b * t + 2 * n) + 4 * h * b * t)
     log(f"  at B={b} H={h} T={t} D=64 bf16 (lengths {sorted(set(lengths))}):"
@@ -367,7 +375,8 @@ def phase_kernels(train_lengths):
         out.append({"name": name, "route": "cuda",
                      "source": f"aptai_tpu_torch/csrc/{src}",
                      "replaces": f"aptai_tpu/ops/attention.py:{line}",
-                     "launches": None, "max_abs_err": errs[name], **rec})
+                     "launches": None, "launches_by_path": None,
+                     "max_abs_err": errs[name], **rec})
     return out
 
 
@@ -441,17 +450,18 @@ def phase_slice(cfg, pred):
         mb.stop()
     counts = read_counts()
     launches = counts["flash_attn_fwd"]
+    n_batches = len(batches)
 
     for res, w in zip(results, wavs):
         check_result(res, len(w), cfg)
     log(f"  served {len(wavs)} requests ({sum(seconds):.1f} audio-s) in "
-        f"{len(batches)} batch(es) of {batches} in {serve_s:.3f} s; "
+        f"{n_batches} batch(es) of {batches} in {serve_s:.3f} s; "
         f"launches {counts}")
-    if (launches != cfg.num_hidden_layers * len(batches) or launches == 0
+    if (launches != cfg.num_hidden_layers * n_batches or launches == 0
             or counts["flash_attn_bwd_dq"] or counts["flash_attn_bwd_dkv"]):
         raise AssertionError(f"expected {cfg.num_hidden_layers} forward "
                              f"launches per batch and no backward, got "
-                             f"{counts} over {len(batches)} batch(es)")
+                             f"{counts} over {n_batches} batch(es)")
 
     kernel_out = mb.run_batch(wavs)
     w2v.multi_head_attention_bhtd = attention.flash_attention_bhtd_plain
@@ -470,7 +480,7 @@ def phase_slice(cfg, pred):
     if min(rs) < 0.999 or agree < 0.99:
         raise AssertionError("the slice through the kernel disagrees with "
                              "the plain attention")
-    return counts
+    return counts, n_batches
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -713,7 +723,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    kernels_only = "--kernels-only" in sys.argv[1:]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -733,19 +742,21 @@ def main() -> int:
     train_lengths = train_batch(cfg)["audio_lengths"]
     train_lengths = cfg.feat_extract_output_lengths(train_lengths).tolist()
     records = phase_kernels(train_lengths)
-    if not kernels_only:
-        t0 = time.perf_counter()
-        pred = APTAIPredictor(random_aptai(cfg, seed=0))
-        log(f"  full-width APTAI (bf16, seed 0) on the card in "
-            f"{time.perf_counter() - t0:.1f} s")
-        serving = phase_slice(cfg, pred)
-        phase_throughput(cfg, pred, card)
-        del pred
-        torch.cuda.empty_cache()
-        training = phase_train(card)
-        # launches over the main path: the serving run and one train step
-        for rec in records:
-            rec["launches"] = serving[rec["name"]] + training[rec["name"]]
+    t0 = time.perf_counter()
+    pred = APTAIPredictor(random_aptai(cfg, seed=0))
+    log(f"  full-width APTAI (bf16, seed 0) on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    serving, n_batches = phase_slice(cfg, pred)
+    phase_throughput(cfg, pred, card)
+    del pred
+    torch.cuda.empty_cache()
+    training = phase_train(card)
+    for rec in records:
+        rec["launches"] = training[rec["name"]]
+        rec["launches_by_path"] = {
+            "serving": {"batches": n_batches,
+                        "launches": serving[rec["name"]]},
+            "train_step": {"steps": 1, "launches": training[rec["name"]]}}
 
     print(json.dumps({"kernels": records}))
     print(card)
