@@ -1,0 +1,120 @@
+"""Lexicon-free CTC prefix beam search, pure Python (the JAX package's
+``decode/beam.py``).
+
+The configuration surface and output contract of
+``torchaudio.models.decoder.ctc_decoder(lexicon=None, nbest=1,
+beam_size=10, beam_threshold=50)``: the collapsed token sequence and the
+frame at which each token was emitted. Scoring is Graves-style prefix
+search, hypotheses that share a collapsed prefix merged by log-sum-exp.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+NEG_INF = -math.inf
+
+
+def _logadd(a: float, b: float) -> float:
+    if a == NEG_INF:
+        return b
+    if b == NEG_INF:
+        return a
+    m = max(a, b)
+    return m + math.log1p(math.exp(min(a, b) - m))
+
+
+@dataclass
+class BeamHypothesis:
+    tokens: Tuple[int, ...]
+    timesteps: Tuple[int, ...]
+    score: float
+
+
+@dataclass
+class _Pref:
+    times: Tuple[int, ...] = ()
+    p_b: float = NEG_INF
+    p_nb: float = NEG_INF
+
+
+def beam_search(log_probs: np.ndarray, blank: int = 0, beam_size: int = 10,
+                beam_threshold: float = 50.0,
+                nbest: int = 1) -> List[BeamHypothesis]:
+    """Decode one utterance. ``log_probs``: (T, V) log-softmax scores."""
+    log_probs = np.asarray(log_probs, np.float64)
+    t_len, vocab = log_probs.shape
+
+    beam: Dict[Tuple[int, ...], _Pref] = {(): _Pref((), 0.0, NEG_INF)}
+
+    for t in range(t_len):
+        row = log_probs[t]
+        best_total = max(_logadd(p.p_b, p.p_nb) for p in beam.values())
+        nxt: Dict[Tuple[int, ...], _Pref] = {}
+
+        def get(toks: Tuple[int, ...], times: Tuple[int, ...]) -> _Pref:
+            pref = nxt.get(toks)
+            if pref is None:
+                pref = _Pref(times)
+                nxt[toks] = pref
+            return pref
+
+        for toks, pr in beam.items():
+            p_tot = _logadd(pr.p_b, pr.p_nb)
+            if p_tot < best_total - beam_threshold:
+                continue
+
+            # blank extension keeps the prefix
+            dst = get(toks, pr.times)
+            dst.p_b = _logadd(dst.p_b, p_tot + row[blank])
+
+            for v in range(vocab):
+                if v == blank:
+                    continue
+                pv = row[v]
+                if p_tot + pv < best_total - beam_threshold:
+                    continue
+                if toks and toks[-1] == v:
+                    # repeat without blank: same prefix
+                    dst = get(toks, pr.times)
+                    dst.p_nb = _logadd(dst.p_nb, pr.p_nb + pv)
+                    # after a blank: doubled token
+                    ext = toks + (v,)
+                    dst2 = get(ext, pr.times + (t,))
+                    dst2.p_nb = _logadd(dst2.p_nb, pr.p_b + pv)
+                else:
+                    ext = toks + (v,)
+                    dst = get(ext, pr.times + (t,))
+                    dst.p_nb = _logadd(dst.p_nb, p_tot + pv)
+
+        ranked = sorted(
+            nxt.items(), key=lambda kv: _logadd(kv[1].p_b, kv[1].p_nb),
+            reverse=True,
+        )[:beam_size]
+        beam = dict(ranked)
+
+    out = [
+        BeamHypothesis(toks, pr.times, _logadd(pr.p_b, pr.p_nb))
+        for toks, pr in sorted(
+            beam.items(), key=lambda kv: _logadd(kv[1].p_b, kv[1].p_nb),
+            reverse=True,
+        )
+    ]
+    return out[:nbest]
+
+
+def decode_best(log_probs: np.ndarray, blank: int = 0,
+                beam_size: int = 10) -> List[int]:
+    """The best beam's token ids for one utterance, (T, V) log-probs."""
+    return list(beam_search(log_probs, blank=blank,
+                            beam_size=beam_size)[0].tokens)
+
+
+def decode_with_times(log_probs: np.ndarray) -> Tuple[List[int], List[int]]:
+    """The best beam's token ids and the frame at which each was emitted."""
+    hyp = beam_search(log_probs)[0]
+    return list(hyp.tokens), list(hyp.timesteps)

@@ -1,4 +1,6 @@
-from aptai_tpu_torch.infer.api import APTAIPredictor, fetch_outputs
+from aptai_tpu_torch.infer.api import (APTAIPredictor, W2V2PRPredictor,
+                                      fetch_outputs)
 from aptai_tpu_torch.infer.server import MicroBatcher
 
-__all__ = ["APTAIPredictor", "MicroBatcher", "fetch_outputs"]
+__all__ = ["APTAIPredictor", "MicroBatcher", "W2V2PRPredictor",
+           "fetch_outputs"]

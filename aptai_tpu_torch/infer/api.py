@@ -1,10 +1,16 @@
-"""The APTAI predictor: batched inference with the reference output schema.
+"""The predictors: batched inference with the reference output schemas.
 
-:class:`APTAIPredictor` pads a list of waveforms to one bucketed shape
-(whole seconds; the batch rounded up to a power of two, pad rows being
-full-width silence), uploads it in one of three transfer encodings, decodes
-it on the device, runs ``APTAI.predict`` and slices the pad rows off.
-``get_aptai_output`` gives the single-utterance dict of the reference.
+Each pads a list of waveforms to one bucketed shape (whole seconds; the
+batch rounded up to a power of two, pad rows being full-width silence),
+uploads it in one of three transfer encodings, decodes it on the device,
+runs the model and slices the pad rows off:
+
+* :class:`APTAIPredictor` runs ``APTAI.predict``; ``get_aptai_output``
+  gives the single-utterance dict of the reference;
+* :class:`W2V2PRPredictor` runs ``W2V2PR.encode``; ``get_embeddings``,
+  ``get_ctc_logits``, ``predict_phonemes_durations`` and ``pred_phn_seq``
+  give the reference's dicts, with the host beam search
+  (``aptai_tpu_torch.decode``).
 """
 
 from __future__ import annotations
@@ -16,8 +22,11 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from aptai_tpu_torch import TV_ORDER
+from aptai_tpu_torch import SAMPLE_RATE, TV_ORDER
+from aptai_tpu_torch.data.vocab import ids_to_phonemes
+from aptai_tpu_torch.decode.beam import decode_best, decode_with_times
 from aptai_tpu_torch.models.aptai import PREDICT_FIELDS
+from aptai_tpu_torch.models.w2v2_pr import ENCODE_FIELDS
 from aptai_tpu_torch.models.wav2vec2 import cast_matmul_weights, compute_dtype
 
 AUDIO_BUCKET = 16_000
@@ -109,14 +118,20 @@ def _prepare(wavs: Sequence[np.ndarray], transfer_dtype: str,
 
 def fetch_outputs(out: Dict) -> Dict[str, np.ndarray]:
     """A dict of tensors → host numpy: one device synchronisation, then
-    one ``.cpu()`` pass (each copy then finds the device idle). Values
-    that are not tensors pass through ``np.asarray``."""
+    one ``.cpu()`` pass (each copy then finds the device idle). A bf16
+    tensor arrives as float32 (numpy has no bfloat16; the values are
+    exact). Values that are not tensors pass through ``np.asarray``."""
     for v in out.values():
         if isinstance(v, torch.Tensor) and v.is_cuda:
             torch.cuda.synchronize(v.device)
             break
-    return {k: v.cpu().numpy() if isinstance(v, torch.Tensor)
-            else np.asarray(v) for k, v in out.items()}
+
+    def host(v):
+        v = v.cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+
+    return {k: host(v) if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in out.items()}
 
 
 def _tv_dict(tvs: np.ndarray) -> Dict[str, List[float]]:
@@ -139,11 +154,17 @@ def check_fields(requested, available, owner: str) -> None:
             f"{owner} produces {sorted(available)}")
 
 
-class APTAIPredictor:
+def _log_softmax_host(logits: np.ndarray) -> np.ndarray:
+    """Numerically stable log-softmax of fetched logits, on the host."""
+    shifted = logits - logits.max(axis=-1, keepdims=True)
+    return shifted - np.log(np.exp(shifted).sum(axis=-1, keepdims=True))
+
+
+class _Predictor:
     def __init__(self, model, device: Union[str, torch.device, None] = None,
                  transfer_dtype: str = "float32"):
-        """``model``: an :class:`aptai_tpu_torch.models.APTAI` with its
-        weights loaded. The predictor serves a copy of it on ``device``
+        """``model``: a model of this package (``APTAI``, ``W2V2PR``) with
+        its weights loaded. The predictor serves a copy of it on ``device``
         (``cuda`` unless named), in eval mode, whose encoder Linear and
         Conv1d weights are cast once to the compute dtype (bf16 under
         ``dtype="bfloat16"``); ``model`` itself is left as it is.
@@ -157,6 +178,12 @@ class APTAIPredictor:
         cast_matmul_weights(serving.wav2vec2, compute_dtype(model.cfg))
         self.model = serving.to(self.device).eval()
         self.transfer_dtype = transfer_dtype
+
+
+class APTAIPredictor(_Predictor):
+    """Serves an :class:`aptai_tpu_torch.models.APTAI` (see
+    :class:`_Predictor` for the serving copy, ``device`` and
+    ``transfer_dtype``)."""
 
     @torch.inference_mode()
     def predict_batch(self, wavs: Sequence[np.ndarray],
@@ -190,3 +217,81 @@ class APTAIPredictor:
             "phn_fc_pred": host["phn_fc_pred"][0, :n],
             "tvs_pred": _tv_dict(host["tvs_pred"][0, :n]),
         }
+
+
+class W2V2PRPredictor(_Predictor):
+    def __init__(self, model, vocab: Optional[Dict[str, int]] = None,
+                 device: Union[str, torch.device, None] = None,
+                 transfer_dtype: str = "float32"):
+        """``model``: an :class:`aptai_tpu_torch.models.W2V2PR`; ``vocab``
+        (token → id) turns decoded ids into phonemes; see
+        :class:`_Predictor` for the serving copy, ``device`` and
+        ``transfer_dtype``."""
+        super().__init__(model, device, transfer_dtype)
+        self.vocab = vocab
+
+    @torch.inference_mode()
+    def encode_batch(self, wavs: Sequence[np.ndarray],
+                     fields: Optional[Sequence[str]] = None,
+                     real_rows: Optional[int] = None) -> Dict:
+        """Batched encode: ``features_hidden`` (B, T, conv_dim[-1]),
+        ``last_transf_hidden`` (B, T, hidden), ``phoneme_logits`` (B, T, V)
+        float32 and ``frame_lengths``, every tensor with leading dim
+        ``len(wavs)``, on the device (no synchronisation). ``fields``
+        keeps only the named outputs (plus ``frame_lengths``).
+        ``real_rows`` (the MicroBatcher protocol) is accepted and ignored:
+        no per-row host work happens here."""
+        del real_rows
+        if fields is not None:
+            check_fields(fields, ENCODE_FIELDS, "W2V2PR.encode")
+        audio, lengths = _prepare(wavs, self.transfer_dtype, self.device)
+        out = self.model.encode(dequantize_transfer(audio), lengths)
+        if fields is not None:
+            out = {k: v for k, v in out.items()
+                   if k in fields or k == "frame_lengths"}
+        return _strip_pad_rows(out, len(wavs))
+
+    def get_embeddings(self, wavs: Sequence[np.ndarray]) -> Dict:
+        """The reference's dict: conv features (B, C, T), final hidden
+        states (B, H, T), logits (B, V, T), the beam-decoded id sequence of
+        each item and the frame counts."""
+        out = fetch_outputs(self.encode_batch(wavs))
+        frame_lengths = out["frame_lengths"]
+        logits = np.asarray(out["phoneme_logits"], np.float32)
+        log_probs = _log_softmax_host(logits)
+        seqs = [decode_best(log_probs[b, :frame_lengths[b]])
+                for b in range(len(wavs))]
+        return {
+            "features_hidden": out["features_hidden"].transpose(0, 2, 1),
+            "last_transf_hidden": out["last_transf_hidden"].transpose(0, 2, 1),
+            "phoneme_logits": logits.transpose(0, 2, 1),
+            "phn_pred_seq_idx": [np.asarray(s) for s in seqs],
+            "frame_seq_lens": frame_lengths,
+        }
+
+    def get_ctc_logits(self, wav) -> np.ndarray:
+        """(T, V) logits of one utterance, valid frames only."""
+        out = fetch_outputs(self.encode_batch(
+            [np.asarray(wav, np.float32)], fields=("phoneme_logits",)))
+        n = int(out["frame_lengths"][0])
+        return np.asarray(out["phoneme_logits"][0, :n])
+
+    def predict_phonemes_durations(self, wav, vocab=None) -> Dict:
+        """Beam-decoded ids, their phonemes (with a vocab) and each token's
+        start time in seconds, ``frame · len(wav) / T / 16000``."""
+        vocab = vocab or self.vocab
+        wav = np.asarray(wav, np.float32)
+        logits = self.get_ctc_logits(wav).astype(np.float32)
+        tokens, times = decode_with_times(_log_softmax_host(logits))
+        frame_sec_ratio = len(wav) / logits.shape[0] / SAMPLE_RATE
+        return {
+            "phn_seq_idx": np.asarray(tokens),
+            "phn_seq_ipa": ids_to_phonemes(vocab, tokens) if vocab else None,
+            "phn_seq_dur": [t * frame_sec_ratio for t in times],
+        }
+
+    def pred_phn_seq(self, wav, vocab=None) -> Dict:
+        """Beam-decoded ids and their phonemes."""
+        out = self.predict_phonemes_durations(wav, vocab)
+        return {"phn_seq_idx": out["phn_seq_idx"],
+                "phn_seq_ipa": out["phn_seq_ipa"]}

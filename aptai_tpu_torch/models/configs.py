@@ -72,6 +72,9 @@ class Wav2Vec2Config:
     quant: str = "none"  # "none" | "w8a8_ffn" | "w8a8"
     activation_partition: Optional[Tuple[Optional[str], Optional[str],
                                          Optional[str]]] = None
+    # the mid-stack feature-extractor layers (kernel 2 or 3, stride 2,
+    # C_in % 128 == 0) as one fused conv + LayerNorm + exact GELU op
+    # (ops/fused_conv.py), channels-last after layer 0; it has no backward
     fused_feature_extractor: bool = False
 
     def __post_init__(self):
@@ -80,7 +83,6 @@ class Wav2Vec2Config:
             "fused_qkv": self.fused_qkv,
             "attention_layout": self.attention_layout != "bhtd",
             "activation_partition": self.activation_partition is not None,
-            "fused_feature_extractor": self.fused_feature_extractor,
             "do_stable_layer_norm": not self.do_stable_layer_norm,
             "remat_policy": self.remat_policy == "dots",
         }

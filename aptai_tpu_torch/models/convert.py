@@ -1,9 +1,12 @@
-"""Weight bridge from the JAX package's APTAI parameter tree.
+"""Weight bridge from the JAX package's parameter trees.
 
 :func:`state_dict_from_jax` takes the JAX ``APTAI`` parameters (nested
 dicts of arrays: ``{"encoder": ..., "tv_linear": ..., "phn_linear": ...}``)
 and returns this package's ``APTAI`` state_dict: HF ``Wav2Vec2Model`` names
-under ``wav2vec2.``, plus ``tv_linear`` and ``phn_linear``. Layouts:
+under ``wav2vec2.``, plus ``tv_linear`` and ``phn_linear``.
+:func:`w2v2_pr_state_dict_from_jax` does the same for ``W2V2PR``
+(``{"encoder", "pr_head"}`` → ``wav2vec2.*`` and ``pr_head``, the layout of
+the JAX package's ``export_w2v2_pr``). Layouts:
 
 * conv kernel (k, Cin, Cout) → (Cout, Cin, k)
 * Dense kernel (in, out) → (out, in); LayerNorm ``scale`` → ``weight``
@@ -80,13 +83,23 @@ def encoder_state_dict_from_jax(enc: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _model_state_dict(params: Mapping, heads) -> Dict[str, torch.Tensor]:
+    sd = {f"wav2vec2.{k}": v for k, v in
+          encoder_state_dict_from_jax(params["encoder"]).items()}
+    for head in heads:
+        sd[f"{head}.weight"] = _t(params[head]["kernel"]).T.contiguous()
+        sd[f"{head}.bias"] = _t(params[head]["bias"])
+    return sd
+
+
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX ``APTAI`` parameter tree → this package's ``APTAI``
     state_dict (float32 CPU tensors; ``load_state_dict`` casts them into
     the model's dtypes)."""
-    sd = {f"wav2vec2.{k}": v for k, v in
-          encoder_state_dict_from_jax(params["encoder"]).items()}
-    for head in ("tv_linear", "phn_linear"):
-        sd[f"{head}.weight"] = _t(params[head]["kernel"]).T.contiguous()
-        sd[f"{head}.bias"] = _t(params[head]["bias"])
-    return sd
+    return _model_state_dict(params, ("tv_linear", "phn_linear"))
+
+
+def w2v2_pr_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ``W2V2PR`` parameter tree → this package's ``W2V2PR``
+    state_dict (float32 CPU tensors)."""
+    return _model_state_dict(params, ("pr_head",))

@@ -3,7 +3,11 @@
   raw wave (B, L)
     → conv feature extractor: per layer Conv1d → channel LayerNorm → GELU
       (layer 0: k10 s5 from 1 channel); under ``torch.no_grad()`` when the
-      feature encoder is frozen
+      feature encoder is frozen. With ``cfg.fused_feature_extractor`` it runs
+      channels-last after layer 0, and each layer that
+      :func:`_fused_fe_applicable` admits is one fused conv + LayerNorm +
+      exact GELU op (``ops.fused_conv``: the Hopper kernel on the card), which
+      has no backward
     → feature projection: LayerNorm → Linear(hidden) → dropout
     → [train() only] SpecAugment: sampled time spans replaced by the learned
       mask embedding, sampled channel spans zeroed (an external
@@ -46,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from aptai_tpu_torch.models.configs import Wav2Vec2Config
 from aptai_tpu_torch.ops.attention import multi_head_attention_bhtd
+from aptai_tpu_torch.ops.fused_conv import fused_conv_ln_gelu, kernel_weight
 
 
 def compute_dtype(cfg: Wav2Vec2Config) -> torch.dtype:
@@ -89,9 +94,27 @@ class Conv1d(nn.Conv1d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+def _fused_fe_applicable(cfg: Wav2Vec2Config, kernel: int, stride: int,
+                         c_in: int) -> bool:
+    """Whether a feature-extractor layer runs as the fused conv + LayerNorm
+    + GELU op: the homogeneous mid-stack layers (wide channels, kernel 2 or
+    3, stride 2) under ``cfg.fused_feature_extractor``. Not layer 0 (k10
+    s5 from 1 channel), nor the stride-1 last layer of ``with_ten_ms()``."""
+    return (cfg.fused_feature_extractor
+            and cfg.feat_extract_norm == "layer"
+            and kernel in (2, 3)
+            and stride == 2
+            and c_in % 128 == 0)
+
+
 class ConvLayerBlock(nn.Module):
     """One feature-extractor layer: valid strided Conv1d → channel
-    LayerNorm (``feat_extract_norm == "layer"``) → GELU, on (B, C, L)."""
+    LayerNorm (``feat_extract_norm == "layer"``) → GELU, on (B, C, L)
+    (``forward``) or channels-last (B, L, C) (``forward_channels_last``).
+    A layer that :func:`_fused_fe_applicable` admits runs channels-last as
+    the fused op, whose numerics are its own: exact GELU whatever
+    ``cfg.gelu`` says, LayerNorm statistics and parameters in float32, the
+    bias rounded to the compute dtype and added in float32."""
 
     def __init__(self, cfg: Wav2Vec2Config, c_in: int, c_out: int,
                  kernel: int, stride: int):
@@ -101,6 +124,8 @@ class ConvLayerBlock(nn.Module):
                            bias=cfg.conv_bias)
         self.layer_norm = (nn.LayerNorm(c_out, eps=cfg.layer_norm_eps)
                            if cfg.feat_extract_norm == "layer" else None)
+        self.fused = _fused_fe_applicable(cfg, kernel, stride, c_in)
+        self._fused_weights = None  # (key, kernel-layout weight, bias)
 
     def forward(self, x):
         x = self.conv(x)
@@ -108,16 +133,61 @@ class ConvLayerBlock(nn.Module):
             x = _layer_norm(self.layer_norm, x.transpose(1, 2)).transpose(1, 2)
         return _gelu(x, self.cfg)
 
+    def forward_channels_last(self, x):  # (B, L, C_in) -> (B, T, C_out)
+        if self.fused:
+            return self._forward_fused(x)
+        x = self.conv(x.transpose(1, 2)).transpose(1, 2)
+        if self.layer_norm is not None:
+            x = _layer_norm(self.layer_norm, x)
+        return _gelu(x, self.cfg)
+
+    def _forward_fused(self, x):
+        # the op refuses an input that needs a gradient; its weights here
+        # are a detached copy, so the parameters are checked first
+        if torch.is_grad_enabled() and any(p.requires_grad
+                                           for p in self.parameters()):
+            raise NotImplementedError(
+                "fused_feature_extractor has no backward: freeze the feature "
+                "encoder (or run under torch.no_grad()) to use it, or turn it "
+                "off to train the feature encoder")
+        w, b = self._kernel_weights(x.dtype)
+        ln = self.layer_norm
+        return fused_conv_ln_gelu(x.contiguous(), w, b, ln.weight.float(),
+                                  ln.bias.float(), self.conv.stride[0],
+                                  ln.eps)
+
+    def _kernel_weights(self, dtype: torch.dtype):
+        """The conv weight in the kernel's (C_out, k, C_in) layout and the
+        bias, both in ``dtype``: made once and reused until the parameters
+        change (in place, or by a move or a cast)."""
+        w, b = self.conv.weight, self.conv.bias
+        key = (dtype, w.device, w.data_ptr(), w._version,
+               None if b is None else (b.data_ptr(), b._version))
+        if self._fused_weights is None or self._fused_weights[0] != key:
+            with torch.no_grad():
+                self._fused_weights = (
+                    key, kernel_weight(w.detach().to(dtype)),
+                    None if b is None else b.detach().to(dtype).contiguous())
+        return self._fused_weights[1:]
+
 
 class FeatureExtractor(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
+        self.channels_last = cfg.fused_feature_extractor
         c_in = (1,) + tuple(cfg.conv_dim[:-1])
         self.conv_layers = nn.ModuleList(
             ConvLayerBlock(cfg, ci, co, k, s) for ci, co, k, s in zip(
                 c_in, cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride))
 
     def forward(self, x):  # (B, L) -> (B, T_frames, conv_dim[-1])
+        if self.channels_last:
+            # layer 0 transposes its output once; every later layer reads
+            # and writes (B, T, C)
+            h = x[:, :, None]
+            for layer in self.conv_layers:
+                h = layer.forward_channels_last(h)
+            return h
         h = x[:, None, :]
         for layer in self.conv_layers:
             h = layer(h)

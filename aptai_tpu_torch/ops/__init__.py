@@ -3,9 +3,15 @@ from aptai_tpu_torch.ops.attention import (flash_attention_bhtd_bwd_plain,
                                            flash_attention_bhtd_plain,
                                            flash_attention_bwd_cuda,
                                            multi_head_attention_bhtd)
+from aptai_tpu_torch.ops.ctc import ctc_forward_score, ctc_loss, greedy_decode
 from aptai_tpu_torch.ops.fir import fir_lowpass, lowpass_fir_taps
+from aptai_tpu_torch.ops.fused_conv import (fused_conv_ln_gelu,
+                                            fused_conv_ln_gelu_cuda,
+                                            fused_conv_ln_gelu_plain)
 
-__all__ = ["fir_lowpass", "flash_attention_bhtd_bwd_plain",
-           "flash_attention_bhtd_cuda", "flash_attention_bhtd_plain",
-           "flash_attention_bwd_cuda", "lowpass_fir_taps",
+__all__ = ["ctc_forward_score", "ctc_loss", "fir_lowpass",
+           "flash_attention_bhtd_bwd_plain", "flash_attention_bhtd_cuda",
+           "flash_attention_bhtd_plain", "flash_attention_bwd_cuda",
+           "fused_conv_ln_gelu", "fused_conv_ln_gelu_cuda",
+           "fused_conv_ln_gelu_plain", "greedy_decode", "lowpass_fir_taps",
            "multi_head_attention_bhtd"]

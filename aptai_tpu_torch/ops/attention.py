@@ -36,6 +36,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from aptai_tpu_torch.ops.kernels import kernel_fn, launch
+
 HEAD_DIM = 64  # the only head width the kernels are built for
 
 
@@ -134,16 +136,6 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                  + [ctypes.c_longlong] * 18 + [ctypes.c_float, ctypes.c_void_p])
 
 
-def _kernel_fn(lib_name: str, fn_name: str, argtypes):
-    from aptai_tpu_torch.ops import kernels
-
-    fn = getattr(kernels.load(lib_name), fn_name)  # one object per name
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-    return fn
-
-
 def _check_kernel_inputs(lengths, **tensors):
     """Device, dtype, shape, stride and alignment checks shared by the
     kernels' wrappers: every tensor (B, H, T, 64) of one dtype on one CUDA
@@ -200,13 +192,6 @@ def _bthd_buffer_like(x: torch.Tensor, dtype=None) -> torch.Tensor:
                        device=x.device).permute(0, 2, 1, 3)
 
 
-def _launch(fn, name: str, device, args) -> None:
-    with torch.cuda.device(device):  # the runtime launches on the current one
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
-
-
 def flash_attention_bhtd_cuda(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor,
                               lengths: Optional[torch.Tensor] = None,
@@ -229,8 +214,8 @@ def flash_attention_bhtd_cuda(q: torch.Tensor, k: torch.Tensor,
     o = _bthd_buffer_like(q)
     lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    fn = _kernel_fn("flash_attn_fwd", _FWD_FNS[q.dtype], _FWD_ARGTYPES)
-    _launch(fn, "flash_attn_fwd", q.device, (
+    fn = kernel_fn("flash_attn_fwd", _FWD_FNS[q.dtype], _FWD_ARGTYPES)
+    launch(fn, "flash_attn_fwd", q.device, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         0 if lse is None else lse.data_ptr(), lengths.data_ptr(), b, h, t, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
@@ -268,8 +253,8 @@ def flash_attention_bwd_dq_cuda(q, k, v, dout, lse, delta,
     lengths = _lengths_or_full(lengths, b, t, q.device)
     _check_kernel_inputs(lengths, q=q, k=k, v=v, dout=dout)
     dq = _bthd_buffer_like(q)
-    fn = _kernel_fn("flash_attn_bwd", _DQ_FNS[q.dtype], _BWD_ARGTYPES)
-    _launch(fn, "flash_attn_bwd_dq", q.device,
+    fn = kernel_fn("flash_attn_bwd", _DQ_FNS[q.dtype], _BWD_ARGTYPES)
+    launch(fn, "flash_attn_bwd_dq", q.device,
             _bwd_args(q, k, v, dout, lse, delta, lengths, dq, None))
     flash_attention_bwd_dq_cuda.launches += 1
     return dq
@@ -290,8 +275,8 @@ def flash_attention_bwd_dkv_cuda(q, k, v, dout, lse, delta,
     lengths = _lengths_or_full(lengths, b, t, q.device)
     _check_kernel_inputs(lengths, q=q, k=k, v=v, dout=dout)
     dk, dv = _bthd_buffer_like(k), _bthd_buffer_like(v)
-    fn = _kernel_fn("flash_attn_bwd", _DKV_FNS[q.dtype], _BWD_ARGTYPES)
-    _launch(fn, "flash_attn_bwd_dkv", q.device,
+    fn = kernel_fn("flash_attn_bwd", _DKV_FNS[q.dtype], _BWD_ARGTYPES)
+    launch(fn, "flash_attn_bwd_dkv", q.device,
             _bwd_args(q, k, v, dout, lse, delta, lengths, dk, dv))
     flash_attention_bwd_dkv_cuda.launches += 1
     return dk, dv

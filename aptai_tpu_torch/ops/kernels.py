@@ -21,6 +21,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
@@ -28,6 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES: Dict[str, tuple] = {
     "flash_attn_fwd": ("flash_attn_fwd.cu",),
     "flash_attn_bwd": ("flash_attn_bwd.cu",),
+    "fused_conv_ln_gelu": ("fused_conv_ln_gelu.cu",),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -100,3 +103,22 @@ def load(name: str) -> ctypes.CDLL:
             build_all([name])
             _libs[name] = ctypes.CDLL(str(library_path(name)))
         return _libs[name]
+
+
+def kernel_fn(lib_name: str, fn_name: str, argtypes):
+    """The C entry point ``fn_name`` of kernel library ``lib_name``, with
+    its ctypes signature set (an int CUDA error code is returned)."""
+    fn = getattr(load(lib_name), fn_name)  # one object per name
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return fn
+
+
+def launch(fn, name: str, device, args) -> None:
+    """Call a kernel entry point on ``device``'s current stream (passed as
+    the last argument); raise if it returns a CUDA error."""
+    with torch.cuda.device(device):  # the runtime launches on the current one
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")

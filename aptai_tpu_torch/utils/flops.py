@@ -8,7 +8,7 @@ the true sequence length, not the padded work the card executes.
   * feature projection; grouped positional conv 2·T·k·(C/G)·C;
   * per transformer layer: 4 h×h projections, QKᵀ + AV (4·T²·h), and the
     two FFN GEMMs;
-  * the APTAI heads and the FIR.
+  * the APTAI heads and the FIR, or the W2V2PR CTC head.
 
 Elementwise work (LayerNorm, GELU, softmax) is left out. A training step
 counts 3× the forward (the backward's two products per forward product),
@@ -77,6 +77,14 @@ def aptai_forward_flops(cfg: Wav2Vec2Config, samples: int,
     heads = 2 * t * h * num_tvs + 2 * t * h * num_phonemes
     fir = 2 * t * 51 * num_tvs
     return enc["total"] + heads + fir
+
+
+def pr_forward_flops(cfg: Wav2Vec2Config, samples: int,
+                     vocab_size: Optional[int] = None) -> int:
+    """W2V2PR forward: encoder + the CTC head."""
+    enc = encoder_flops(cfg, samples)
+    v = cfg.vocab_size if vocab_size is None else vocab_size
+    return enc["total"] + 2 * enc["frames"] * cfg.hidden_size * v
 
 
 def training_step_flops(forward_flops: int) -> int:

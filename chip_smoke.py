@@ -14,33 +14,52 @@ Phases (any failure ends the run with a non-zero exit code):
    its logsumexp) at the serving shape (bf16, B=32, H=16, T=499, D=64) and
    the forward, dq and dk/dv kernels at the training shape (B=8, H=16,
    T=249), with ragged lengths including 0 and 1, T=1100 for several tiles,
-   and the float32 variants; then each kernel's time beside its bound, its
-   plain version's time and a PyTorch library call's time as a yardstick.
+   and the float32 variants; the fused conv + LayerNorm + GELU at the
+   shapes of feature-extractor layers 1 and 6 of a 32 x 10 s batch, ragged
+   (T_out not a multiple of the tile, T_out = 1), with and without bias, and
+   its float32 variant; then each kernel's time beside its bound, its plain
+   version's time and a PyTorch yardstick (one library call, or for the
+   fused conv the chain conv1d -> LayerNorm -> GELU), per fused layer.
 3. Serving: a small float32 model on the card against the same model on
    the CPU; then full-width wav2vec2-large APTAI in bf16 (weights from seed
    0) served by the ``MicroBatcher`` on its background thread, 8 requests of
    1-10 s, with the kernel launch counts read around that run; then the
    same batch with attention forced to the plain version, which must agree.
+3b. W2V2PR serving: a small float32 W2V2PR with the fused feature extractor
+   on the card against the CPU (logits, CTC loss, greedy sequences); then
+   full-width bf16 W2V2PR (vocab 46, ``fused_feature_extractor=True``, seed
+   0) behind the ``MicroBatcher``, 8 requests of 1-10 s, 6 fused and 24
+   flash-forward launches per batch; the same batch with the fused layers
+   forced to the plain version, which must agree; ``get_embeddings`` and
+   ``predict_phonemes_durations`` on two items.
 4. Serving throughput: ``predict_batch`` at 32 x 10 s, audio-s/s and MFU,
    and a profiler breakdown of one batch by kernel.
+4b. W2V2PR ``encode_batch`` at 32 x 10 s (audio-s/s, MFU, a profile); APTAI
+   ``predict_batch`` at 32 x 10 s with the fused feature extractor off and
+   on, alternated off, on, on, off, and each one's feature extractor alone
+   under the profiler. Records, not claims.
 5. Training: a small float32 model's train step on the card against the
    CPU; then the full-width bf16 APTAI train step (float32 masters, seed 0)
    at 8 x 5 s with dropout and SpecAugment on and the feature encoder
    frozen, with the kernel launch counts of one step, train audio-s/s, MFU,
    peak memory and a profile; the same batch without dropout through the
    kernels and through plain attention, whose gradients must agree; one
-   step with ``remat_policy="full"``.
+   step with ``remat_policy="full"``; one step with the fused feature
+   extractor (6 fused launches, a finite loss); and W2V2PR with a trainable
+   encoder and the flag on, which must refuse to run.
 
 Output: the phases' lines, then one JSON line of kernel records, the card
-line, and last ``{"ok": true, "device": {...}}``. A kernel record's
-``launches`` is its count over one train step of phase 5, and
-``launches_by_path`` holds each path's own count: the batches served in
-phase 3 and that train step, each read with the counts set to 0 just before
-it.
+line, and last ``{"ok": true, "device": {...}}``. A flash kernel record's
+``launches`` is its count over one train step of phase 5, the fused conv's
+its count over the W2V2PR batches of phase 3b; ``launches_by_path`` holds
+each path's own count (APTAI serving, W2V2PR serving, the train step, the
+train step with the fused feature extractor), each read with the counts set
+to 0 just before it.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import subprocess
@@ -50,13 +69,16 @@ import time
 import numpy as np
 import torch
 
-from aptai_tpu_torch.infer import APTAIPredictor, MicroBatcher
-from aptai_tpu_torch.models import Wav2Vec2Config, random_aptai, tiny_config
+from aptai_tpu_torch.infer import APTAIPredictor, MicroBatcher, W2V2PRPredictor
+from aptai_tpu_torch.models import (APTAI, Wav2Vec2Config, random_aptai,
+                                    random_w2v2_pr, tiny_config)
 from aptai_tpu_torch.models import wav2vec2 as w2v
-from aptai_tpu_torch.ops import attention, kernels
+from aptai_tpu_torch.ops import attention, fused_conv, kernels
+from aptai_tpu_torch.ops.ctc import greedy_decode
 from aptai_tpu_torch.train import TrainStep, torch_adam
 from aptai_tpu_torch.utils.flops import (aptai_forward_flops,
                                          device_peak_tflops, mfu,
+                                         pr_forward_flops,
                                          training_step_flops)
 
 # H100 SXM (NVIDIA data sheet): dense bf16 tensor-core peak, HBM3 rate
@@ -70,6 +92,12 @@ BF16_TOL = 2e-2
 # falls differently when exp differs in its last bit
 BF16_BWD_REL_TOL = 2e-2
 F32_TOL = 1e-4  # float32 variants: summation order and exp/log ulps
+# the fused conv in bf16: the kernel and the plain version sum the conv's
+# 1536 products in other orders, so a bf16 rounding boundary may fall on
+# either side (one ulp); and where LayerNorm's acc − mean cancels to
+# |y| ~ 1e-4, the ~1e-6 absolute f32 summation error is many ulps of the
+# tiny output (both sit that far from a float64 reference there)
+FUSED_BF16_ATOL = 1e-5
 LSE_TOL = 1e-3  # logsumexp of unit-scale scores, f32 in both versions
 NO_DROP = dict(hidden_dropout=0.0, activation_dropout=0.0,
                attention_dropout=0.0, feat_proj_dropout=0.0)
@@ -77,7 +105,21 @@ COUNTED = {
     "flash_attn_fwd": attention.flash_attention_bhtd_cuda,
     "flash_attn_bwd_dq": attention.flash_attention_bwd_dq_cuda,
     "flash_attn_bwd_dkv": attention.flash_attention_bwd_dkv_cuda,
+    "fused_conv_ln_gelu": fused_conv.fused_conv_ln_gelu_cuda,
 }
+FLASH = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+# wav2vec2-large's feature extractor at 32 x 10 s: layer 0's output length,
+# then layers 1-6 (kernel, stride 2, C 512), the fused layers
+FE_LENGTH0 = 31999
+FE_KERNELS = (3, 3, 3, 3, 2, 2)
+
+
+def fe_input_lengths():
+    """The input length of each fused layer at 32 x 10 s."""
+    lengths = [FE_LENGTH0]
+    for k in FE_KERNELS[:-1]:
+        lengths.append((lengths[-1] - k) // 2 + 1)
+    return lengths
 
 
 def log(*args):
@@ -333,6 +375,127 @@ def time_training_kernels(gen, lengths):
     return records, fwd_ms
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers (8 significant bits) at |x|: with
+    |x| = m·2^e, m in [0.5, 1), it is 2^(e − 8) (frexp is exact; a log2
+    need not be at a power of two)."""
+    _, exp = torch.frexp(x.float().abs().clamp(min=1e-30))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exp - 8)
+
+
+def fused_operands(gen, b, length, c_in, c_out, k, dtype, bias=True):
+    """Unit-scale x (B, L, C_in), w (C_out, k, C_in) scaled to unit-scale
+    outputs, bias and LayerNorm parameters near the model's."""
+    x = torch.randn((b, length, c_in), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((c_out, k, c_in), generator=gen, device="cuda")
+         / (k * c_in) ** 0.5).to(dtype)
+    bb = (torch.randn((c_out,), generator=gen, device="cuda").to(dtype)
+          if bias else None)
+    ln_w = 1.0 + 0.1 * torch.randn((c_out,), generator=gen, device="cuda")
+    ln_b = 0.1 * torch.randn((c_out,), generator=gen, device="cuda")
+    return x, w, bb, ln_w, ln_b
+
+
+def check_fused_cases(gen):
+    """The fused kernel against its plain version: bf16 within one bf16
+    ulp of the output plus FUSED_BF16_ATOL, float32 within F32_TOL.
+    Returns the max abs error."""
+    first, last = fe_input_lengths()[0], fe_input_lengths()[-1]
+    cases = [
+        ("layer 1, 32 x 10 s", (32, first, 512, 512, 3, torch.bfloat16,
+                                True)),
+        ("layer 6, 32 x 10 s, no bias", (32, last, 512, 512, 2,
+                                         torch.bfloat16, False)),
+        ("ragged: T_out 150, 3 tiles", (3, 301, 512, 512, 3, torch.bfloat16,
+                                        True)),
+        ("T_out 1, k 3", (2, 3, 512, 512, 3, torch.bfloat16, True)),
+        ("T_out 1, k 2, no bias", (1, 2, 512, 512, 2, torch.bfloat16, False)),
+        ("float32 variant", (4, 1601, 512, 512, 3, torch.float32, True)),
+        ("float32 variant, C 128, no bias", (2, 301, 128, 128, 2,
+                                             torch.float32, False)),
+        ("float32 variant, T_out 1", (1, 3, 512, 512, 3, torch.float32, True)),
+    ]
+    worst = 0.0
+    for name, (b, length, c_in, c_out, k, dtype, bias) in cases:
+        x, w, bb, ln_w, ln_b = fused_operands(gen, b, length, c_in, c_out, k,
+                                              dtype, bias)
+        got = fused_conv.fused_conv_ln_gelu_cuda(x, w, bb, ln_w, ln_b, 2)
+        torch.cuda.synchronize()
+        want = fused_conv.fused_conv_ln_gelu_plain(x, w, bb, ln_w, ln_b, 2)
+        err = (got.float() - want.float()).abs()
+        if dtype == torch.bfloat16:
+            ok = bool((err <= bf16_ulp(want) + FUSED_BF16_ATOL).all())
+        else:
+            ok = err.max().item() <= F32_TOL
+        ok = ok and got.shape == want.shape and bool(
+            torch.isfinite(got.float()).all())
+        log(f"  fused_conv_ln_gelu {name}: x {tuple(x.shape)} {dtype} k {k} "
+            f"-> T_out {got.shape[1]}, max_abs_err {err.max().item():.3e}")
+        if not ok:
+            raise AssertionError(f"the fused conv kernel disagrees with its "
+                                 f"plain version: {name}")
+        worst = max(worst, err.max().item())
+        del x, got, want, err
+    return worst
+
+
+def time_fused_layers(gen):
+    """Each fused layer of a 32 x 10 s batch (bf16, C 512): the kernel's
+    device time, its bound, the plain version's, and as a yardstick the
+    chain of PyTorch calls that computes the same function (cuDNN conv1d
+    on the channels-first view, float32 LayerNorm, exact GELU, bf16
+    cast)."""
+    import torch.nn.functional as F
+
+    layers = []
+    for i, (length, k) in enumerate(zip(fe_input_lengths(), FE_KERNELS),
+                                    start=1):
+        x, w, bb, ln_w, ln_b = fused_operands(gen, 32, length, 512, 512, k,
+                                              torch.bfloat16)
+        w_hf = w.permute(0, 2, 1).contiguous()  # (C_out, C_in, k)
+        t_out = (length - k) // 2 + 1
+
+        def chain():
+            y = F.conv1d(x.transpose(1, 2), w_hf, bb, stride=2)
+            y = F.layer_norm(y.transpose(1, 2).float(), (512,), ln_w, ln_b)
+            return F.gelu(y).to(torch.bfloat16)
+
+        ms = device_ms(lambda: fused_conv.fused_conv_ln_gelu_cuda(
+            x, w, bb, ln_w, ln_b, 2), 20, "fused_conv_ln_gelu_bf16")
+        plain_ms = device_ms(lambda: fused_conv.fused_conv_ln_gelu_plain(
+            x, w, bb, ln_w, ln_b, 2), 3)
+        chain_ms = device_ms(chain, 10)
+        flops = 2 * 32 * t_out * k * 512 * 512
+        nbytes = 2 * 32 * (length + t_out) * 512 + 2 * k * 512 * 512 + 12 * 512
+        bound_ms, bound_by = bound(flops, nbytes)
+        layers.append({"layer": i, "x": [32, length, 512], "k": k,
+                       "t_out": t_out, "ms": ms, "plain_ms": plain_ms,
+                       "chain_ms": chain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "flops": flops, "bytes": nbytes})
+        log(f"  fused_conv_ln_gelu layer {i} (x (32, {length}, 512), k {k}, "
+            f"T_out {t_out}): {ms * 1e3:.1f} us | plain {plain_ms * 1e3:.1f} "
+            f"us | conv->LN->GELU chain {chain_ms * 1e3:.1f} us | bound "
+            f"{bound_ms * 1e3:.1f} us ({bound_by}) | "
+            f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+        del x
+    total = {key: sum(l[key] for l in layers)
+             for key in ("ms", "plain_ms", "chain_ms", "flops", "bytes")}
+    bound_ms, bound_by = bound(total["flops"], total["bytes"])
+    log(f"  fused_conv_ln_gelu, the six launches of a 32 x 10 s batch: "
+        f"{total['ms'] * 1e3:.1f} us | plain {total['plain_ms'] * 1e3:.1f} us"
+        f" | chain {total['chain_ms'] * 1e3:.1f} us | bound "
+        f"{bound_ms * 1e3:.1f} us ({bound_by})")
+    return {"ms": total["ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "chain_ms": total["chain_ms"],
+            "ms_covers": "the six launches of one 32 x 10 s bf16 batch "
+                         "(feature-extractor layers 1-6), device time",
+            "chain_covers": "a chain of calls, not one library call: cuDNN "
+                            "conv1d, float32 F.layer_norm, exact F.gelu, "
+                            "bf16 cast, on the same channels-last input",
+            "per_layer": layers}
+
+
 def phase_kernels(train_lengths):
     log("== phase 2: kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -356,25 +519,31 @@ def phase_kernels(train_lengths):
         ("float32 variant, T=1100", (2, 2, 1100, torch.float32, False),
          [1100, 65]),
     ]
-    errs = {name: 0.0 for name in COUNTED}
+    errs = {name: 0.0 for name in FLASH}
     for name, (bb, hh, tt, dtype, layout), lengths in cases:
         q, k, v, do = _qkv(gen, bb, hh, tt, dtype, layout, n=4)
         for kname, err in check_kernel_case(name, q, k, v, do,
                                             lengths).items():
             errs[kname] = max(errs[kname], err)
 
+    errs["fused_conv_ln_gelu"] = check_fused_cases(gen)
+
     records = {"flash_attn_fwd": time_forward(gen)}
     train_records, fwd_lse_ms = time_training_kernels(gen, train_lengths)
     records.update(train_records)
-    replaces = {"flash_attn_fwd": ("flash_attn_fwd.cu", 64),
-                "flash_attn_bwd_dq": ("flash_attn_bwd.cu", 170),
-                "flash_attn_bwd_dkv": ("flash_attn_bwd.cu", 216)}
+    records["fused_conv_ln_gelu"] = time_fused_layers(gen)
+    torch.cuda.empty_cache()
+    replaces = {
+        "flash_attn_fwd": ("flash_attn_fwd.cu", "attention.py:64"),
+        "flash_attn_bwd_dq": ("flash_attn_bwd.cu", "attention.py:170"),
+        "flash_attn_bwd_dkv": ("flash_attn_bwd.cu", "attention.py:216"),
+        "fused_conv_ln_gelu": ("fused_conv_ln_gelu.cu", "fused_conv.py:83")}
     out = []
     for name, rec in records.items():
-        src, line = replaces[name]
+        src, where = replaces[name]
         out.append({"name": name, "route": "cuda",
                      "source": f"aptai_tpu_torch/csrc/{src}",
-                     "replaces": f"aptai_tpu/ops/attention.py:{line}",
+                     "replaces": f"aptai_tpu/ops/{where}",
                      "launches": None, "launches_by_path": None,
                      "max_abs_err": errs[name], **rec})
     return out
@@ -458,10 +627,12 @@ def phase_slice(cfg, pred):
         f"{n_batches} batch(es) of {batches} in {serve_s:.3f} s; "
         f"launches {counts}")
     if (launches != cfg.num_hidden_layers * n_batches or launches == 0
-            or counts["flash_attn_bwd_dq"] or counts["flash_attn_bwd_dkv"]):
+            or counts["flash_attn_bwd_dq"] or counts["flash_attn_bwd_dkv"]
+            or counts["fused_conv_ln_gelu"]):
         raise AssertionError(f"expected {cfg.num_hidden_layers} forward "
-                             f"launches per batch and no backward, got "
-                             f"{counts} over {n_batches} batch(es)")
+                             f"launches per batch, no backward and no fused "
+                             f"conv (the flag is off), got {counts} over "
+                             f"{n_batches} batch(es)")
 
     kernel_out = mb.run_batch(wavs)
     w2v.multi_head_attention_bhtd = attention.flash_attention_bhtd_plain
@@ -480,6 +651,203 @@ def phase_slice(cfg, pred):
     if min(rs) < 0.999 or agree < 0.99:
         raise AssertionError("the slice through the kernel disagrees with "
                              "the plain attention")
+    return counts, n_batches
+
+
+# -- phase 3b -----------------------------------------------------------------
+
+def small_pr_config():
+    """A small float32 W2V2PR (head dim 64) whose conv layers 1 and 2 take
+    the fused path (C 128: the kernel's float32 variant on the card)."""
+    return tiny_config(hidden_size=128, num_attention_heads=2,
+                       intermediate_size=256, conv_dim=(128,) * 3,
+                       vocab_size=46, fused_feature_extractor=True, **NO_DROP)
+
+
+def check_small_pr_reference(device: str = "cuda"):
+    """The small float32 W2V2PR on the card against the same weights on
+    the CPU, which runs the plain fused op and plain attention: logits,
+    CTC loss and greedy sequences."""
+    cfg = small_pr_config()
+    model = random_w2v2_pr(cfg, seed=1).eval()
+    rng = np.random.default_rng(4)
+    audio = (rng.standard_normal((3, 31_000)) * 0.1).astype(np.float32)
+    lens = np.array([31_000, 20_000, 9_000], np.int32)
+    audio[1, 20_000:] = 0.0
+    audio[2, 9_000:] = 0.0
+    labels = np.array([[5, 5, 9, 1, 30, 2, 7], [4, 17, 17, 2, 45, -100, -100],
+                       [3, 8, -100, -100, -100, -100, -100]], np.int64)
+    runs = {}
+    for dev in ("cpu", device):
+        m = copy.deepcopy(model).to(dev)
+        reset_counts()
+        with torch.no_grad():
+            out = m(*(torch.from_numpy(a).to(dev)
+                      for a in (audio, lens, labels)))
+            toks, n = greedy_decode(out["phoneme_logits"],
+                                    out["frame_lengths"])
+        runs[dev] = ({k: v.cpu() for k, v in out.items()}, toks.cpu(),
+                     n.cpu(), read_counts()["fused_conv_ln_gelu"])
+    (oc, tc, nc, _), (og, tg, ng, fused_launches) = runs["cpu"], runs[device]
+    err = (og["phoneme_logits"] - oc["phoneme_logits"]).abs().max().item()
+    same = [bool(ng[b] == nc[b]) and torch.equal(tg[b, :nc[b]], tc[b, :nc[b]])
+            for b in range(3)]
+    log(f"  small f32 W2V2PR, card vs CPU: logits max_abs_err {err:.2e}, "
+        f"loss {og['loss'].item():.6f} vs {oc['loss'].item():.6f}, greedy "
+        f"sequences identical {same} ({nc.tolist()} tokens), fused launches "
+        f"on the card {fused_launches}")
+    # float32 in both: summation order, erf and exp ulps
+    if not (torch.equal(og["frame_lengths"], oc["frame_lengths"])
+            and err <= 1e-3 and all(same) and fused_launches == 2
+            and abs(og["loss"].item() - oc["loss"].item())
+            <= 1e-4 * abs(oc["loss"].item())):
+        raise AssertionError("the card's W2V2PR disagrees with the CPU's")
+
+
+def check_pr_result(res, n_samples, cfg):
+    n = int(cfg.feat_extract_output_lengths(n_samples))
+    ok = (int(res["frame_lengths"]) == n
+          and res["phoneme_logits"].shape == (n, cfg.vocab_size)
+          and res["last_transf_hidden"].shape == (n, cfg.hidden_size)
+          and res["features_hidden"].shape == (n, cfg.conv_dim[-1])
+          and all(np.isfinite(res[k]).all() for k in (
+              "phoneme_logits", "last_transf_hidden", "features_hidden")))
+    if not ok:
+        raise AssertionError(f"bad W2V2PR result for a {n_samples}-sample "
+                             f"request: frames {res['frame_lengths']}")
+
+
+def edit_distance(a, b) -> int:
+    prev = list(range(len(b) + 1))
+    for i, x in enumerate(a, start=1):
+        cur = [i] + [0] * len(b)
+        for j, y in enumerate(b, start=1):
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (x != y))
+        prev = cur
+    return prev[-1]
+
+
+def output_agreement(got, want):
+    """Per-frame argmax agreement of two runs' phoneme logits, and their
+    greedy CTC sequences: identical items, and the token error rate
+    (edit distance over ``want``'s tokens)."""
+    def greedy(res):
+        ids = res["phoneme_logits"].argmax(-1)
+        keep = (ids != 0) & np.concatenate([[True], ids[1:] != ids[:-1]])
+        return ids[keep].tolist()
+
+    agree = float(np.mean(np.concatenate([
+        a["phoneme_logits"].argmax(-1) == b["phoneme_logits"].argmax(-1)
+        for a, b in zip(got, want)])))
+    seqs = [(greedy(a), greedy(b)) for a, b in zip(got, want)]
+    same = sum(a == b for a, b in seqs)
+    ter = (sum(edit_distance(a, b) for a, b in seqs)
+           / max(sum(len(b) for _, b in seqs), 1))
+    return {"argmax": agree, "same": same, "ter": ter,
+            "text": f"logits argmax agreement {agree:.4%}, greedy sequences "
+                    f"identical on {same} of {len(seqs)} items, token error "
+                    f"rate {ter:.4%}"}
+
+
+def phase_pr_serving(pr_cfg, pr_pred):
+    log("== phase 3b: W2V2PR serving, fused feature extractor")
+    check_small_pr_reference()
+    batches = []
+
+    def serve(wavs, fields=None, real_rows=None):
+        batches.append(len(wavs))
+        return pr_pred.encode_batch(wavs, fields=fields, real_rows=real_rows)
+
+    rng = np.random.default_rng(5)
+    seconds = (1.0, 10.0, 2.3, 4.7, 6.1, 7.9, 3.3, 8.6)
+    wavs = [(rng.standard_normal(int(sec * SAMPLE_RATE)) * 0.1).astype(
+        np.float32) for sec in seconds]
+    mb = MicroBatcher(serve, max_batch_size=8, max_wait_ms=20.0)
+    mb.warmup(seconds=10.0, cycles=1)
+    batches.clear()
+
+    reset_counts()
+    mb.start()
+    try:
+        t0 = time.perf_counter()
+        futs = [mb.submit(w) for w in wavs]
+        results = [f.result(timeout=600) for f in futs]
+        serve_s = time.perf_counter() - t0
+    finally:
+        mb.stop()
+    counts = read_counts()
+    n_batches = len(batches)
+    for res, w in zip(results, wavs):
+        check_pr_result(res, len(w), pr_cfg)
+    log(f"  served {len(wavs)} requests ({sum(seconds):.1f} audio-s) in "
+        f"{n_batches} batch(es) of {batches} in {serve_s:.3f} s; launches "
+        f"{counts}")
+    if not (n_batches and counts["fused_conv_ln_gelu"] == 6 * n_batches
+            and counts["flash_attn_fwd"] == pr_cfg.num_hidden_layers
+            * n_batches and not counts["flash_attn_bwd_dq"]
+            and not counts["flash_attn_bwd_dkv"]):
+        raise AssertionError(f"expected 6 fused and "
+                             f"{pr_cfg.num_hidden_layers} flash-forward "
+                             f"launches per batch, got {counts} over "
+                             f"{n_batches} batch(es)")
+
+    # the same batch with the fused layers forced to the plain version; and,
+    # as the model's own noise floor, the plain version on the waveforms
+    # scaled by 1 + 2^-9 (half a bf16 ulp: about half of layer 0's input
+    # roundings flip), since random weights over 24 layers carry a
+    # one-ulp difference anywhere into some argmax flips
+    kernel_out = mb.run_batch(wavs)
+    w2v.fused_conv_ln_gelu = fused_conv.fused_conv_ln_gelu_plain
+    try:
+        reset_counts()
+        plain_out = mb.run_batch(wavs)
+        plain_counts = read_counts()
+        nudged_out = mb.run_batch([w * np.float32(1 + 2 ** -9) for w in wavs])
+    finally:
+        w2v.fused_conv_ln_gelu = fused_conv.fused_conv_ln_gelu
+    feat_err = max(float(np.abs(a["features_hidden"]
+                                - b["features_hidden"]).max())
+                   for a, b in zip(kernel_out, plain_out))
+    kernel_vs_plain = output_agreement(kernel_out, plain_out)
+    floor = output_agreement(nudged_out, plain_out)
+    log(f"  fused kernel vs plain fused op, same batch: features max_abs_err "
+        f"{feat_err:.3e}; {kernel_vs_plain['text']}")
+    log(f"  noise floor, plain on the waveforms x (1 + 2^-9) vs plain: "
+        f"{floor['text']}")
+    # bounds: the features within a few bf16 ulps of their magnitude (up
+    # to 8: 2^-4), and the kernel moving the output no more than the
+    # nudge does (one point of slack on each rate), and argmax >= 95 %
+    ok = (feat_err <= 2 ** -4 and not plain_counts["fused_conv_ln_gelu"]
+          and kernel_vs_plain["argmax"] >= 0.95
+          and kernel_vs_plain["argmax"] >= floor["argmax"] - 0.01
+          and kernel_vs_plain["ter"] <= floor["ter"] + 0.01)
+    if not ok:
+        raise AssertionError("W2V2PR through the fused kernel disagrees with "
+                             "the plain fused op beyond the noise floor")
+
+    emb = pr_pred.get_embeddings(wavs[:2])
+    n = emb["frame_seq_lens"]
+    durs = [pr_pred.predict_phonemes_durations(w) for w in wavs[:2]]
+    log(f"  get_embeddings on 2 items: features {emb['features_hidden'].shape}"
+        f", hidden {emb['last_transf_hidden'].shape}, logits "
+        f"{emb['phoneme_logits'].shape}, frames {n.tolist()}, beam tokens "
+        f"{[len(x) for x in emb['phn_pred_seq_idx']]}; "
+        f"predict_phonemes_durations: tokens "
+        f"{[len(d['phn_seq_idx']) for d in durs]}, last start "
+        f"{[round(d['phn_seq_dur'][-1], 3) if d['phn_seq_dur'] else None for d in durs]} s")
+    t = emb["phoneme_logits"].shape[2]
+    ok = (emb["features_hidden"].shape == (2, pr_cfg.conv_dim[-1], t)
+          and emb["last_transf_hidden"].shape == (2, pr_cfg.hidden_size, t)
+          and emb["phoneme_logits"].shape == (2, pr_cfg.vocab_size, t)
+          and all(0 < s.max() < pr_cfg.vocab_size if len(s) else True
+                  for s in emb["phn_pred_seq_idx"]))
+    for d, w in zip(durs, wavs[:2]):
+        times = d["phn_seq_dur"]
+        ok = ok and len(times) == len(d["phn_seq_idx"]) and all(
+            0 <= a <= b <= len(w) / SAMPLE_RATE
+            for a, b in zip(times, times[1:] + [len(w) / SAMPLE_RATE]))
+    if not ok:
+        raise AssertionError("bad get_embeddings / predict_phonemes_durations")
     return counts, n_batches
 
 
@@ -532,6 +900,84 @@ def phase_throughput(cfg, pred, card):
         f" ({flops / 1e12:.2f} TFLOP per batch) on {card}")
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_breakdown(lambda: pred.predict_batch(wavs), "one batch")
+
+
+# -- phase 4b -----------------------------------------------------------------
+
+def timed_batches(fn, n: int = 5, warmup: int = 2):
+    """Host times of ``n`` calls of ``fn``, each bracketed by
+    synchronisations, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def phase_pr_throughput(pr_cfg, pr_pred, card):
+    log("== phase 4b: W2V2PR encode_batch at 32 x 10 s")
+    rng = np.random.default_rng(6)
+    wavs = [(rng.standard_normal(10 * SAMPLE_RATE) * 0.1).astype(np.float32)
+            for _ in range(32)]
+    times = timed_batches(lambda: pr_pred.encode_batch(wavs))
+    sec = float(np.median(times))
+    flops = 32 * pr_forward_flops(pr_cfg, 10 * SAMPLE_RATE)
+    util = mfu(flops, sec, device_peak_tflops())
+    log(f"  batch times (s): {[round(x, 5) for x in times]}")
+    log(f"  {32 * 10 / sec:.1f} audio-s/s, {sec * 1e3:.2f} ms per batch, "
+        f"MFU {'not known for this card' if util is None else f'{util:.4f}'}"
+        f" ({flops / 1e12:.2f} TFLOP per batch) on {card}")
+    profile_breakdown(lambda: pr_pred.encode_batch(wavs), "one W2V2PR batch")
+
+
+def phase_fused_ab(cfg, aptai_model, pred_off, card):
+    """APTAI predict_batch at 32 x 10 s with the fused feature extractor
+    off and on (the same weights), alternated off, on, on, off in this
+    process; then each case's feature extractor alone under the profiler."""
+    log("== phase 4b: APTAI serving, fused_feature_extractor off / on")
+    cfg_on = dataclasses.replace(cfg, fused_feature_extractor=True)
+    model_on = APTAI(cfg_on)
+    model_on.load_state_dict(aptai_model.state_dict())
+    pred_on = APTAIPredictor(model_on)
+    del model_on
+    rng = np.random.default_rng(2)
+    wavs = [(rng.standard_normal(10 * SAMPLE_RATE) * 0.1).astype(np.float32)
+            for _ in range(32)]
+    preds = {"off": pred_off, "on": pred_on}
+    # the two agree to bf16 rounding: the fused layers' exact GELU and
+    # float32 LayerNorm against the unfused bf16 path's tanh GELU
+    a = pred_off.predict_batch(wavs, fields=("phn_fc_pred",))
+    b = pred_on.predict_batch(wavs, fields=("phn_fc_pred",))
+    agree = (a["phn_fc_pred"] == b["phn_fc_pred"]).float().mean().item()
+    legs = []
+    for name in ("off", "on", "on", "off"):
+        times = timed_batches(lambda: preds[name].predict_batch(wavs))
+        sec = float(np.median(times))
+        legs.append((name, sec))
+        log(f"  {name}: {32 * 10 / sec:.1f} audio-s/s, {sec * 1e3:.2f} ms "
+            f"per batch (batches {[round(x * 1e3, 2) for x in times]} ms)")
+    mean = {n: np.mean([32 * 10 / s for m, s in legs if m == n])
+            for n in ("off", "on")}
+    log(f"  mean audio-s/s: off {mean['off']:.1f}, on {mean['on']:.1f} "
+        f"({mean['on'] / mean['off'] - 1:+.2%}) on {card}; phoneme argmax "
+        f"agreement off vs on {agree:.4%}")
+    audio = torch.from_numpy(np.stack(wavs)).to(pred_off.device,
+                                                 torch.bfloat16)
+    for name, pred in preds.items():
+        fe = pred.model.wav2vec2.feature_extractor
+        with torch.inference_mode():
+            profile_breakdown(lambda: fe(audio),
+                              f"the feature extractor alone, flag {name}",
+                              top=8)
+    del pred_on
+    torch.cuda.empty_cache()
+    return mean
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -627,7 +1073,8 @@ def phase_train(card):
     counts = read_counts()
     log(f"  first step: loss {loss0:.5f}, launches {counts}")
     want = cfg.num_hidden_layers
-    if not (np.isfinite(loss0) and all(c == want for c in counts.values())):
+    if not (np.isfinite(loss0) and all(counts[n] == want for n in FLASH)
+            and counts["fused_conv_ln_gelu"] == 0):
         raise AssertionError(f"expected {want} launches of each kernel per "
                              f"step and a finite loss, got {counts}, {loss0}")
 
@@ -646,7 +1093,7 @@ def phase_train(card):
         f"{'not known for this card' if util is None else f'{util:.4f}'} "
         f"({flops / 1e12:.2f} TFLOP per step, 3x forward) on {card}; peak "
         f"memory {peak:.2f} GiB")
-    if any(c != 5 * want for c in counts5.values()):
+    if any(counts5[n] != 5 * want for n in FLASH):
         raise AssertionError(f"launches over 5 steps: {counts5}")
     profile_breakdown(lambda: step(batch, 1e-5), "one train step", top=20)
 
@@ -686,7 +1133,7 @@ def phase_train(card):
         w2v.multi_head_attention_bhtd = attention.multi_head_attention_bhtd
     log(f"  no dropout, kernels vs plain attention (autograd): loss "
         f"{lk:.6f} vs {lp:.6f}; launches {counts_k} vs {counts_p}")
-    if any(counts_p.values()) or any(c != want for c in counts_k.values()):
+    if any(counts_p.values()) or any(counts_k[n] != want for n in FLASH):
         raise AssertionError("the kernel and plain runs took the wrong path")
     # bf16 activations round at other points in the two versions (the
     # kernel rounds p and ds; plain autograd rounds its own intermediates)
@@ -716,7 +1163,56 @@ def phase_train(card):
             and counts_full["flash_attn_bwd_dkv"] == want
             and abs(loss_full - loss0) <= 1e-3 * abs(loss0)):
         raise AssertionError("the remat step took the wrong path or loss")
-    return {name: counts[name] for name in COUNTED}
+    del step, model
+    torch.cuda.empty_cache()
+
+    # one step with the fused feature extractor: the encoder is frozen, so
+    # the six fused layers run under no_grad and need no backward
+    model = random_aptai(dataclasses.replace(cfg,
+                                             fused_feature_extractor=True),
+                         seed=0)
+    step = TrainStep(model, torch_adam(model))
+    reset_counts()
+    loss_fused = step(batch, 1e-5)["loss"].item()
+    torch.cuda.synchronize()
+    counts_fused = read_counts()
+    log(f"  fused_feature_extractor=True: first step loss {loss_fused:.5f} "
+        f"(off: {loss0:.5f}; the fused layers' exact GELU and f32 "
+        f"LayerNorm differ from the unfused bf16 path), launches "
+        f"{counts_fused}")
+    n_fused = sum(b.fused for b in model.wav2vec2.feature_extractor
+                  .conv_layers)
+    if not (np.isfinite(loss_fused) and n_fused == 6
+            and counts_fused["fused_conv_ln_gelu"] == n_fused
+            and all(counts_fused[n] == want for n in FLASH)):
+        raise AssertionError("the fused-FE train step took the wrong path")
+    del step, model
+    torch.cuda.empty_cache()
+    check_fused_refuses_gradients()
+    return ({name: counts[name] for name in COUNTED},
+            {name: counts_fused[name] for name in COUNTED})
+
+
+def check_fused_refuses_gradients(device: str = "cuda"):
+    """W2V2PR with a trainable feature encoder and the fused flag on: a
+    forward that needs the encoder's gradient raises on the card, before
+    any fused launch."""
+    cfg = small_pr_config()
+    model = random_w2v2_pr(cfg, seed=1).to(device).train()
+    audio = torch.zeros((2, 16_000), device=device)
+    lens = torch.tensor([16_000, 9_000], dtype=torch.int32, device=device)
+    labels = torch.tensor([[1, 2, 3], [4, -100, -100]], device=device)
+    reset_counts()
+    try:
+        model(audio, lens, labels)
+    except NotImplementedError as e:
+        log(f"  W2V2PR, trainable encoder, fused flag on, on the card: "
+            f"NotImplementedError ({str(e)[:60]}...), fused launches "
+            f"{read_counts()['fused_conv_ln_gelu']}")
+    else:
+        raise AssertionError("a trainable encoder ran the fused op")
+    if read_counts()["fused_conv_ln_gelu"]:
+        raise AssertionError("the fused kernel launched before the refusal")
 
 
 def main() -> int:
@@ -743,20 +1239,36 @@ def main() -> int:
     train_lengths = cfg.feat_extract_output_lengths(train_lengths).tolist()
     records = phase_kernels(train_lengths)
     t0 = time.perf_counter()
-    pred = APTAIPredictor(random_aptai(cfg, seed=0))
+    aptai_model = random_aptai(cfg, seed=0)
+    pred = APTAIPredictor(aptai_model)
     log(f"  full-width APTAI (bf16, seed 0) on the card in "
         f"{time.perf_counter() - t0:.1f} s")
     serving, n_batches = phase_slice(cfg, pred)
+    pr_cfg = dataclasses.replace(cfg, fused_feature_extractor=True)
+    t0 = time.perf_counter()
+    pr_pred = W2V2PRPredictor(random_w2v2_pr(pr_cfg, seed=0))
+    log(f"  full-width W2V2PR (bf16, vocab {pr_cfg.vocab_size}, fused "
+        f"feature extractor, seed 0) on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    pr_serving, pr_batches = phase_pr_serving(pr_cfg, pr_pred)
     phase_throughput(cfg, pred, card)
-    del pred
+    phase_pr_throughput(pr_cfg, pr_pred, card)
+    del pr_pred
+    phase_fused_ab(cfg, aptai_model, pred, card)
+    del pred, aptai_model
     torch.cuda.empty_cache()
-    training = phase_train(card)
+    training, training_fused = phase_train(card)
     for rec in records:
-        rec["launches"] = training[rec["name"]]
+        name = rec["name"]
+        rec["launches"] = (pr_serving if name == "fused_conv_ln_gelu"
+                           else training)[name]
         rec["launches_by_path"] = {
-            "serving": {"batches": n_batches,
-                        "launches": serving[rec["name"]]},
-            "train_step": {"steps": 1, "launches": training[rec["name"]]}}
+            "serving": {"batches": n_batches, "launches": serving[name]},
+            "w2v2_pr_serving": {"batches": pr_batches,
+                                "launches": pr_serving[name]},
+            "train_step": {"steps": 1, "launches": training[name]},
+            "train_step_fused_fe": {"steps": 1,
+                                    "launches": training_fused[name]}}
 
     print(json.dumps({"kernels": records}))
     print(card)

@@ -11,24 +11,30 @@ its bridge (``state_dict_from_jax``), which is what the tests hold it to.
 import numpy as np
 import torch
 
-from aptai_tpu.models.hf_convert import convert_wav2vec2_encoder
+from aptai_tpu.models.hf_convert import (convert_w2v2_pr,
+                                         convert_wav2vec2_encoder)
 from aptai_tpu_torch.models.aptai import APTAI
-from aptai_tpu_torch.models.convert import state_dict_from_jax
+from aptai_tpu_torch.models.convert import (state_dict_from_jax,
+                                            w2v2_pr_state_dict_from_jax)
+from aptai_tpu_torch.models.w2v2_pr import W2V2PR
 from aptai_tpu_torch.models.wav2vec2 import init_weights_
 
 NO_DROP = dict(hidden_dropout=0.0, activation_dropout=0.0,
                attention_dropout=0.0, feat_proj_dropout=0.0)
 
 
+def _noisy_state_dict(model, seed: int):
+    init_weights_(model, torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    return {k: v.float().numpy()
+            + 0.05 * rng.standard_normal(v.shape).astype(np.float32)
+            for k, v in model.state_dict().items()}
+
+
 def random_jax_aptai_params(cfg_t, num_phonemes: int, seed: int):
     """A JAX ``APTAI`` parameter tree of numpy arrays for the port config
     ``cfg_t``, drawn from ``seed``."""
-    model = APTAI(cfg_t, num_phonemes=num_phonemes)
-    init_weights_(model, torch.Generator().manual_seed(seed))
-    rng = np.random.default_rng(seed)
-    sd = {k: v.float().numpy()
-          + 0.05 * rng.standard_normal(v.shape).astype(np.float32)
-          for k, v in model.state_dict().items()}
+    sd = _noisy_state_dict(APTAI(cfg_t, num_phonemes=num_phonemes), seed)
     enc = convert_wav2vec2_encoder(sd, cfg_t.num_hidden_layers,
                                    prefix="wav2vec2.")
     head = lambda n: {"kernel": sd[f"{n}.weight"].T.copy(),
@@ -44,4 +50,20 @@ def port_aptai_from_jax(cfg_t, params, num_phonemes: int,
     :class:`APTAI` (e.g. ``tv_drop``)."""
     model = APTAI(cfg_t, num_phonemes=num_phonemes, **kwargs)
     model.load_state_dict(state_dict_from_jax(params), strict=True)
+    return model.eval()
+
+
+def random_jax_w2v2_pr_params(cfg_t, seed: int):
+    """A JAX ``W2V2PR`` parameter tree of numpy arrays for the port config
+    ``cfg_t``, drawn from ``seed``."""
+    sd = _noisy_state_dict(W2V2PR(cfg_t), seed)
+    return convert_w2v2_pr(sd, cfg_t.num_hidden_layers)
+
+
+def port_w2v2_pr_from_jax(cfg_t, params, **kwargs) -> W2V2PR:
+    """The port's W2V2PR holding the JAX tree ``params`` (through the
+    bridge under test), in eval mode on the CPU; ``kwargs`` go to
+    :class:`W2V2PR`."""
+    model = W2V2PR(cfg_t, **kwargs)
+    model.load_state_dict(w2v2_pr_state_dict_from_jax(params), strict=True)
     return model.eval()

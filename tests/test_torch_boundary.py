@@ -1,5 +1,6 @@
 """aptai_tpu_torch boundaries: no JAX at import, no silent CPU fallback, the
-attention dispatch by device, and the FLOP count against the JAX package."""
+attention dispatch by device, the kernel libraries, and the FLOP counts
+against the JAX package."""
 
 import os
 import subprocess
@@ -12,9 +13,9 @@ import torch
 
 from aptai_tpu.models import configs as jcfg
 from aptai_tpu.utils import flops as jflops
-from aptai_tpu_torch.infer import APTAIPredictor
+from aptai_tpu_torch.infer import APTAIPredictor, W2V2PRPredictor
 from aptai_tpu_torch.models import configs as tcfg
-from aptai_tpu_torch.models import random_aptai
+from aptai_tpu_torch.models import random_aptai, random_w2v2_pr
 from aptai_tpu_torch.ops import attention as tatt
 from aptai_tpu_torch.utils import flops as tflops
 
@@ -32,6 +33,10 @@ print("LOADED", len([m for m in sys.modules if m.startswith("aptai_tpu_torch")])
 print("BAD", bad)
 print("TRAIN", all(m in sys.modules for m in (
     "aptai_tpu_torch.train.harness", "aptai_tpu_torch.train.schedule")))
+print("PR", all(m in sys.modules for m in (
+    "aptai_tpu_torch.models.w2v2_pr", "aptai_tpu_torch.ops.ctc",
+    "aptai_tpu_torch.ops.fused_conv", "aptai_tpu_torch.decode.beam",
+    "aptai_tpu_torch.data.vocab")))
 """
 
 
@@ -45,16 +50,23 @@ def test_port_imports_no_jax_or_reference_package():
     assert "BAD []" in res.stdout, res.stdout
     assert int(res.stdout.split("LOADED")[1].split()[0]) >= 10, res.stdout
     assert "TRAIN True" in res.stdout, res.stdout
+    assert "PR True" in res.stdout, res.stdout
 
 
-def test_predictor_without_cuda_raises(monkeypatch):
+@pytest.mark.parametrize("family", ["aptai", "w2v2_pr"])
+def test_predictor_without_cuda_raises(monkeypatch, family):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    model = random_aptai(tcfg.tiny_config(), seed=0, num_phonemes=11)
+    if family == "aptai":
+        model = random_aptai(tcfg.tiny_config(), seed=0, num_phonemes=11)
+        predictor = APTAIPredictor
+    else:
+        model = random_w2v2_pr(tcfg.tiny_config(), seed=0)
+        predictor = W2V2PRPredictor
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        APTAIPredictor(model)
+        predictor(model)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        APTAIPredictor(model, device="cuda:0")
-    assert APTAIPredictor(model, device="cpu").device.type == "cpu"
+        predictor(model, device="cuda:0")
+    assert predictor(model, device="cpu").device.type == "cpu"
 
 
 def test_attention_dispatch_by_device(monkeypatch):
@@ -77,14 +89,16 @@ def test_attention_dispatch_by_device(monkeypatch):
         tatt.flash_attention_bhtd_cuda(q, k, v, lens)
 
 
-def test_kernel_library_is_keyed_by_source_hash():
+@pytest.mark.parametrize("name", ["flash_attn_fwd", "flash_attn_bwd",
+                                  "fused_conv_ln_gelu"])
+def test_kernel_library_is_keyed_by_source_hash(name):
     from aptai_tpu_torch.ops import kernels
 
-    path = kernels.library_path("flash_attn_fwd")
+    path = kernels.library_path(name)
     assert path.parent == kernels.BUILD_DIR
-    assert path.name.startswith("libflash_attn_fwd-") and path.suffix == ".so"
-    assert path == kernels.library_path("flash_attn_fwd")
-    assert (kernels.CSRC / "flash_attn_fwd.cu").exists()
+    assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
+    assert path == kernels.library_path(name)
+    assert all((kernels.CSRC / src).exists() for src in kernels.SOURCES[name])
 
 
 @pytest.mark.parametrize("samples", [16_000, 48_000, 160_000])
@@ -95,6 +109,10 @@ def test_flops_match_jax(samples):
                 == jflops.aptai_forward_flops(j, samples))
         assert (tflops.encoder_flops(t, samples)
                 == jflops.encoder_flops(j, samples))
+        assert (tflops.pr_forward_flops(t, samples)
+                == jflops.pr_forward_flops(j, samples))
+        assert (tflops.pr_forward_flops(t, samples, vocab_size=7)
+                == jflops.pr_forward_flops(j, samples, vocab_size=7))
 
 
 def test_device_peak_by_card_name():

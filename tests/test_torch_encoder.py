@@ -40,7 +40,7 @@ def test_config_fields_and_defaults_match_jax():
     ("quant", "w8a8_ffn"), ("fused_qkv", True),
     ("attention_layout", "bthd"),
     ("activation_partition", ("data", "model", None)),
-    ("fused_feature_extractor", True), ("do_stable_layer_norm", False),
+    ("do_stable_layer_norm", False),
 ])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
