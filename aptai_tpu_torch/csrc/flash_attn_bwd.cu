@@ -2,9 +2,10 @@
 //
 // Replaces the TPU kernels aptai_tpu/ops/attention.py:_flash_bwd_dq_kernel
 // and _flash_bwd_dkv_kernel (both launched by _bwd_call). Same functions,
-// not the same blocks. From the forward's inputs, its per-row logsumexp
-// lse, the output gradient dO and delta = rowsum(dO * O) (f32, computed
-// outside the kernels as in JAX):
+// not the same blocks. From the forward's inputs q, k, v, its output o, its
+// per-row logsumexp lse and the output gradient dO:
+//   delta = rowsum(dO * o)        f32, computed by the dq kernel (the TPU
+//                                 version computes it outside its kernels)
 //   s  = (q . k^T) * scale        bf16 products, f32 accumulation
 //   p  = exp(s - lse), 0 where key >= length[b]   (masked by column index)
 //   dp = dO . v^T
@@ -18,28 +19,53 @@
 // is real (the TV low-pass reads pad frames).
 //
 // The split is the TPU grid's own, and needs no atomics, so every sum is
-// taken in one fixed order:
-//   dq kernel:   one block of 4 warps per (b*h, 64-query tile), looping over
-//                the 64-key tiles below length[b];
-//   dk/dv kernel: one block of 4 warps per (b*h, 64-key tile), looping over
-//                every 64-query tile (all T rows, pad rows included); a key
-//                tile wholly past length[b] writes zeros and returns.
+// taken by one block in one fixed order and two launches on the same
+// inputs give bit-identical outputs:
+//   dq kernel:    one block of 4 warps (a warpgroup) per (b*h, 64-query
+//                 tile): delta for its rows from o and dO, written out as
+//                 (B, H, T) f32, then a loop over the 64-key tiles below
+//                 length[b];
+//   dk/dv kernel: one block per (b*h, 64-key tile), run after the dq kernel
+//                 on the same stream, looping over every 64-query tile (all
+//                 T rows, pad rows included) and reading delta; a key tile
+//                 wholly past length[b] writes zeros and returns.
 //
-// Layout: q, k, v, dO and the outputs are (B, H, T, 64) with any batch /
+// Layout: q, k, v, o, dO and the outputs are (B, H, T, 64) with any batch /
 // head / time strides (multiples of 8 elements) and a contiguous head
 // dimension; lse and delta are contiguous (B, H, T) float32.
 //
 // What bounds them on this card: at the training shape (B=8, H=16, T=249,
 // D=64, bf16, every frame valid) the dq kernel does 6*B*H*T^2*D = 3.0e9
-// FLOP (3 us at 989 TFLOP/s) and moves q, k, v, dO, dq, lse, delta = 20.6 MB
-// (6 us at 3.35 TB/s); the dk/dv kernel does 8*B*H*T^2*D = 4.1e9 FLOP
-// (4 us) and moves 24.7 MB (7 us). Both are bound by bytes. This first
-// version is simple rather than fast: tiles staged in shared memory with
-// plain 16-byte loads, mma.sync m16n8k16 products with f32 accumulators in
-// registers, the probability and ds tiles kept in registers as the A
-// operand of the next product, operands that contract over tile rows
-// gathered as scalars, no load/compute overlap. TMA, wgmma, ldmatrix and
-// warp specialisation are later work.
+// FLOP (3 us at 989 TFLOP/s) and moves q, k, v, o, dO, dq, lse, delta =
+// 24.7 MB (7.4 us at 3.35 TB/s); the dk/dv kernel does 8*B*H*T^2*D = 4.1e9
+// FLOP (4 us) and moves 24.7 MB (7.4 us). Both are bound by bytes, and a
+// block's loop is short (4 tiles at T = 249), so what decides their time is
+// how much of each block's chain (copies in, products, exp, products) the
+// other blocks on its SM hide. The design:
+//   - every tile reaches shared memory by cp.async (16-byte copies that
+//     skip the registers; lse and delta by 4-byte ones): the block's own
+//     tiles and the first looped tile in one group, then a two-stage ring in
+//     which tile i + 1 is in flight while tile i is multiplied. cp.async
+//     rather than TMA: a tile is 64 rows of 128 bytes at a caller's
+//     strides, which per-thread copies handle with a zero-filled ragged
+//     edge and no tensor map to encode on the host per launch;
+//   - tiles are stored with the 128-byte swizzle (16-byte chunk c of row r
+//     at chunk c ^ (r % 8)), which wgmma reads natively, K-major and
+//     transposed, and which keeps the ldmatrix reads of dO and o (for
+//     delta) free of bank conflicts;
+//   - every product is a wgmma of the block's one warpgroup: s = q . k^T
+//     and dp = dO . v^T (s^T and dp^T in dk/dv) with both operands in
+//     shared memory, m64n32k16, 32 columns at a time so the accumulators
+//     stay small; ds . k, p^T . dO and ds^T . q with p^T, ds or ds^T as the
+//     A operand straight from registers (their accumulator layout is the A
+//     fragment layout) and the B tile read transposed, m64n64k16. The same
+//     kernels with mma.sync m16n8k16 and ldmatrix.trans B fragments for
+//     those three products measured 14 % slower at the training shape;
+//   - 128 threads, at most 128 registers and ~50 KB of shared memory a
+//     block, so 4 blocks fit on an SM and the 512 blocks of the training
+//     shape run in one wave on 132 SMs. Blocks of two warpgroups sharing
+//     each looped tile (half the reads from L2) measured no faster;
+//   - outputs are staged in shared memory and written in 16-byte pieces.
 
 #include <math.h>
 
@@ -50,6 +76,10 @@ namespace {
 constexpr int kBlock = 64;  // rows of the block's own tile: 4 warps x 16
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
+constexpr int kSub = 32;  // columns of s / dp per wgmma
+constexpr int kTileBytes = kBlock * kHeadDim * 2;  // a swizzled bf16 tile
+// six tiles, and slack to align the first to the 1024-byte swizzle period
+constexpr int kSmemBf16 = 6 * kTileBytes + 1024;
 
 template <typename E>
 struct BwdParams {
@@ -57,8 +87,9 @@ struct BwdParams {
   const E* k;
   const E* v;
   const E* dout;
+  const E* o;          // the forward's output (dq kernel), else null
   const float* lse;    // (B, H, T) contiguous
-  const float* delta;  // (B, H, T) contiguous
+  float* delta;        // (B, H, T) contiguous: dq writes, dk/dv reads
   const int* lengths;  // (B,)
   E* out_a;            // dq (dq kernel) or dk (dk/dv kernel)
   E* out_b;            // dv (dk/dv kernel)
@@ -67,6 +98,7 @@ struct BwdParams {
   long long k_sb, k_sh, k_st;
   long long v_sb, v_sh, v_st;
   long long do_sb, do_sh, do_st;
+  long long o_sb, o_sh, o_st;
   long long a_sb, a_sh, a_st;
   long long b_sb, b_sh, b_st;
   float scale;
@@ -78,10 +110,11 @@ struct Slices {  // this block's (b, h) slices of every tensor
   const E* k;
   const E* v;
   const E* dout;
+  const E* o;
   E* a;
   E* b;
   const float* lse;
-  const float* delta;
+  float* delta;
   int len;
 };
 
@@ -95,6 +128,7 @@ __device__ __forceinline__ Slices<E> slices(const BwdParams<E>& p) {
   s.k = p.k + b * p.k_sb + h * p.k_sh;
   s.v = p.v + b * p.v_sb + h * p.v_sh;
   s.dout = p.dout + b * p.do_sb + h * p.do_sh;
+  s.o = p.o == nullptr ? nullptr : p.o + b * p.o_sb + h * p.o_sh;
   s.a = p.out_a + b * p.a_sb + h * p.a_sh;
   s.b = p.out_b == nullptr ? nullptr : p.out_b + b * p.b_sb + h * p.b_sh;
   s.lse = p.lse + static_cast<long long>(bh) * p.t;
@@ -105,11 +139,221 @@ __device__ __forceinline__ Slices<E> slices(const BwdParams<E>& p) {
 
 // ---------------------------------------------------------------- bf16 ----
 
-__global__ void __launch_bounds__(kThreads)
+// byte offset of 16-byte chunk c (8 head columns) of row r in a 64 x 64
+// bf16 tile stored with the 128-byte swizzle
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// the block's shared memory from its first 1024-byte boundary
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(raw));
+  return raw + ((1024u - (a & 1023u)) & 1023u);
+}
+
+// rows [r0, r0 + 64) of a (T, 64) bf16 slice into a swizzled tile, 16 bytes
+// a copy, neighbouring threads on neighbouring chunks; rows at or past T
+// are zero-filled and not read
+__device__ __forceinline__ void copy_tile_async(unsigned char* tile,
+                                                const __nv_bfloat16* src,
+                                                long long stride, int r0,
+                                                int t) {
+#pragma unroll
+  for (int i = 0; i < kBlock * 8 / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / 8;
+    const int c = idx % 8;
+    const bool valid = r0 + r < t;
+    cp_async16(tile + swz(r, c),
+               valid ? src + (r0 + r) * stride + c * 8 : src, valid);
+  }
+}
+
+// a tile of bf16 results (this warp's 16 rows in the accumulator layout)
+// into a swizzled tile, then the valid rows out in 16-byte pieces
+__device__ __forceinline__ void stage_rows(unsigned char* tile,
+                                          float (&acc)[kHeadDim / 8][4],
+                                          float mult) {
+  const int lane = threadIdx.x % 32;
+  const int r = (threadIdx.x / 32) * 16 + lane / 4;
+#pragma unroll
+  for (int n = 0; n < kHeadDim / 8; ++n) {
+    const int byte = 4 * (lane % 4);
+    *reinterpret_cast<uint32_t*>(tile + swz(r, n) + byte) =
+        pack_bf16(acc[n][0] * mult, acc[n][1] * mult);
+    *reinterpret_cast<uint32_t*>(tile + swz(r + 8, n) + byte) =
+        pack_bf16(acc[n][2] * mult, acc[n][3] * mult);
+  }
+}
+
+__device__ __forceinline__ void store_tile(__nv_bfloat16* dst,
+                                           long long stride,
+                                           const unsigned char* tile, int r0,
+                                           int t) {
+#pragma unroll
+  for (int i = 0; i < kBlock * 8 / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / 8;
+    const int c = idx % 8;
+    if (r0 + r < t) {
+      *reinterpret_cast<uint4*>(dst + (r0 + r) * stride + c * 8) =
+          *reinterpret_cast<const uint4*>(tile + swz(r, c));
+    }
+  }
+}
+
+// wgmma shared-memory descriptor of a swizzled tile (from a row that is a
+// multiple of 8): K-major, 128-byte swizzle, 1024 bytes between 8-row
+// groups. Adding 2 moves it 32 bytes, one k-step of 16 bf16, along the row.
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// make cp.async's writes to shared memory (generic proxy) visible to wgmma
+// (async proxy); each writing thread, before the barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// keep the compiler from moving accesses to wgmma's accumulators across
+// the instructions that issue and retire it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 32 over the warpgroup) (+)= A (64 x 16) . B^T (32 x 16), both
+// from shared memory through descriptors
+__device__ __forceinline__ void wgmma_m64n32k16(float d[16], uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// s = a_tile . b_tile[b0 : b0 + 32]^T and t = c_tile . d_tile[b0 : b0 +
+// 32]^T over the 64 head columns, as one wgmma group. Each warp gets its 16
+// rows: register 4j + i holds (row lane/4 + 8 (i / 2), column 8j + 2
+// (lane % 4) + i % 2), the mma.sync accumulator layout of 4 n-tiles.
+__device__ __forceinline__ void wg_two_products(
+    float (&s)[16], float (&t)[16], const unsigned char* a_tile,
+    const unsigned char* b_tile, const unsigned char* c_tile,
+    const unsigned char* d_tile, int b0) {
+  const uint64_t da = smem_desc(a_tile);
+  const uint64_t db = smem_desc(b_tile + b0 * 128);
+  const uint64_t dc = smem_desc(c_tile);
+  const uint64_t dd = smem_desc(d_tile + b0 * 128);
+  fence_regs(s);
+  fence_regs(t);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kHeadDim / 16; ++ks) {
+    wgmma_m64n32k16(s, da + 2 * ks, db + 2 * ks, ks > 0);
+  }
+#pragma unroll
+  for (int ks = 0; ks < kHeadDim / 16; ++ks) {
+    wgmma_m64n32k16(t, dc + 2 * ks, dd + 2 * ks, ks > 0);
+  }
+  wgmma_commit_and_wait();
+  fence_regs(s);
+  fence_regs(t);
+}
+
+// d (64 x 64 over the warpgroup) += A (64 x 16) . B (16 x 64): A in
+// registers, each warp its 16 rows in the mma.sync A layout; B from shared
+// memory with its N (head) dimension contiguous, read transposed. d in the
+// accumulator layout, d[n][i] as in wg_two_products.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[kHeadDim / 8][4],
+                                                   const uint32_t a[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&acc)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) fence_regs(acc[n]);
+}
+
+// acc (this warp's 16 rows x 64 head columns) += a . tile[r0 : r0 + 32],
+// contracting over 32 rows of a swizzled tile: a[kk] is the A fragment of
+// rows r0 + 16 kk .. + 15; issued, not waited for
+__device__ __forceinline__ void wg_rows(float (&acc)[kHeadDim / 8][4],
+                                        uint32_t (&a)[kSub / 16][4],
+                                        const unsigned char* tile, int r0) {
+  fence_acc(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kSub / 16; ++kk) {
+    wgmma_m64n64k16_rs(acc, a[kk], smem_desc(tile + (r0 + kk * 16) * 128));
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait for every wgmma this warpgroup issued
+template <int N>
+__device__ __forceinline__ void wg_wait(float (&acc)[N][4]) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(acc);
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[kHeadDim / 8][4]) {
+#pragma unroll
+  for (int n = 0; n < kHeadDim / 8; ++n) {
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 4)
 flash_bwd_dq_bf16_kernel(const BwdParams<__nv_bfloat16> p) {
-  __shared__ __align__(16) __nv_bfloat16 sQ[kBlock * kPitch];  // q, then dO
-  __shared__ __align__(16) __nv_bfloat16 sK[kBlock * kPitch];
-  __shared__ __align__(16) __nv_bfloat16 sV[kBlock * kPitch];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const smem = aligned_smem(smem_raw);
+  unsigned char* const sQ = smem;
+  unsigned char* const sDO = smem + kTileBytes;
+  // ring stage st: its K tile at sKV + 2 st tiles, its V tile after it
+  unsigned char* const sKV = smem + 2 * kTileBytes;
+  unsigned char* const sO = sKV + 2 * kTileBytes;  // stage 1's K, at first
 
   const Slices<__nv_bfloat16> g = slices(p);
   const int q0 = blockIdx.y * kBlock;
@@ -117,98 +361,112 @@ flash_bwd_dq_bf16_kernel(const BwdParams<__nv_bfloat16> p) {
   const int lane = threadIdx.x % 32;
   const int t4 = lane % 4;
   const int qr = warp * 16 + lane / 4;  // rows qr and qr + 8 of the tile
+  const int num_k_tiles = (g.len + kBlock - 1) / kBlock;
 
-  // this warp's 16 query rows of q and of dO as A fragments over D
-  uint32_t qa[kHeadDim / 16][4];
-  uint32_t doa[kHeadDim / 16][4];
-  load_tile<kThreads>(sQ, g.q, p.q_st, q0, p.t);
-  __syncthreads();
-  load_a_frags(qa, sQ, warp * 16);
-  __syncthreads();
-  load_tile<kThreads>(sQ, g.dout, p.do_st, q0, p.t);
-  __syncthreads();
-  load_a_frags(doa, sQ, warp * 16);
-
-  float lse[2], delta[2];
+  // one group: the block's own q, dO and o tiles and the first K/V tile
+  copy_tile_async(sQ, g.q, p.q_st, q0, p.t);
+  copy_tile_async(sDO, g.dout, p.do_st, q0, p.t);
+  copy_tile_async(sO, g.o, p.o_st, q0, p.t);
+  if (num_k_tiles > 0) {
+    copy_tile_async(sKV, g.k, p.k_st, 0, p.t);
+    copy_tile_async(sKV + kTileBytes, g.v, p.v_st, 0, p.t);
+  }
+  cp_async_commit();
+  float lse[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + qr + r * 8;
-    // a row past T: p = exp(. - inf) = 0 and ds = 0
-    lse[r] = row < p.t ? g.lse[row] : INFINITY;
-    delta[r] = row < p.t ? g.delta[row] : 0.f;
+    lse[r] = row < p.t ? g.lse[row] : INFINITY;  // past T: p = 0, ds = 0
   }
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  // delta = rowsum(dO * o) in f32 for this thread's rows qr and qr + 8: the
+  // warp's 16 rows of dO and of o as ldmatrix fragments (the same positions
+  // in both), products summed along the row in each lane and then over the
+  // quad of lanes that shares the row
+  float delta[2] = {0.f, 0.f};
+  {
+    const int m = lane / 8;  // the matrix this lane addresses
+    const int row = warp * 16 + (m & 1) * 8 + lane % 8;
+#pragma unroll
+    for (int c = 0; c < kHeadDim / 8; c += 2) {  // 16 columns a step
+      uint32_t df[4], of[4];  // matrices: rows +0 / +8 x chunks c / c + 1
+      ldmatrix_x4(df, sDO + swz(row, c + (m >> 1)));
+      ldmatrix_x4(of, sO + swz(row, c + (m >> 1)));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 d2 =
+            __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&df[j]));
+        const float2 o2 =
+            __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&of[j]));
+        delta[j & 1] = fmaf(d2.x, o2.x, delta[j & 1]);
+        delta[j & 1] = fmaf(d2.y, o2.y, delta[j & 1]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      delta[r] += __shfl_xor_sync(0xffffffffu, delta[r], 1);
+      delta[r] += __shfl_xor_sync(0xffffffffu, delta[r], 2);
+      const int row_t = q0 + qr + r * 8;
+      if (t4 == 0 && row_t < p.t) g.delta[row_t] = delta[r];
+    }
+  }
+  __syncthreads();  // every warp is done with o: stage 1 of the ring is free
 
   float dq[kHeadDim / 8][4];
-#pragma unroll
-  for (int n = 0; n < kHeadDim / 8; ++n) {
-    dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-  }
+  zero_acc(dq);
 
-  const int num_k_tiles = (g.len + kBlock - 1) / kBlock;
   for (int kt = 0; kt < num_k_tiles; ++kt) {
     const int k0 = kt * kBlock;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<kThreads>(sK, g.k, p.k_st, k0, p.t);
-    load_tile<kThreads>(sV, g.v, p.v_st, k0, p.t);
+    if (kt + 1 < num_k_tiles) {  // into the stage of tile kt - 1
+      unsigned char* next = sKV + ((kt + 1) % 2) * 2 * kTileBytes;
+      copy_tile_async(next, g.k, p.k_st, k0 + kBlock, p.t);
+      copy_tile_async(next + kTileBytes, g.v, p.v_st, k0 + kBlock, p.t);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile kt has landed
+    fence_proxy_async();
     __syncthreads();
+    const unsigned char* sK = sKV + (kt % 2) * 2 * kTileBytes;
+    const unsigned char* sV = sK + kTileBytes;
 
-    // s = q . k^T and dp = dO . v^T, 16 rows x 64 keys each
-    float s[kBlock / 8][4], dp[kBlock / 8][4];
 #pragma unroll
-    for (int n = 0; n < kBlock / 8; ++n) {
+    for (int half = 0; half < kBlock / kSub; ++half) {
+      const int c0 = k0 + half * kSub;
+      if (c0 >= g.len) break;
+      float s[16], dp[16];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
-    }
-#pragma unroll
-    for (int ks = 0; ks < kHeadDim / 16; ++ks) {
-#pragma unroll
-      for (int n = 0; n < kBlock / 8; ++n) {
-        uint32_t bk[2], bv[2];
-        load_b_cols(bk, sK, n * 8, ks * 16);
-        load_b_cols(bv, sV, n * 8, ks * 16);
-        mma_16816(s[n], qa[ks], bk);
-        mma_16816(dp[n], doa[ks], bv);
-      }
-    }
+      for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
+      wg_two_products(s, dp, sQ, sK, sDO, sV, half * kSub);
 
-    // ds = p * (dp - delta) in bf16, as the A fragments of ds . k
-    uint32_t da[kBlock / 16][4];
+      // ds = p * (dp - delta) in bf16, as the A fragments of ds . k
+      uint32_t da[kSub / 16][4];
 #pragma unroll
-    for (int n = 0; n < kBlock / 8; ++n) {
-      float ds[4];
+      for (int n = 0; n < kSub / 8; ++n) {
+        float ds[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = k0 + n * 8 + 2 * t4 + (i & 1);
-        const float pv =
-            col < g.len ? __expf(s[n][i] * p.scale - lse[i / 2]) : 0.f;
-        ds[i] = pv * (dp[n][i] - delta[i / 2]);
+        for (int i = 0; i < 4; ++i) {
+          const int col = c0 + n * 8 + 2 * t4 + (i & 1);
+          const float pv = col < g.len
+                               ? __expf(s[4 * n + i] * p.scale - lse[i / 2])
+                               : 0.f;
+          ds[i] = pv * (dp[4 * n + i] - delta[i / 2]);
+        }
+        da[n / 2][(n % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+        da[n / 2][(n % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
       }
-      da[n / 2][(n % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      da[n / 2][(n % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      wg_rows(dq, da, sK, half * kSub);  // dq += ds . k
     }
-
-    // dq += ds . k: 4 k-steps of 16 keys, 8 n-tiles of 8 head columns
-#pragma unroll
-    for (int ks = 0; ks < kBlock / 16; ++ks) {
-#pragma unroll
-      for (int n = 0; n < kHeadDim / 8; ++n) {
-        uint32_t bk[2];
-        load_b_rows(bk, sK, ks * 16, n * 8);
-        mma_16816(dq[n], da[ks], bk);
-      }
-    }
+    wg_wait(dq);      // the products have read stage kt % 2 ...
+    __syncthreads();  // ... in every warp
   }
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + qr + r * 8;
-    if (row >= p.t) continue;
-#pragma unroll
-    for (int n = 0; n < kHeadDim / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(g.a + row * p.a_st + n * 8 + 2 * t4) =
-          pack_bf16(dq[n][2 * r] * p.scale, dq[n][2 * r + 1] * p.scale);
-    }
-  }
+  // sQ is free (the last barrier, or no product at all): stage dq in it
+  stage_rows(sQ, dq, p.scale);
+  __syncthreads();
+  store_tile(g.a, p.a_st, sQ, q0, p.t);
 }
 
 // zero rows [k0, min(k0 + 64, T)) of a (T, 64) output slice
@@ -225,123 +483,128 @@ __device__ __forceinline__ void zero_rows(E* dst, long long stride, int k0,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bf16_kernel(const BwdParams<__nv_bfloat16> p) {
-  __shared__ __align__(16) __nv_bfloat16 sQ[kBlock * kPitch];
-  __shared__ __align__(16) __nv_bfloat16 sO[kBlock * kPitch];  // dO
-  __shared__ __align__(16) __nv_bfloat16 sKV[kBlock * kPitch];  // k, then v
-  __shared__ float sLse[kBlock];
-  __shared__ float sDelta[kBlock];
-
+// query tile q0's q, dO, lse and delta into a ring stage (4-byte copies for
+// the statistics: a (B, H, T) row need not start on 16 bytes). The slices
+// are recomputed from the parameters, so that no pointer stays in a
+// register across the loop.
+__device__ __forceinline__ void copy_query_stage(
+    unsigned char* tiles, float* stats, const BwdParams<__nv_bfloat16>& p,
+    int q0) {
   const Slices<__nv_bfloat16> g = slices(p);
-  const int k0 = blockIdx.y * kBlock;
-  if (k0 >= g.len) {  // every key of the tile is masked
-    zero_rows(g.a, p.a_st, k0, p.t);
-    zero_rows(g.b, p.b_st, k0, p.t);
-    return;
-  }
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int t4 = lane % 4;
-  const int kr = warp * 16 + lane / 4;  // keys kr and kr + 8 of the tile
-  const bool key_valid[2] = {k0 + kr < g.len, k0 + kr + 8 < g.len};
+  copy_tile_async(tiles, g.q, p.q_st, q0, p.t);
+  copy_tile_async(tiles + kTileBytes, g.dout, p.do_st, q0, p.t);
+  const int i = threadIdx.x % kBlock;
+  const bool valid = q0 + i < p.t;  // past T: 0, and q = dO = 0 there
+  const float* src = threadIdx.x < kBlock ? g.lse : g.delta;
+  cp_async4(stats + threadIdx.x, valid ? src + q0 + i : src, valid);
+}
 
-  // this warp's 16 keys of k and of v as A fragments over D
-  uint32_t ka[kHeadDim / 16][4];
-  uint32_t va[kHeadDim / 16][4];
-  load_tile<kThreads>(sKV, g.k, p.k_st, k0, p.t);
-  __syncthreads();
-  load_a_frags(ka, sKV, warp * 16);
-  __syncthreads();
-  load_tile<kThreads>(sKV, g.v, p.v_st, k0, p.t);
-  __syncthreads();
-  load_a_frags(va, sKV, warp * 16);
+__global__ void __launch_bounds__(kThreads, 4)
+flash_bwd_dkv_bf16_kernel(const BwdParams<__nv_bfloat16> p) {
+  static_assert(kThreads == 2 * kBlock, "one statistic copy per thread");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const smem = aligned_smem(smem_raw);
+  unsigned char* const sK = smem;
+  unsigned char* const sV = smem + kTileBytes;
+  // ring stage st: its q tile at sQO + 2 st tiles, its dO tile after it
+  unsigned char* const sQO = smem + 2 * kTileBytes;
+  __shared__ __align__(16) float sStats[2][2 * kBlock];  // lse, then delta
+
+  const int k0 = blockIdx.y * kBlock;
+  bool key_valid[2];
+  {
+    const Slices<__nv_bfloat16> g = slices(p);
+    if (k0 >= g.len) {  // every key of the tile is masked
+      zero_rows(g.a, p.a_st, k0, p.t);
+      zero_rows(g.b, p.b_st, k0, p.t);
+      return;
+    }
+    // keys kr and kr + 8 of the tile
+    const int kr = (threadIdx.x / 32) * 16 + (threadIdx.x % 32) / 4;
+    key_valid[0] = k0 + kr < g.len;
+    key_valid[1] = k0 + kr + 8 < g.len;
+    // one group: the block's own K and V tiles and the first query tile
+    copy_tile_async(sK, g.k, p.k_st, k0, p.t);
+    copy_tile_async(sV, g.v, p.v_st, k0, p.t);
+  }
+  copy_query_stage(sQO, sStats[0], p, 0);
+  cp_async_commit();
+  const int t4 = threadIdx.x % 4;
+  const int num_q_tiles = (p.t + kBlock - 1) / kBlock;
 
   float dk[kHeadDim / 8][4], dv[kHeadDim / 8][4];
-#pragma unroll
-  for (int n = 0; n < kHeadDim / 8; ++n) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
-  }
+  zero_acc(dk);
+  zero_acc(dv);
 
-  const int num_q_tiles = (p.t + kBlock - 1) / kBlock;
   for (int qt = 0; qt < num_q_tiles; ++qt) {
     const int q0 = qt * kBlock;
-    __syncthreads();  // every warp is done with the previous q/dO tile
-    load_tile<kThreads>(sQ, g.q, p.q_st, q0, p.t);
-    load_tile<kThreads>(sO, g.dout, p.do_st, q0, p.t);
-    for (int i = threadIdx.x; i < kBlock; i += blockDim.x) {
-      const int row = q0 + i;  // a row past T: p = 0 and ds = 0
-      sLse[i] = row < p.t ? g.lse[row] : INFINITY;
-      sDelta[i] = row < p.t ? g.delta[row] : 0.f;
+    if (qt + 1 < num_q_tiles) {  // into the stage of tile qt - 1
+      copy_query_stage(sQO + ((qt + 1) % 2) * 2 * kTileBytes,
+                       sStats[(qt + 1) % 2], p, q0 + kBlock);
     }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile qt has landed
+    fence_proxy_async();
     __syncthreads();
+    const unsigned char* sQ = sQO + (qt % 2) * 2 * kTileBytes;
+    const unsigned char* sDO = sQ + kTileBytes;
+    const float* lse = sStats[qt % 2];
+    const float* delta = lse + kBlock;
 
-    // transposed scores: s^T = k . q^T and dp^T = v . dO^T, 16 keys x 64
-    // queries each
-    float s[kBlock / 8][4], dp[kBlock / 8][4];
+    // one half at a time: unrolled, the two halves' live values spill
+#pragma unroll 1
+    for (int half = 0; half < kBlock / kSub; ++half) {
+      if (q0 + half * kSub >= p.t) break;
+      // transposed scores: s^T = k . q^T and dp^T = v . dO^T, 64 keys x
+      // 32 queries over the warpgroup
+      float s[16], dp[16];
 #pragma unroll
-    for (int n = 0; n < kBlock / 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
-    }
-#pragma unroll
-    for (int ks = 0; ks < kHeadDim / 16; ++ks) {
-#pragma unroll
-      for (int n = 0; n < kBlock / 8; ++n) {
-        uint32_t bq[2], bo[2];
-        load_b_cols(bq, sQ, n * 8, ks * 16);
-        load_b_cols(bo, sO, n * 8, ks * 16);
-        mma_16816(s[n], ka[ks], bq);
-        mma_16816(dp[n], va[ks], bo);
-      }
-    }
+      for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
+      wg_two_products(s, dp, sK, sQ, sV, sDO, half * kSub);
 
-    // p^T and ds^T in bf16, as the A fragments of the products over queries
-    uint32_t pa[kBlock / 16][4], da[kBlock / 16][4];
+      // p^T in f32 in place of s^T, and in bf16 as the A fragments of
+      // dv += p^T . dO (issued, running while ds^T is computed); then ds^T
+      // for dk += ds^T . q
+      uint32_t pa[kSub / 16][4];
 #pragma unroll
-    for (int n = 0; n < kBlock / 8; ++n) {
-      float pv[4], ds[4];
+      for (int n = 0; n < kSub / 8; ++n) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qc = n * 8 + 2 * t4 + (i & 1);
-        pv[i] = key_valid[i / 2] ? __expf(s[n][i] * p.scale - sLse[qc]) : 0.f;
-        ds[i] = pv[i] * (dp[n][i] - sDelta[qc]);
+        for (int i = 0; i < 4; ++i) {
+          const int qc = half * kSub + n * 8 + 2 * t4 + (i & 1);
+          s[4 * n + i] = key_valid[i / 2]
+                             ? __expf(s[4 * n + i] * p.scale - lse[qc])
+                             : 0.f;
+        }
+        pa[n / 2][(n % 2) * 2 + 0] = pack_bf16(s[4 * n], s[4 * n + 1]);
+        pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(s[4 * n + 2], s[4 * n + 3]);
       }
-      pa[n / 2][(n % 2) * 2 + 0] = pack_bf16(pv[0], pv[1]);
-      pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(pv[2], pv[3]);
-      da[n / 2][(n % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      da[n / 2][(n % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-    }
-
-    // dv += p^T . dO and dk += ds^T . q: 4 k-steps of 16 queries, 8 n-tiles
-    // of 8 head columns
+      wg_rows(dv, pa, sDO, half * kSub);
+      uint32_t da[kSub / 16][4];
 #pragma unroll
-    for (int ks = 0; ks < kBlock / 16; ++ks) {
+      for (int n = 0; n < kSub / 8; ++n) {
+        float ds[4];
 #pragma unroll
-      for (int n = 0; n < kHeadDim / 8; ++n) {
-        uint32_t bo[2], bq[2];
-        load_b_rows(bo, sO, ks * 16, n * 8);
-        load_b_rows(bq, sQ, ks * 16, n * 8);
-        mma_16816(dv[n], pa[ks], bo);
-        mma_16816(dk[n], da[ks], bq);
+        for (int i = 0; i < 4; ++i) {
+          const int qc = half * kSub + n * 8 + 2 * t4 + (i & 1);
+          ds[i] = s[4 * n + i] * (dp[4 * n + i] - delta[qc]);
+        }
+        da[n / 2][(n % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+        da[n / 2][(n % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
       }
+      wg_rows(dk, da, sQ, half * kSub);
     }
+    wg_wait(dk);      // the products have read stage qt % 2 ...
+    fence_acc(dv);
+    __syncthreads();  // ... in every warp
   }
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + kr + r * 8;
-    if (key >= p.t) continue;
-#pragma unroll
-    for (int n = 0; n < kHeadDim / 8; ++n) {
-      const int col = n * 8 + 2 * t4;
-      *reinterpret_cast<uint32_t*>(g.a + key * p.a_st + col) =
-          pack_bf16(dk[n][2 * r] * p.scale, dk[n][2 * r + 1] * p.scale);
-      *reinterpret_cast<uint32_t*>(g.b + key * p.b_st + col) =
-          pack_bf16(dv[n][2 * r], dv[n][2 * r + 1]);
-    }
-  }
+  // the K and V tiles are free: stage dk and dv in them
+  stage_rows(sK, dk, p.scale);
+  stage_rows(sV, dv, 1.f);
+  __syncthreads();
+  const Slices<__nv_bfloat16> g = slices(p);
+  store_tile(g.a, p.a_st, sK, k0, p.t);
+  store_tile(g.b, p.b_st, sV, k0, p.t);
 }
 
 // ------------------------------------------------------------- float32 ----
@@ -379,14 +642,19 @@ flash_bwd_dq_f32_kernel(const BwdParams<float> p) {
   const bool in_range = row < p.t;
 
   float q[kHalf], dout[kHalf], dq[kHalf];
+  float dsum = 0.f;  // this half's share of rowsum(dO * o)
 #pragma unroll
   for (int d = 0; d < kHalf; ++d) {
-    q[d] = in_range ? g.q[row * p.q_st + half * kHalf + d] : 0.f;
-    dout[d] = in_range ? g.dout[row * p.do_st + half * kHalf + d] : 0.f;
+    const int col = half * kHalf + d;
+    q[d] = in_range ? g.q[row * p.q_st + col] : 0.f;
+    dout[d] = in_range ? g.dout[row * p.do_st + col] : 0.f;
+    const float o = in_range ? g.o[row * p.o_st + col] : 0.f;
+    dsum = fmaf(dout[d], o, dsum);
     dq[d] = 0.f;
   }
+  const float delta = dsum + __shfl_xor_sync(0xffffffffu, dsum, 1);
+  if (in_range && half == 0) g.delta[row] = delta;
   const float lse = in_range ? g.lse[row] : INFINITY;
-  const float delta = in_range ? g.delta[row] : 0.f;
 
   const int num_k_tiles = (g.len + kBlock - 1) / kBlock;
   for (int kt = 0; kt < num_k_tiles; ++kt) {
@@ -476,10 +744,10 @@ flash_bwd_dkv_f32_kernel(const BwdParams<float> p) {
 }
 
 template <typename E>
-int launch(void (*kernel)(BwdParams<E>), const void* q, const void* k,
-           const void* v, const void* dout, const void* lse,
-           const void* delta, const void* lengths, void* out_a, void* out_b,
-           int batch, int heads, int t, int head_dim,
+int launch(void (*kernel)(BwdParams<E>), int smem_bytes, const void* q,
+           const void* k, const void* v, const void* dout, const void* o,
+           const void* lse, void* delta, const void* lengths, void* out_a,
+           void* out_b, int batch, int heads, int t, int head_dim,
            const long long* strides, float scale, void* stream) {
   if (head_dim != kHeadDim || batch <= 0 || heads <= 0 || t <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -489,8 +757,9 @@ int launch(void (*kernel)(BwdParams<E>), const void* q, const void* k,
   p.k = static_cast<const E*>(k);
   p.v = static_cast<const E*>(v);
   p.dout = static_cast<const E*>(dout);
+  p.o = static_cast<const E*>(o);
   p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
+  p.delta = static_cast<float*>(delta);
   p.lengths = static_cast<const int*>(lengths);
   p.out_a = static_cast<E*>(out_a);
   p.out_b = static_cast<E*>(out_b);
@@ -500,50 +769,67 @@ int launch(void (*kernel)(BwdParams<E>), const void* q, const void* k,
   p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_st = strides[5];
   p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_st = strides[8];
   p.do_sb = strides[9]; p.do_sh = strides[10]; p.do_st = strides[11];
-  p.a_sb = strides[12]; p.a_sh = strides[13]; p.a_st = strides[14];
-  p.b_sb = strides[15]; p.b_sh = strides[16]; p.b_st = strides[17];
+  p.o_sb = strides[12]; p.o_sh = strides[13]; p.o_st = strides[14];
+  p.a_sb = strides[15]; p.a_sh = strides[16]; p.a_st = strides[17];
+  p.b_sb = strides[18]; p.b_sh = strides[19]; p.b_st = strides[20];
   p.scale = scale;
+  if (smem_bytes > 0) {  // above the 48 KB default; as much L1 as smem
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const dim3 grid(batch * heads, (t + kBlock - 1) / kBlock);
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Every entry point launches on `stream` and returns cudaGetLastError() (0
-// on success). Strides are in elements, in the order q, k, v, dO, out_a,
+// on success). Strides are in elements, in the order q, k, v, dO, o, out_a,
 // out_b and within each batch, head, time; lse and delta are contiguous
 // (B, H, T) float32; lengths is a device pointer to B int32 values. The dq
-// kernels write dq to out_a and ignore out_b (pass null and repeat out_a's
-// strides); the dk/dv kernels write dk to out_a and dv to out_b.
+// kernels read o, write delta and dq (to out_a), and ignore out_b (pass
+// null and repeat out_a's strides); the dk/dv kernels ignore o (pass null
+// and repeat q's strides), read delta and write dk to out_a and dv to
+// out_b. Run the dk/dv kernel after the dq kernel on the same stream.
 #define APTAI_FLASH_BWD_ARGS                                                 \
   const void *q, const void *k, const void *v, const void *dout,             \
-      const void *lse, const void *delta, const void *lengths, void *out_a,  \
-      void *out_b, int batch, int heads, int t, int head_dim,                \
+      const void *o, const void *lse, void *delta, const void *lengths,      \
+      void *out_a, void *out_b, int batch, int heads, int t, int head_dim,   \
       long long q_sb, long long q_sh, long long q_st, long long k_sb,        \
       long long k_sh, long long k_st, long long v_sb, long long v_sh,        \
       long long v_st, long long do_sb, long long do_sh, long long do_st,     \
-      long long a_sb, long long a_sh, long long a_st, long long b_sb,        \
-      long long b_sh, long long b_st, float scale, void *stream
-#define APTAI_FLASH_BWD_CALL(E, kernel)                                      \
-  const long long strides[18] = {q_sb,  q_sh,  q_st,  k_sb, k_sh, k_st,     \
+      long long o_sb, long long o_sh, long long o_st, long long a_sb,        \
+      long long a_sh, long long a_st, long long b_sb, long long b_sh,        \
+      long long b_st, float scale, void *stream
+#define APTAI_FLASH_BWD_CALL(E, kernel, smem)                                \
+  const long long strides[21] = {q_sb,  q_sh,  q_st,  k_sb, k_sh, k_st,     \
                                  v_sb,  v_sh,  v_st,  do_sb, do_sh, do_st,  \
-                                 a_sb,  a_sh,  a_st,  b_sb, b_sh, b_st};    \
-  return launch<E>(kernel, q, k, v, dout, lse, delta, lengths, out_a, out_b, \
-                   batch, heads, t, head_dim, strides, scale, stream)
+                                 o_sb,  o_sh,  o_st,  a_sb, a_sh, a_st,     \
+                                 b_sb,  b_sh,  b_st};                       \
+  return launch<E>(kernel, smem, q, k, v, dout, o, lse, delta, lengths,      \
+                   out_a, out_b, batch, heads, t, head_dim, strides, scale,  \
+                   stream)
 
 extern "C" int aptai_flash_attn_bwd_dq_bf16(APTAI_FLASH_BWD_ARGS) {
-  APTAI_FLASH_BWD_CALL(__nv_bfloat16, flash_bwd_dq_bf16_kernel);
+  APTAI_FLASH_BWD_CALL(__nv_bfloat16, flash_bwd_dq_bf16_kernel, kSmemBf16);
 }
 
 extern "C" int aptai_flash_attn_bwd_dkv_bf16(APTAI_FLASH_BWD_ARGS) {
-  APTAI_FLASH_BWD_CALL(__nv_bfloat16, flash_bwd_dkv_bf16_kernel);
+  APTAI_FLASH_BWD_CALL(__nv_bfloat16, flash_bwd_dkv_bf16_kernel, kSmemBf16);
 }
 
 extern "C" int aptai_flash_attn_bwd_dq_f32(APTAI_FLASH_BWD_ARGS) {
-  APTAI_FLASH_BWD_CALL(float, flash_bwd_dq_f32_kernel);
+  APTAI_FLASH_BWD_CALL(float, flash_bwd_dq_f32_kernel, 0);
 }
 
 extern "C" int aptai_flash_attn_bwd_dkv_f32(APTAI_FLASH_BWD_ARGS) {
-  APTAI_FLASH_BWD_CALL(float, flash_bwd_dkv_f32_kernel);
+  APTAI_FLASH_BWD_CALL(float, flash_bwd_dkv_f32_kernel, 0);
 }

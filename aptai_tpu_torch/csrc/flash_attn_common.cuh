@@ -1,6 +1,7 @@
-// Device helpers shared by the flash-attention forward and backward kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu): tile loads into shared memory and
-// the m16n8k16 bf16 tensor-core product with its fragment packing.
+// Device helpers shared by the package's kernels (flash_attn_fwd.cu,
+// flash_attn_bwd.cu, fused_conv_ln_gelu.cu): tile loads into shared memory,
+// asynchronous 16- and 4-byte copies, ldmatrix fragment loads and the
+// m16n8k16 bf16 tensor-core product with its fragment packing.
 //
 // mma.sync m16n8k16 fragment layout (PTX ISA), with g = lane / 4 and
 // t4 = lane % 4:
@@ -52,6 +53,47 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
 
 __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// 16 bytes global -> shared without passing through registers; with
+// valid == false nothing is read and the 16 bytes are zero-filled
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes));
+}
+
+// the same for one 4-byte value (a float of a per-row statistic)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most kPending of this thread's committed groups are still
+// in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8, and register j receives matrix j's fragment
+// (row lane / 4, columns 2 (lane % 4) and + 1): the mma.sync layout
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
 }
 
 // rows [r0, r0 + 64) of a (T, 64) bf16 slice with row stride `stride` into

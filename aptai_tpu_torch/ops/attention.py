@@ -26,7 +26,10 @@ the division by the row sum after it, and **0** for a row with no valid key
 p = exp(s − lse) with keys masked by column index, ds = p ⊙ (dO·Vᵀ − Δ)
 rounded to the input dtype before its products, dv = pᵀ·dO with p rounded,
 dq = scale·ds·K and dk = scale·dsᵀ·Q, where Δ = rowsum(dO ⊙ O) in float32
-over the saved output (a plain tensor op, outside the kernels, as in JAX).
+over the saved output. The JAX package computes Δ outside its kernels; here
+the dq kernel computes it for its own rows and writes it out for the dk/dv
+kernel (:func:`flash_attention_bwd_dq_plain` is that kernel's function,
+:func:`flash_attention_bwd_dkv_plain` the other's).
 """
 
 from __future__ import annotations
@@ -95,6 +98,48 @@ def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return (dout.to(acc) * out.to(acc)).sum(dim=-1)
 
 
+def _bwd_probs(q, k, v, dout, lse, delta, lengths):
+    """p = exp(s − lse) with keys masked (in the accumulation dtype) and
+    ds = p ⊙ (dO·Vᵀ − Δ) rounded to the input dtype, both (B, H, T, T)."""
+    b, _, t, d = q.shape
+    acc = _acc_dtype(q.dtype)
+    lengths = _lengths_or_full(lengths, b, t, q.device)
+    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * (d ** -0.5)
+    p = torch.exp(s - lse.to(acc)[..., None])
+    p = p.masked_fill(~_key_valid(lengths, t, q.device), 0.0)
+    dp = torch.matmul(dout.to(acc), v.to(acc).transpose(-1, -2))
+    ds = (p * (dp - delta.to(acc)[..., None])).to(q.dtype).to(acc)
+    return p, ds
+
+
+def flash_attention_bwd_dq_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, out: torch.Tensor,
+                                 lse: torch.Tensor, dout: torch.Tensor,
+                                 lengths: Optional[torch.Tensor] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dq kernel's function in plain tensor ops: (dq in the input
+    dtype, Δ = :func:`attention_delta` (B, H, T)) from the forward's inputs,
+    its output ``out`` and logsumexp ``lse``, and the output gradient."""
+    delta = attention_delta(out, dout)
+    _, ds = _bwd_probs(q, k, v, dout, lse, delta, lengths)
+    dq = torch.matmul(ds, k.to(ds.dtype)) * (q.shape[-1] ** -0.5)
+    return dq.to(q.dtype), delta
+
+
+def flash_attention_bwd_dkv_plain(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, dout: torch.Tensor,
+                                  lse: torch.Tensor, delta: torch.Tensor,
+                                  lengths: Optional[torch.Tensor] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel's function in plain tensor ops: (dk, dv) in the
+    input dtype, given Δ as the dq kernel returns it."""
+    p, ds = _bwd_probs(q, k, v, dout, lse, delta, lengths)
+    acc = ds.dtype
+    dv = torch.matmul(p.to(q.dtype).to(acc).transpose(-1, -2), dout.to(acc))
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(acc)) * (q.shape[-1] ** -0.5)
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
 def flash_attention_bhtd_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, out: torch.Tensor,
                                    lse: torch.Tensor, dout: torch.Tensor,
@@ -104,21 +149,9 @@ def flash_attention_bhtd_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     """The backward kernels' function in plain tensor ops: (dq, dk, dv) in
     the input dtype from the forward's inputs, its output ``out`` and its
     logsumexp ``lse`` (B, H, T), and the output gradient ``dout``."""
-    b, _, t, d = q.shape
-    acc = _acc_dtype(q.dtype)
-    scale = d ** -0.5
-    lengths = _lengths_or_full(lengths, b, t, q.device)
-    qa, ka, va, doa = (x.to(acc) for x in (q, k, v, dout))
-    s = torch.matmul(qa, ka.transpose(-1, -2)) * scale
-    p = torch.exp(s - lse.to(acc)[..., None])
-    p = p.masked_fill(~_key_valid(lengths, t, q.device), 0.0)
-    dp = torch.matmul(doa, va.transpose(-1, -2))
-    delta = attention_delta(out, dout).to(acc)
-    ds = (p * (dp - delta[..., None])).to(q.dtype).to(acc)
-    dv = torch.matmul(p.to(q.dtype).to(acc).transpose(-1, -2), doa)
-    dq = torch.matmul(ds, ka) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), qa) * scale
-    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+    dq, delta = flash_attention_bwd_dq_plain(q, k, v, out, lse, dout, lengths)
+    dk, dv = flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta, lengths)
+    return dq, dk, dv
 
 
 # -- the CUDA kernels ----------------------------------------------------------
@@ -132,21 +165,16 @@ _DQ_FNS = {torch.bfloat16: "aptai_flash_attn_bwd_dq_bf16",
            torch.float32: "aptai_flash_attn_bwd_dq_f32"}
 _DKV_FNS = {torch.bfloat16: "aptai_flash_attn_bwd_dkv_bf16",
             torch.float32: "aptai_flash_attn_bwd_dkv_f32"}
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                 + [ctypes.c_longlong] * 18 + [ctypes.c_float, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                 + [ctypes.c_longlong] * 21 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _check_kernel_inputs(lengths, **tensors):
-    """Device, dtype, shape, stride and alignment checks shared by the
+    """Shape, dtype, stride, alignment and device checks shared by the
     kernels' wrappers: every tensor (B, H, T, 64) of one dtype on one CUDA
     device with a contiguous head dim."""
     names = list(tensors)
     q = tensors[names[0]]
-    if not all(x.is_cuda and x.device == q.device for x in tensors.values()):
-        raise ValueError(
-            "the flash-attention kernels need " + ", ".join(names)
-            + " on one CUDA device (got "
-            + ", ".join(str(x.device) for x in tensors.values()) + ")")
     if q.dim() != 4 or any(x.shape != q.shape for x in tensors.values()):
         raise ValueError(
             ", ".join(names) + " must share one (B, H, T, D) shape, got "
@@ -170,6 +198,11 @@ def _check_kernel_inputs(lengths, **tensors):
                 f"{name} needs a contiguous head dim, batch/head/time "
                 f"strides that are multiples of {vec} and a 16-byte aligned "
                 f"start (strides {x.stride()})")
+    if not all(x.is_cuda and x.device == q.device for x in tensors.values()):
+        raise ValueError(
+            "the flash-attention kernels need " + ", ".join(names)
+            + " on one CUDA device (got "
+            + ", ".join(str(x.device) for x in tensors.values()) + ")")
     if (lengths.dtype != torch.int32 or lengths.device != q.device
             or lengths.shape != (b,) or not lengths.is_contiguous()):
         raise ValueError(
@@ -227,37 +260,50 @@ def flash_attention_bhtd_cuda(q: torch.Tensor, k: torch.Tensor,
 flash_attention_bhtd_cuda.launches = 0  # kernel launches, for run checks
 
 
-def _bwd_args(q, k, v, dout, lse, delta, lengths, out_a, out_b):
-    b, h, t, d = q.shape
-    for x in (lse, delta):
+def _check_rows(q, **rows):
+    """lse and delta: contiguous (B, H, T) float32 on q's device."""
+    b, h, t, _ = q.shape
+    for name, x in rows.items():
         if (x.dtype != torch.float32 or x.shape != (b, h, t)
                 or not x.is_contiguous() or x.device != q.device):
-            raise ValueError(f"lse and delta must be contiguous ({b}, {h}, "
-                             f"{t}) float32 tensors on {q.device}")
+            raise ValueError(f"{name} must be a contiguous ({b}, {h}, {t}) "
+                             f"float32 tensor on {q.device} (got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device})")
+
+
+def _bwd_args(q, k, v, dout, o, lse, delta, lengths, out_a, out_b):
+    b, h, t, d = q.shape
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), lengths.data_ptr(),
-            out_a.data_ptr(), 0 if out_b is None else out_b.data_ptr()]
-    strides = [s for x in (q, k, v, dout, out_a, out_b if out_b is not None
-                           else out_a) for s in x.stride()[:3]]
+            0 if o is None else o.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), lengths.data_ptr(), out_a.data_ptr(),
+            0 if out_b is None else out_b.data_ptr()]
+    strides = [s for x in (q, k, v, dout, q if o is None else o, out_a,
+                           out_a if out_b is None else out_b)
+               for s in x.stride()[:3]]
     return (*ptrs, b, h, t, d, *strides, d ** -0.5)
 
 
-def flash_attention_bwd_dq_cuda(q, k, v, dout, lse, delta,
+def flash_attention_bwd_dq_cuda(q, k, v, out, lse, dout,
                                 lengths: Optional[torch.Tensor] = None
-                                ) -> torch.Tensor:
-    """Launch the dq kernel: dq = scale·(p ⊙ (dO·Vᵀ − Δ))·K, one block per
-    (b·h, 64-query tile) looping over the key tiles below ``lengths[b]``.
-    q, k, v, dout as the forward takes them; lse and delta (B, H, T)
-    float32. Returns a (B, H, T, 64) view of a (B, T, H, 64) buffer."""
-    b, _, t, _ = q.shape
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dq kernel: Δ = rowsum(dO ⊙ O) for its rows, then
+    dq = scale·(p ⊙ (dO·Vᵀ − Δ))·K, one block per (b·h, 64-query tile)
+    looping over the key tiles below ``lengths[b]``. q, k, v, the forward's
+    output ``out`` and ``dout`` as the forward takes its inputs; lse
+    (B, H, T) float32. Returns (dq, Δ): dq a (B, H, T, 64) view of a
+    (B, T, H, 64) buffer, Δ a contiguous (B, H, T) float32 tensor for
+    :func:`flash_attention_bwd_dkv_cuda`."""
+    b, h, t, _ = q.shape
     lengths = _lengths_or_full(lengths, b, t, q.device)
-    _check_kernel_inputs(lengths, q=q, k=k, v=v, dout=dout)
+    _check_kernel_inputs(lengths, q=q, k=k, v=v, out=out, dout=dout)
+    _check_rows(q, lse=lse)
     dq = _bthd_buffer_like(q)
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     fn = kernel_fn("flash_attn_bwd", _DQ_FNS[q.dtype], _BWD_ARGTYPES)
     launch(fn, "flash_attn_bwd_dq", q.device,
-            _bwd_args(q, k, v, dout, lse, delta, lengths, dq, None))
+           _bwd_args(q, k, v, dout, out, lse, delta, lengths, dq, None))
     flash_attention_bwd_dq_cuda.launches += 1
-    return dq
+    return dq, delta
 
 
 flash_attention_bwd_dq_cuda.launches = 0
@@ -268,16 +314,18 @@ def flash_attention_bwd_dkv_cuda(q, k, v, dout, lse, delta,
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dk/dv kernel: dv = pᵀ·dO, dk = scale·dsᵀ·Q, one block per
     (b·h, 64-key tile) looping over every query tile; key tiles wholly
-    past ``lengths[b]`` write zeros. No atomics: each key's sums are taken
-    by one block, in one order. Returns (dk, dv), each a (B, H, T, 64) view
-    of a (B, T, H, 64) buffer."""
+    past ``lengths[b]`` write zeros. ``delta`` is the Δ that the dq kernel
+    returns (enqueue this launch after it). No atomics: each key's sums are
+    taken by one block, in one order. Returns (dk, dv), each a (B, H, T, 64)
+    view of a (B, T, H, 64) buffer."""
     b, _, t, _ = q.shape
     lengths = _lengths_or_full(lengths, b, t, q.device)
     _check_kernel_inputs(lengths, q=q, k=k, v=v, dout=dout)
+    _check_rows(q, lse=lse, delta=delta)
     dk, dv = _bthd_buffer_like(k), _bthd_buffer_like(v)
     fn = kernel_fn("flash_attn_bwd", _DKV_FNS[q.dtype], _BWD_ARGTYPES)
     launch(fn, "flash_attn_bwd_dkv", q.device,
-            _bwd_args(q, k, v, dout, lse, delta, lengths, dk, dv))
+           _bwd_args(q, k, v, dout, None, lse, delta, lengths, dk, dv))
     flash_attention_bwd_dkv_cuda.launches += 1
     return dk, dv
 
@@ -287,15 +335,14 @@ flash_attention_bwd_dkv_cuda.launches = 0
 
 def flash_attention_bwd_cuda(q, k, v, out, lse, dout,
                              lengths: Optional[torch.Tensor] = None):
-    """The backward on the card: Δ = rowsum(dO ⊙ O) as a tensor op, then
-    the dq kernel and the dk/dv kernel. ``dout`` may come with any strides:
-    one whose head dim is not contiguous, or whose other strides are not
-    multiples of 16 bytes, is copied with ``.contiguous()`` first. Returns
-    (dq, dk, dv), (B, H, T, 64) views of (B, T, H, 64) buffers."""
+    """The backward on the card: the dq kernel (which computes Δ) and then
+    the dk/dv kernel. ``dout`` may come with any strides: one whose head dim
+    is not contiguous, or whose other strides are not multiples of 16
+    bytes, is copied with ``.contiguous()`` first. Returns (dq, dk, dv),
+    (B, H, T, 64) views of (B, T, H, 64) buffers."""
     if not _kernel_strides_ok(dout):
         dout = dout.contiguous()
-    delta = attention_delta(out, dout)
-    dq = flash_attention_bwd_dq_cuda(q, k, v, dout, lse, delta, lengths)
+    dq, delta = flash_attention_bwd_dq_cuda(q, k, v, out, lse, dout, lengths)
     dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, dout, lse, delta, lengths)
     return dq, dk, dv
 

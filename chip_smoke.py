@@ -13,13 +13,16 @@ Phases (any failure ends the run with a non-zero exit code):
 2. Kernels against their plain versions on the card: the flash forward (and
    its logsumexp) at the serving shape (bf16, B=32, H=16, T=499, D=64) and
    the forward, dq and dk/dv kernels at the training shape (B=8, H=16,
-   T=249), with ragged lengths including 0 and 1, T=1100 for several tiles,
-   and the float32 variants; the fused conv + LayerNorm + GELU at the
-   shapes of feature-extractor layers 1 and 6 of a 32 x 10 s batch, ragged
-   (T_out not a multiple of the tile, T_out = 1), with and without bias, and
-   its float32 variant; then each kernel's time beside its bound, its plain
-   version's time and a PyTorch yardstick (one library call, or for the
-   fused conv the chain conv1d -> LayerNorm -> GELU), per fused layer.
+   T=249), with ragged lengths including 0 and 1, T=1100 for several tiles
+   (ragged, lengths 0 and 1), and the float32 variants; the Δ the dq kernel
+   writes against ``attention_delta``, and a relaunch of both backward
+   kernels on the same inputs bit for bit; the fused conv + LayerNorm +
+   GELU at the shapes of feature-extractor layers 1 and 6 of a 32 x 10 s
+   batch, ragged (T_out not a multiple of the tile, T_out = 1), with and
+   without bias, and its float32 variant; then each kernel's time beside
+   its bound, its plain version's time and a PyTorch yardstick (one library
+   call: SDPA's forward at both shapes and its backward; for the fused
+   conv the chain conv1d -> LayerNorm -> GELU, per fused layer).
 3. Serving: a small float32 model on the card against the same model on
    the CPU; then full-width wav2vec2-large APTAI in bf16 (weights from seed
    0) served by the ``MicroBatcher`` on its background thread, 8 requests of
@@ -92,6 +95,9 @@ BF16_TOL = 2e-2
 # falls differently when exp differs in its last bit
 BF16_BWD_REL_TOL = 2e-2
 F32_TOL = 1e-4  # float32 variants: summation order and exp/log ulps
+# the dq kernel's Δ = rowsum(dO ⊙ O) against attention_delta, relative to
+# its largest magnitude: f32 sums of the same 64 products in other orders
+DELTA_REL_TOL = 1e-5
 # the fused conv in bf16: the kernel and the plain version sum the conv's
 # 1536 products in other orders, so a bf16 rounding boundary may fall on
 # either side (one ulp); and where LayerNorm's acc − mean cancels to
@@ -225,15 +231,29 @@ def check_kernel_case(name, q, k, v, dout, lengths, backward=True):
           and torch.isfinite(got.float()).all().item())
     outs = [got]
     rel = {}
+    extra = ""
     if backward:
-        delta = attention.attention_delta(got, dout)
-        dq = attention.flash_attention_bwd_dq_cuda(q, k, v, dout, lse, delta,
-                                                   lens)
-        dk, dv = attention.flash_attention_bwd_dkv_cuda(q, k, v, dout, lse,
-                                                        delta, lens)
+        def run_backward():
+            dq, delta = attention.flash_attention_bwd_dq_cuda(
+                q, k, v, got, lse, dout, lens)
+            dk, dv = attention.flash_attention_bwd_dkv_cuda(
+                q, k, v, dout, lse, delta, lens)
+            return dq, dk, dv, delta
+
+        dq, dk, dv, delta = run_backward()
+        again = run_backward()
         torch.cuda.synchronize()
-        pq, pk, pv = attention.flash_attention_bhtd_bwd_plain(
+        # no atomics, one order of every sum: bit-identical on a relaunch
+        same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv, delta),
+                                                     again))
+        del again
+        # each kernel against its plain version on the same inputs: the dk/dv
+        # kernel's plain version gets the Δ the dq kernel wrote
+        pq, want_delta = attention.flash_attention_bwd_dq_plain(
             q, k, v, got, lse, dout, lens)
+        pk, pv = attention.flash_attention_bwd_dkv_plain(
+            q, k, v, dout, lse, delta, lens)
+        delta_rel = _rel_err(delta, want_delta)[1]
         tol = BF16_BWD_REL_TOL if bf16 else F32_TOL
         for kname, pairs in (("flash_attn_bwd_dq", ((dq, pq),)),
                              ("flash_attn_bwd_dkv", ((dk, pk), (dv, pv)))):
@@ -242,7 +262,10 @@ def check_kernel_case(name, q, k, v, dout, lengths, backward=True):
             rel[kname] = max(r for _, r in pair_errs)
             ok = ok and rel[kname] <= tol
         outs += [dq, dk, dv]
-        ok = ok and all(torch.isfinite(x.float()).all().item() for x in outs)
+        ok = (ok and same and delta_rel <= DELTA_REL_TOL
+              and all(torch.isfinite(x.float()).all().item() for x in outs))
+        extra = (f", delta rel {delta_rel:.3e}; relaunch bit-identical "
+                 f"{same}")
     zero_rows = [i for i, n in enumerate(lengths) if n == 0]
     zero_ok = all(bool((x[i] == 0).all()) for x in outs for i in zero_rows)
     log(f"  {name}: shape {tuple(q.shape)} {q.dtype} lengths "
@@ -250,7 +273,7 @@ def check_kernel_case(name, q, k, v, dout, lengths, backward=True):
         f"{errs['flash_attn_fwd']:.3e}, lse {lse_err:.3e}"
         + "".join(f", {n[15:]} max_abs_err {errs[n]:.3e} (rel {rel[n]:.3e})"
                   for n in rel)
-        + f"; zero-length rows exactly 0: {zero_ok}")
+        + f"{extra}; zero-length rows exactly 0: {zero_ok}")
     if not (ok and zero_ok):
         raise AssertionError(f"a flash kernel disagrees with its plain "
                              f"version: {name}")
@@ -287,21 +310,23 @@ def time_forward(gen):
 def time_training_kernels(gen, lengths):
     """The forward with its logsumexp and the two backward kernels at the
     training shape (B=8, H=16, T=249) with the training batch's
-    ``lengths``; the SDPA forward + backward on the same masked problem
-    as the yardstick of the three together. Device times from the
-    profiler; each launch's wall time (CUDA events over back-to-back
-    calls, host launch gaps included) beside them."""
+    ``lengths``; the SDPA forward, backward, and forward + backward on the
+    same masked problem as yardsticks. Device times from the profiler;
+    each launch's wall time (CUDA events over back-to-back calls, host
+    launch gaps included) beside them. Returns the backward kernels'
+    records and the forward's at this shape."""
     b, h, t = len(lengths), 16, 249
     q, k, v, do = _qkv(gen, b, h, t, torch.bfloat16, True, n=4)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     o, lse = attention.flash_attention_bhtd_cuda(q, k, v, lens,
                                                  return_lse=True)
-    delta = attention.attention_delta(o, do)
+    _, delta = attention.flash_attention_bwd_dq_cuda(q, k, v, o, lse, do,
+                                                     lens)
     calls = {
         "fwd": lambda: attention.flash_attention_bhtd_cuda(
             q, k, v, lens, return_lse=True),
         "dq": lambda: attention.flash_attention_bwd_dq_cuda(
-            q, k, v, do, lse, delta, lens),
+            q, k, v, o, lse, do, lens),
         "dkv": lambda: attention.flash_attention_bwd_dkv_cuda(
             q, k, v, do, lse, delta, lens),
     }
@@ -310,9 +335,13 @@ def time_training_kernels(gen, lengths):
     dev = {n: device_ms(fn, 50, names[n]) for n, fn in calls.items()}
     wall = {n: cuda_ms(fn, 50) for n, fn in calls.items()}
     fwd_ms, dq_ms, dkv_ms = dev["fwd"], dev["dq"], dev["dkv"]
-    delta_ms = device_ms(lambda: attention.attention_delta(o, do), 50)
-    plain_bwd_ms = device_ms(lambda: attention.flash_attention_bhtd_bwd_plain(
-        q, k, v, o, lse, do, lens), 10)
+    plain = {
+        "dq": device_ms(lambda: attention.flash_attention_bwd_dq_plain(
+            q, k, v, o, lse, do, lens), 10),
+        "dkv": device_ms(lambda: attention.flash_attention_bwd_dkv_plain(
+            q, k, v, do, lse, delta, lens), 10)}
+    bwd_ms = device_ms(lambda: attention.flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, lens), 50)
     ours_ms = device_ms(lambda: attention.flash_attention_bwd_cuda(
         q, k, v, *attention.flash_attention_bhtd_cuda(
             q, k, v, lens, return_lse=True), do, lens), 50)
@@ -327,6 +356,10 @@ def time_training_kernels(gen, lengths):
         return torch.autograd.grad(out, (qs, ks, vs), do)
 
     sdpa_ms = device_ms(sdpa_fwd_bwd, 50)
+    with torch.no_grad():
+        sdpa_fwd_ms = device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask), 50)
     sdpa_out = torch.nn.functional.scaled_dot_product_attention(
         qs, ks, vs, attn_mask=mask)
     sdpa_bwd_ms = device_ms(lambda: torch.autograd.grad(
@@ -337,42 +370,58 @@ def time_training_kernels(gen, lengths):
     rows = 2 * h * 4                      # lse and delta, f32, all heads
     records = {}
     for name, ms, mults, nbytes in (
-            # q.k^T, dO.v^T, ds.k; reads q, dO, lse, delta (T rows), k, v
-            # (to the length); writes dq
+            # q.k^T, dO.v^T, ds.k; reads q, dO, o, lse (T rows), k, v (to
+            # the length); writes dq, delta
             ("flash_attn_bwd_dq", dq_ms, 6,
-             tile * (3 * b * t + 2 * n) + rows * b * t),
+             tile * (4 * b * t + 2 * n) + rows * b * t),
             # q.k^T, dO.v^T, p^T.dO, ds^T.q; reads q, dO, lse, delta, k, v;
             # writes dk, dv
             ("flash_attn_bwd_dkv", dkv_ms, 8,
              tile * (4 * b * t + 2 * n) + rows * b * t)):
         bound_ms, bound_by = bound(mults * h * 64 * t * n, nbytes)
+        short = name[len("flash_attn_bwd_"):]
         records[name] = {
-            "ms": ms, "plain_ms": plain_bwd_ms,
-            "plain_covers": "dq, dk and dv: the whole plain backward",
+            "ms": ms, "plain_ms": plain[short],
+            "plain_covers": ("dq and delta" if short == "dq" else "dk and dv")
+                            + ": this kernel's plain version",
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": sdpa_bwd_ms,
             "library_covers": "dq, dk and dv: the backward of "
                               "scaled_dot_product_attention, its delta "
-                              "included"}
-    fwd_bound_ms, _ = bound(4 * h * 64 * t * n,
-                            tile * (2 * b * t + 2 * n) + 4 * h * b * t)
+                              "included, against the two kernels' sum "
+                              "(delta inside the dq kernel)",
+            "wall_ms": wall[short]}
+    fwd_bound_ms, fwd_bound_by = bound(
+        4 * h * 64 * t * n, tile * (2 * b * t + 2 * n) + 4 * h * b * t)
+    fwd_record = {"ms": fwd_ms, "bound_ms": fwd_bound_ms,
+                  "bound_by": fwd_bound_by, "library_ms": sdpa_fwd_ms,
+                  "wall_ms": wall["fwd"],
+                  "covers": "the forward with its logsumexp at B=8, H=16, "
+                            "T=249 against the SDPA forward (no "
+                            "logsumexp output) on the same masked inputs"}
     log(f"  at B={b} H={h} T={t} D=64 bf16 (lengths {sorted(set(lengths))}):"
         f" flash_attn_fwd+lse {fwd_ms * 1e3:.1f} us (bound "
-        f"{fwd_bound_ms * 1e3:.1f} us); dq {dq_ms * 1e3:.1f} us (bound "
-        f"{records['flash_attn_bwd_dq']['bound_ms'] * 1e3:.1f} us, "
+        f"{fwd_bound_ms * 1e3:.1f} us; sdpa forward "
+        f"{sdpa_fwd_ms * 1e3:.1f} us); dq with delta {dq_ms * 1e3:.1f} us "
+        f"(bound {records['flash_attn_bwd_dq']['bound_ms'] * 1e3:.1f} us, "
         f"{records['flash_attn_bwd_dq']['bound_by']}); dk/dv "
         f"{dkv_ms * 1e3:.1f} us (bound "
         f"{records['flash_attn_bwd_dkv']['bound_ms'] * 1e3:.1f} us, "
-        f"{records['flash_attn_bwd_dkv']['bound_by']}); delta "
-        f"{delta_ms * 1e3:.1f} us; plain backward {plain_bwd_ms * 1e3:.1f} us"
+        f"{records['flash_attn_bwd_dkv']['bound_by']}); plain dq "
+        f"{plain['dq'] * 1e3:.1f} us, plain dk/dv {plain['dkv'] * 1e3:.1f} us"
         f" (device times); a launch's wall time, back to back: fwd+lse "
         f"{wall['fwd'] * 1e3:.1f} us, dq {wall['dq'] * 1e3:.1f} us, dk/dv "
         f"{wall['dkv'] * 1e3:.1f} us")
+    log(f"  backward, device time: dq + dk/dv (delta inside dq) "
+        f"{(dq_ms + dkv_ms) * 1e3:.1f} us, all kernels of "
+        f"flash_attention_bwd_cuda {bwd_ms * 1e3:.1f} us | sdpa backward "
+        f"{sdpa_bwd_ms * 1e3:.1f} us | ratio "
+        f"{(dq_ms + dkv_ms) / sdpa_bwd_ms:.2f}")
     log(f"  forward + backward, same masked problem, device time: ours "
-        f"{ours_ms * 1e3:.1f} us (fwd+lse, delta, dq, dk/dv) | sdpa "
+        f"{ours_ms * 1e3:.1f} us (fwd+lse, dq with delta, dk/dv) | sdpa "
         f"{sdpa_ms * 1e3:.1f} us (of which its backward {sdpa_bwd_ms * 1e3:.1f}"
         f" us) | ratio {ours_ms / sdpa_ms:.2f}")
-    return records, fwd_ms
+    return records, fwd_record
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -512,8 +561,8 @@ def phase_kernels(train_lengths):
          ragged_train),
         ("training shape, batch lengths", (8, h, 249, torch.bfloat16, True),
          train_lengths),
-        ("T=1100, several tiles", (2, h, 1100, torch.bfloat16, False),
-         [1100, 700]),
+        ("T=1100, several tiles, ragged", (4, h, 1100, torch.bfloat16,
+                                            False), [1100, 700, 0, 1]),
         ("float32 variant", (4, 4, 300, torch.float32, True),
          [300, 0, 1, 150]),
         ("float32 variant, T=1100", (2, 2, 1100, torch.float32, False),
@@ -529,7 +578,8 @@ def phase_kernels(train_lengths):
     errs["fused_conv_ln_gelu"] = check_fused_cases(gen)
 
     records = {"flash_attn_fwd": time_forward(gen)}
-    train_records, fwd_lse_ms = time_training_kernels(gen, train_lengths)
+    train_records, fwd_training = time_training_kernels(gen, train_lengths)
+    records["flash_attn_fwd"]["at_training_shape"] = fwd_training
     records.update(train_records)
     records["fused_conv_ln_gelu"] = time_fused_layers(gen)
     torch.cuda.empty_cache()
@@ -1068,15 +1118,26 @@ def phase_train(card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    reset_counts()
-    loss0 = step(batch, 1e-5)["loss"].item()
-    counts = read_counts()
-    log(f"  first step: loss {loss0:.5f}, launches {counts}")
+    # Δ is the dq kernel's: the step must not compute it as tensor ops
+    delta_calls = []
+    real_delta = attention.attention_delta
+    attention.attention_delta = (
+        lambda *a: delta_calls.append(1) or real_delta(*a))
+    try:
+        reset_counts()
+        loss0 = step(batch, 1e-5)["loss"].item()
+        counts = read_counts()
+    finally:
+        attention.attention_delta = real_delta
+    log(f"  first step: loss {loss0:.5f}, launches {counts}, delta as "
+        f"tensor ops {len(delta_calls)} times")
     want = cfg.num_hidden_layers
     if not (np.isfinite(loss0) and all(counts[n] == want for n in FLASH)
-            and counts["fused_conv_ln_gelu"] == 0):
+            and counts["fused_conv_ln_gelu"] == 0 and not delta_calls):
         raise AssertionError(f"expected {want} launches of each kernel per "
-                             f"step and a finite loss, got {counts}, {loss0}")
+                             f"step, no delta outside the dq kernel and a "
+                             f"finite loss, got {counts}, {len(delta_calls)}"
+                             f", {loss0}")
 
     timed_steps(step, batch, 1)  # the second warm-up step
     reset_counts()
@@ -1231,7 +1292,8 @@ def main() -> int:
     log(f"  built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(s in line for s in ("entry function", "registers",
+                                       "spill", "error")):
                 log(f"    {name}: {line.strip()}")
 
     cfg = Wav2Vec2Config(dtype="bfloat16")

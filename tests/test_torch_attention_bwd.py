@@ -154,13 +154,108 @@ def test_backward_wrappers_refuse_cpu_tensors():
     lse = delta = torch.zeros((1, 2, 9))
     lens = torch.tensor([9], dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA device"):
-        tatt.flash_attention_bwd_dq_cuda(q, k, v, q, lse, delta, lens)
+        tatt.flash_attention_bwd_dq_cuda(q, k, v, q, lse, q, lens)
     with pytest.raises(ValueError, match="CUDA device"):
         tatt.flash_attention_bwd_dkv_cuda(q, k, v, q, lse, delta, lens)
     with pytest.raises(ValueError, match="CUDA device"):
         tatt.flash_attention_bwd_cuda(q, k, v, q, lse, q, lens)
     with pytest.raises(ValueError, match="CUDA device"):
         tatt.flash_attention_bhtd_cuda(q, k, v, lens, return_lse=True)
+
+
+def _jax_flash_backward(q, k, v, out, lse, dout, lengths, jdt):
+    """(dq, dk, dv, Δ) of the JAX package's flash backward on the port's
+    forward output and logsumexp: ``_mha_bhtd_flash_bwd``, which calls
+    ``_bwd_call`` (interpret mode under the fixture), and its Δ expression
+    over the same padded rows."""
+    b, h, t, d = q.shape
+    tp = jatt._tiles(b, t, h)[0]
+    # pad rows past T have q = dO = 0, so any lse there gives zero terms
+    lse_p = np.full((b * h, tp, 1), np.inf, np.float32)
+    lse_p[:, :t, 0] = lse.reshape(b * h, t)
+    lse_j = jnp.broadcast_to(jnp.asarray(lse_p), (b * h, tp, jatt.LSE_LANES))
+    jq, jk, jv, jo, jg = (jnp.asarray(x, jdt) for x in (q, k, v, out, dout))
+    grads = jatt._mha_bhtd_flash_bwd(
+        (jq, jk, jv, jnp.asarray(lengths), lse_j, jo), jg)[:3]
+    delta = jnp.sum(jg.astype(jnp.float32) * jo.astype(jnp.float32), axis=-1)
+    return [np.asarray(x.astype(jnp.float32)) for x in (*grads, delta)]
+
+
+@pytest.mark.parametrize("shape,lengths,dtype", [
+    ((2, 2, 249, 64), [249, 190], "float32"),   # 4 tiles, the last of 57
+    ((2, 2, 249, 64), [0, 1], "float32"),       # no valid key; one
+    ((2, 2, 50, 64), [50, 1], "float32"),       # T <= 64: one ragged tile
+    ((1, 2, 64, 64), [0], "float32"),           # T = 64, no valid key
+    ((2, 2, 249, 64), [249, 130], "bfloat16"),  # the kernels' dtype
+])
+def test_dq_and_dkv_plain_match_jax_bwd_call(interpret, shape, lengths,
+                                             dtype):
+    """The dq kernel's plain function (dq and the Δ it hands on) and the
+    dk/dv kernel's (fed that Δ) against the JAX package's Pallas backward
+    on the same forward output and logsumexp; Δ against attention_delta
+    and against the JAX package's Δ."""
+    b, h, t, d = shape
+    q, k, v = _inputs(9, *shape)
+    dout = np.random.default_rng(10).standard_normal(shape).astype(
+        np.float32)
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    tq, tk, tv, tg = (torch.from_numpy(x).to(tdt) for x in (q, k, v, dout))
+    tl = torch.tensor(lengths, dtype=torch.int32)
+    out, lse = tatt.flash_attention_bhtd_plain(tq, tk, tv, tl,
+                                               return_lse=True)
+    dq, delta = tatt.flash_attention_bwd_dq_plain(tq, tk, tv, out, lse, tg,
+                                                  tl)
+    dk, dv = tatt.flash_attention_bwd_dkv_plain(tq, tk, tv, tg, lse, delta,
+                                                tl)
+    assert delta.dtype == torch.float32 and delta.shape == (b, h, t)
+    assert all(x.dtype == tdt for x in (dq, dk, dv))
+    assert torch.equal(delta, tatt.attention_delta(out, tg))
+    # the composed backward is exactly the two kernels' functions
+    for got, want in zip(tatt.flash_attention_bhtd_bwd_plain(
+            tq, tk, tv, out, lse, tg, tl), (dq, dk, dv)):
+        assert torch.equal(got, want)
+
+    want = _jax_flash_backward(
+        *(x.float().numpy() for x in (tq, tk, tv, out)), lse.numpy(),
+        tg.float().numpy(), np.asarray(lengths, np.int32),
+        jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    # Δ: f32 sums of the same 64 products in two orders
+    np.testing.assert_allclose(delta.numpy(), want[3], rtol=1e-5, atol=1e-5)
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want[:3]):
+        got = got.float().numpy()
+        if dtype == "float32":
+            # f32 in both: the products' summation order and exp's ulps
+            np.testing.assert_allclose(got, w, rtol=1e-4, atol=5e-5,
+                                       err_msg=name)
+        else:
+            # bf16 rounding of p and ds before their products may fall on
+            # the other side of a boundary when the f32 sums before it
+            # differ in their last bit: relative to the largest magnitude,
+            # as the card's check holds the kernels
+            err = np.abs(got - w).max()
+            assert err <= 2e-2 * max(np.abs(w).max(), 1e-30), (name, err)
+        for i, n in enumerate(lengths):
+            if n == 0:
+                assert np.all(got[i] == 0), name
+        assert np.isfinite(got).all()
+
+
+def test_dq_wrapper_checks_the_forward_output():
+    """The dq kernel's wrapper takes the forward's output ``out`` like its
+    other (B, H, T, 64) inputs: a CPU tensor, a head dim that is not
+    contiguous, or another shape raises before anything is built."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(11, 1, 2, 9, 64))
+    lse = torch.zeros((1, 2, 9))
+    lens = torch.tensor([9], dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tatt.flash_attention_bwd_dq_cuda(q, k, v, q.clone(), lse, q, lens)
+    strided = torch.zeros((1, 2, 64, 9)).transpose(-1, -2)  # (1, 2, 9, 64)
+    with pytest.raises(ValueError, match="out needs a contiguous head dim"):
+        tatt.flash_attention_bwd_dq_cuda(q, k, v, strided, lse, q, lens)
+    with pytest.raises(ValueError, match="one .B, H, T, D. shape"):
+        tatt.flash_attention_bwd_dq_cuda(q, k, v, q[:, :, :8], lse, q, lens)
+    with pytest.raises(ValueError, match="out needs a contiguous head dim"):
+        tatt.flash_attention_bwd_cuda(q, k, v, strided, lse, q, lens)
 
 
 def test_backward_library_is_keyed_by_sources_and_header():

@@ -27,6 +27,7 @@ import aptai_tpu_torch
 for m in pkgutil.walk_packages(aptai_tpu_torch.__path__, "aptai_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+import compare_attention_bwd
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "aptai_tpu"))
 print("LOADED", len([m for m in sys.modules if m.startswith("aptai_tpu_torch")]))
@@ -113,6 +114,27 @@ def test_flops_match_jax(samples):
                 == jflops.pr_forward_flops(j, samples))
         assert (tflops.pr_forward_flops(t, samples, vocab_size=7)
                 == jflops.pr_forward_flops(j, samples, vocab_size=7))
+
+
+def test_backward_comparison_script_fits_this_checkout():
+    """compare_attention_bwd.py runs one snippet in each checkout it
+    times: every chip_smoke, attention and kernels name the snippet uses
+    exists in this one; with no checkout to time it prints its usage."""
+    import ast
+
+    import chip_smoke
+    import compare_attention_bwd
+    from aptai_tpu_torch.ops import kernels
+
+    modules = {"cs": chip_smoke, "attention": tatt, "kernels": kernels}
+    used = {(node.value.id, node.attr)
+            for node in ast.walk(ast.parse(compare_attention_bwd._TURN))
+            if isinstance(node, ast.Attribute)
+            and isinstance(node.value, ast.Name)
+            and node.value.id in modules}
+    assert len(used) >= 6
+    assert all(hasattr(modules[m], name) for m, name in used), used
+    assert compare_attention_bwd.main([]) == 2
 
 
 def test_device_peak_by_card_name():

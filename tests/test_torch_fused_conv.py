@@ -41,6 +41,24 @@ def _operands(rng, b, length, c, k, bias):
     return x, w, bb, ls, lb
 
 
+def _float64_reference(x, w, bb, ls, lb, stride, eps=1e-5):
+    """The same function evaluated in float64 from the float32 operands:
+    x (B, L, C), w (k, C_in, C_out) in the JAX kernel's layout."""
+    x, w = torch.from_numpy(x).double(), torch.from_numpy(w).double()
+    bsz, length, c = x.shape
+    k = w.shape[0]
+    t_out = (length - k) // stride + 1
+    patches = x.as_strided((bsz, t_out, k * c), (length * c, stride * c, 1))
+    out = patches @ w.reshape(k * c, -1)
+    if bb is not None:
+        out = out + torch.from_numpy(bb).double()
+    mean = out.mean(-1, keepdim=True)
+    var = ((out - mean) ** 2).mean(-1, keepdim=True)
+    y = ((out - mean) * torch.rsqrt(var + eps) * torch.from_numpy(ls).double()
+         + torch.from_numpy(lb).double())
+    return (0.5 * y * (1.0 + torch.erf(y * 2.0 ** -0.5))).numpy()
+
+
 @pytest.mark.parametrize("k,length,bias", [
     (3, 2 * 1100 + 1, True),   # T_out 1100: crosses the 1024-row cell
     (2, 2 * 1030 + 1, True),   # T_out 1030, a ragged tail past one cell
@@ -66,8 +84,16 @@ def test_plain_matches_pallas_kernel(k, length, bias, dtype):
     assert got.shape[1] == (length - k) // 2 + 1
     got = got.float().numpy()
     if dtype == "float32":
-        # summation order and the TPU kernel's polynomial erf (1.5e-7)
-        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        # each one against the exact value, not against the other: the f32
+        # sums of the 384-term conv and of the LayerNorm statistics err by
+        # a few 1e-6 in an order each CPU's matmul picks, and the error of
+        # the normalised output grows with |y| (through rsqrt(var) and
+        # GELU' -> 1); the TPU kernel's polynomial erf adds 1.5e-7
+        exact = _float64_reference(x, w, bb, ls, lb, 2)
+        tol = 1e-5 * np.maximum(1.0, np.abs(exact))
+        for name, out in (("plain", got), ("pallas", want)):
+            err = np.abs(out - exact)
+            assert (err <= tol).all(), (name, float((err / tol).max()))
     else:
         # a rounding boundary may fall on either side: one bf16 ulp; plus
         # 1e-6 where GELU is tiny (y ≲ −4), where the polynomial erf's
