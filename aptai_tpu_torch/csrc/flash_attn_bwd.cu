@@ -69,7 +69,7 @@
 
 #include <math.h>
 
-#include "flash_attn_common.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
@@ -139,122 +139,6 @@ __device__ __forceinline__ Slices<E> slices(const BwdParams<E>& p) {
 
 // ---------------------------------------------------------------- bf16 ----
 
-// byte offset of 16-byte chunk c (8 head columns) of row r in a 64 x 64
-// bf16 tile stored with the 128-byte swizzle
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * 128 + ((c ^ (r & 7)) << 4);
-}
-
-// the block's shared memory from its first 1024-byte boundary
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(raw));
-  return raw + ((1024u - (a & 1023u)) & 1023u);
-}
-
-// rows [r0, r0 + 64) of a (T, 64) bf16 slice into a swizzled tile, 16 bytes
-// a copy, neighbouring threads on neighbouring chunks; rows at or past T
-// are zero-filled and not read
-__device__ __forceinline__ void copy_tile_async(unsigned char* tile,
-                                                const __nv_bfloat16* src,
-                                                long long stride, int r0,
-                                                int t) {
-#pragma unroll
-  for (int i = 0; i < kBlock * 8 / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int r = idx / 8;
-    const int c = idx % 8;
-    const bool valid = r0 + r < t;
-    cp_async16(tile + swz(r, c),
-               valid ? src + (r0 + r) * stride + c * 8 : src, valid);
-  }
-}
-
-// a tile of bf16 results (this warp's 16 rows in the accumulator layout)
-// into a swizzled tile, then the valid rows out in 16-byte pieces
-__device__ __forceinline__ void stage_rows(unsigned char* tile,
-                                          float (&acc)[kHeadDim / 8][4],
-                                          float mult) {
-  const int lane = threadIdx.x % 32;
-  const int r = (threadIdx.x / 32) * 16 + lane / 4;
-#pragma unroll
-  for (int n = 0; n < kHeadDim / 8; ++n) {
-    const int byte = 4 * (lane % 4);
-    *reinterpret_cast<uint32_t*>(tile + swz(r, n) + byte) =
-        pack_bf16(acc[n][0] * mult, acc[n][1] * mult);
-    *reinterpret_cast<uint32_t*>(tile + swz(r + 8, n) + byte) =
-        pack_bf16(acc[n][2] * mult, acc[n][3] * mult);
-  }
-}
-
-__device__ __forceinline__ void store_tile(__nv_bfloat16* dst,
-                                           long long stride,
-                                           const unsigned char* tile, int r0,
-                                           int t) {
-#pragma unroll
-  for (int i = 0; i < kBlock * 8 / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int r = idx / 8;
-    const int c = idx % 8;
-    if (r0 + r < t) {
-      *reinterpret_cast<uint4*>(dst + (r0 + r) * stride + c * 8) =
-          *reinterpret_cast<const uint4*>(tile + swz(r, c));
-    }
-  }
-}
-
-// wgmma shared-memory descriptor of a swizzled tile (from a row that is a
-// multiple of 8): K-major, 128-byte swizzle, 1024 bytes between 8-row
-// groups. Adding 2 moves it 32 bytes, one k-step of 16 bf16, along the row.
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit_and_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// make cp.async's writes to shared memory (generic proxy) visible to wgmma
-// (async proxy); each writing thread, before the barrier
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// keep the compiler from moving accesses to wgmma's accumulators across
-// the instructions that issue and retire it
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (64 x 32 over the warpgroup) (+)= A (64 x 16) . B^T (32 x 16), both
-// from shared memory through descriptors
-__device__ __forceinline__ void wgmma_m64n32k16(float d[16], uint64_t a,
-                                                uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
 // s = a_tile . b_tile[b0 : b0 + 32]^T and t = c_tile . d_tile[b0 : b0 +
 // 32]^T over the 64 head columns, as one wgmma group. Each warp gets its 16
 // rows: register 4j + i holds (row lane/4 + 8 (i / 2), column 8j + 2
@@ -281,68 +165,6 @@ __device__ __forceinline__ void wg_two_products(
   wgmma_commit_and_wait();
   fence_regs(s);
   fence_regs(t);
-}
-
-// d (64 x 64 over the warpgroup) += A (64 x 16) . B (16 x 64): A in
-// registers, each warp its 16 rows in the mma.sync A layout; B from shared
-// memory with its N (head) dimension contiguous, read transposed. d in the
-// accumulator layout, d[n][i] as in wg_two_products.
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[kHeadDim / 8][4],
-                                                   const uint32_t a[4],
-                                                   uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&acc)[N][4]) {
-#pragma unroll
-  for (int n = 0; n < N; ++n) fence_regs(acc[n]);
-}
-
-// acc (this warp's 16 rows x 64 head columns) += a . tile[r0 : r0 + 32],
-// contracting over 32 rows of a swizzled tile: a[kk] is the A fragment of
-// rows r0 + 16 kk .. + 15; issued, not waited for
-__device__ __forceinline__ void wg_rows(float (&acc)[kHeadDim / 8][4],
-                                        uint32_t (&a)[kSub / 16][4],
-                                        const unsigned char* tile, int r0) {
-  fence_acc(acc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kSub / 16; ++kk) {
-    wgmma_m64n64k16_rs(acc, a[kk], smem_desc(tile + (r0 + kk * 16) * 128));
-  }
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait for every wgmma this warpgroup issued
-template <int N>
-__device__ __forceinline__ void wg_wait(float (&acc)[N][4]) {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-  fence_acc(acc);
-}
-
-__device__ __forceinline__ void zero_acc(float (&acc)[kHeadDim / 8][4]) {
-#pragma unroll
-  for (int n = 0; n < kHeadDim / 8; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  }
 }
 
 __global__ void __launch_bounds__(kThreads, 4)

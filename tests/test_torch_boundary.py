@@ -27,7 +27,7 @@ import aptai_tpu_torch
 for m in pkgutil.walk_packages(aptai_tpu_torch.__path__, "aptai_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-import compare_attention_bwd
+import compare_attention
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "aptai_tpu"))
 print("LOADED", len([m for m in sys.modules if m.startswith("aptai_tpu_torch")]))
@@ -117,24 +117,47 @@ def test_flops_match_jax(samples):
 
 
 def test_backward_comparison_script_fits_this_checkout():
-    """compare_attention_bwd.py runs one snippet in each checkout it
-    times: every chip_smoke, attention and kernels name the snippet uses
-    exists in this one; with no checkout to time it prints its usage."""
+    """compare_attention.py runs one snippet in each checkout it times:
+    every chip_smoke, attention and kernels name the snippet uses exists in
+    this one; with no checkout to time it prints its usage."""
     import ast
 
     import chip_smoke
-    import compare_attention_bwd
+    import compare_attention
     from aptai_tpu_torch.ops import kernels
 
     modules = {"cs": chip_smoke, "attention": tatt, "kernels": kernels}
     used = {(node.value.id, node.attr)
-            for node in ast.walk(ast.parse(compare_attention_bwd._TURN))
+            for node in ast.walk(ast.parse(compare_attention._TURN))
             if isinstance(node, ast.Attribute)
             and isinstance(node.value, ast.Name)
             and node.value.id in modules}
     assert len(used) >= 6
+    assert ("attention", "flash_attention_bhtd_cuda") in used
     assert all(hasattr(modules[m], name) for m, name in used), used
-    assert compare_attention_bwd.main([]) == 2
+    assert compare_attention.main([]) == 2
+
+
+@pytest.mark.parametrize("header", ["flash_attn_common.cuh",
+                                    "wgmma_tiles.cuh"])
+def test_header_edit_rebuilds_every_kernel(monkeypatch, tmp_path, header):
+    """A library is named by its sources and every header, so an edited
+    (or moved) header gives all three kernels new library paths: no stale
+    build survives it."""
+    import shutil
+
+    from aptai_tpu_torch.ops import kernels
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    before = {name: kernels.library_path(name) for name in kernels.SOURCES}
+    assert len(before) == 3 and len(set(before.values())) == 3
+    with open(csrc / header, "a") as f:
+        f.write("// edited\n")
+    after = {name: kernels.library_path(name) for name in kernels.SOURCES}
+    assert all(after[n] != before[n] for n in kernels.SOURCES), (before,
+                                                                 after)
 
 
 def test_device_peak_by_card_name():
