@@ -1,9 +1,8 @@
 // Device helpers shared by the package's kernels (flash_attn_fwd.cu,
 // flash_attn_bwd.cu, fused_conv_ln_gelu.cu): asynchronous 16- and 4-byte
-// copies into shared memory, ldmatrix fragment loads, the m16n8k16 bf16
-// tensor-core product with its fragment packing, and float32 tile loads.
-// The swizzled tiles and warpgroup products of the attention kernels are
-// in wgmma_tiles.cuh.
+// copies into shared memory, ldmatrix fragment loads, bf16 packing, and
+// float32 tile loads. The swizzled tiles and warpgroup products are in
+// wgmma_tiles.cuh.
 //
 // mma.sync m16n8k16 fragment layout (PTX ISA), with g = lane / 4 and
 // t4 = lane % 4:
@@ -28,15 +27,6 @@
 namespace {
 
 constexpr int kHeadDim = 64;
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // two floats -> bf16x2, the first in the low half (the lower column)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -10,55 +10,102 @@
 //                                              C_out channels, f32 ln_w/ln_b
 //   out = 0.5 * y * (1 + erf(y / sqrt(2)))     rounded once to the input type
 //
-// The conv as one GEMM. With x item-contiguous (L, C_in), the k taps of
-// output row t are the flat range x[s*t*C_in, (s*t + k)*C_in): an im2col
-// matrix A (T_out, k*C_in) whose rows overlap, read in place with row stride
-// s*C_in. The weight is stored (C_out, k, C_in) = (C_out, K), which is the
-// "col" B operand of mma.sync row.col, so out = A . W^T with K = k*C_in.
-// The TPU kernel pads L to whole 1024-row cells and slices its output; here
-// every block bounds-checks: rows t >= T_out are zero-filled on load and
-// never stored, and no row at or past L is read.
+// The conv as one GEMM, out = A . W^T with K = k*C_in: A is the im2col
+// matrix (T_out, k*C_in) whose row t is x[s*t .. s*t + k) flattened, and
+// the weight is stored (C_out, k, C_in) = (C_out, K). The reduction runs
+// over chunks of 64 channels (128-byte rows) of one tap j: A's chunk is
+// rows s*t + j of x, W's columns j*C_in + c0 .. + 63. The TPU kernel pads
+// L to whole 1024-row cells and slices its output; here rows t >= T_out
+// are computed and never stored, and no row at or past an item's L is
+// read.
 //
 // What bounds it on this card: at the serving shape (32 x 10 s, C = 512,
 // bf16) layer 1 (T_out 15999, k 3) is 8.05e11 FLOP (0.81 ms at 989
 // TFLOP/s) against 1.57 GB of traffic (0.47 ms at 3.35 TB/s): operations
-// bound the wide layers. The LayerNorm needs whole output rows, so one block
-// owns 64 rows x all C_out columns: 8 warps as 2 (rows) x 4 (columns), each
-// 32 rows x C_out/4 columns of f32 accumulators (128 a thread at C_out 512).
-// Row statistics cross the 4 column warps through shared memory. Operand
-// tiles of 32 reduction steps stream through a three-stage cp.async ring
-// and reach the tensor cores through ldmatrix; the output tile is staged in
-// the freed ring and written in 16-byte pieces.
-// The accumulators fill the register file at 64 rows, so every 64 output
-// rows stream all of W (1.5 MB at k 3) from L2 again: 13.6 GB at layer 1,
-// which, not the ring's depth (2, 3 and 4 stages time the same), holds the
-// kernel near 190 TFLOP/s. Sharing W tiles across a cluster of blocks (TMA
-// multicast) and wgmma are the next steps; this version is mma.sync, no
-// TMA, one block an SM.
+// bound the wide layers. The LayerNorm needs whole output rows, and a
+// block's registers hold the f32 accumulators of 64 rows x 512 columns at
+// most, so a one-block design re-streams all of W from L2 every 64 rows.
+// The bf16 kernel (the serving path):
+// - A cluster of two blocks owns 128 whole rows: block r of the pair the
+//   columns [r C_out/2, (r+1) C_out/2). A block runs two consumer
+//   warpgroups of 64 rows, each a wgmma m64nNk16 with N = C_out/2 from
+//   shared memory (128 f32 accumulators a thread at C_out 512), and a
+//   producer warpgroup that gives its registers to them (setmaxnreg), one
+//   thread of which issues the copies. W is streamed once per 128 rows and
+//   half a W per block.
+// - The producer keeps a ring of kStages stages filled by TMA; each stage
+//   has a full mbarrier (its bytes) and an empty one (the consumer warps'
+//   releases). A is read in place through a 3-D tensor map over x (C_in,
+//   L, B) that traverses L in steps of s: a box 64 s rows long lands 64
+//   rows, tap j of rows t0 .. t0+63 starting at row s t0 + j, zero-filled
+//   at and past L. W comes through a 2-D map over (K, C_out). Both land
+//   128-byte swizzled, as wgmma reads them.
+// - Row statistics: each block sums its half of a row (in-thread, then two
+//   quad shuffles; a row lives in one quad of one warp), writes the partial
+//   to shared memory and, after a cluster barrier, reads its peer's through
+//   distributed shared memory. Both add the two partials in rank order, so
+//   both halves use bit-identical statistics. Mean, then the mean of the
+//   squared deviations, as the TPU kernel; then the affine, erff GELU
+//   and one rounding to bf16. The tile is staged swizzled in the freed ring
+//   and written by TMA stores, which skip rows >= T_out. A last cluster
+//   barrier keeps each block's shared memory alive while its peer reads.
+// On an H100 SXM at 700 W this runs layer 1 at about 490 TFLOP/s, half
+// the peak. Multicasting A to both blocks of the pair, or W to two row
+// tiles in a cluster of four, cut L2 reads but measured no faster: each
+// block's shared memory still takes in 48 KB a chunk (PERF.md §6).
 
 #include <math.h>
 
-#include "flash_attn_common.cuh"
+#include "tma_cluster.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;            // output rows per block
-constexpr int kBlockK = 32;            // reduction chunk of k * C_in
-constexpr int kPitchK = kBlockK + 8;   // 80-byte rows: conflict-free ldmatrix
-constexpr int kStages = 3;             // depth of the cp.async ring
-constexpr int kWarpsM = 2;
-constexpr int kWarpsN = 4;
-constexpr int kThreadsBf16 = kWarpsM * kWarpsN * 32;
+constexpr int kRowsBf16 = 128;        // output rows per block: 2 warpgroups
+constexpr int kChunk = 64;            // channels per reduction chunk
+constexpr int kStages = 4;            // depth of the TMA ring
+constexpr int kClusterSize = 2;       // the two column halves of a row tile
+constexpr int kConsumerWarps = 8;
+constexpr int kProducerWarp = kConsumerWarps;  // warp 0 of warpgroup 2
+constexpr int kThreadsBf16 = (kConsumerWarps + 4) * 32;
+// registers a thread after the split. Each SM sub-partition holds one warp
+// of each warpgroup, and setmaxnreg only moves registers within the
+// block's allocation, 168 a thread at launch (65536 / 384, in steps of 8):
+// what the producer gives up must cover what the consumers take, or their
+// setmaxnreg.inc waits forever
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kLaunchRegs = 65536 / kThreadsBf16 / 8 * 8;
+static_assert(2 * kConsumerRegs + kProducerRegs <= 3 * kLaunchRegs,
+              "the consumers would wait for registers the producer keeps");
+// a box of 64 rows of A spans 64 s rows of x; TMA boxes span <= 256
+constexpr int kMaxStrideBf16 = 4;
 static_assert(kStages >= 2, "the ring needs two stages at least");
 
-struct Params {
-  const void* x;       // (B, L, C_in) contiguous
-  const void* w;       // (C_out, k, C_in) contiguous
-  const void* bias;    // (C_out,) in the input type, or null
-  const float* ln_w;   // (C_out,)
-  const float* ln_b;   // (C_out,)
-  void* out;           // (B, T_out, C_out) contiguous
-  int length, t_out, c_in, taps, stride;
+template <int kCout>
+struct Bf16Tiles {
+  static constexpr int kCols = kCout / 2;  // this block's output columns
+  static constexpr int kABytes = kRowsBf16 * 128;
+  static constexpr int kWBytes = kCols * 128;
+  static constexpr int kStageBytes = kABytes + kWBytes;
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  // ring, full and empty barriers, two passes of row partials, and the
+  // slack to a 1024-byte boundary
+  static constexpr int kSmemBytes =
+      1024 + kRingBytes + 2 * kStages * 8 + 2 * kRowsBf16 * 4;
+  static_assert(kRowsBf16 * kCols * 2 <= kRingBytes,
+                "the output tile is staged in the ring");
+  static_assert(kSmemBytes <= 232448, "more than a block's shared memory");
+};
+
+struct Bf16Params {
+  CUtensorMap x;    // (C_in, L, B), L in steps of s; box (64, 64 s, 1)
+  CUtensorMap w;    // (K, C_out); box (64, C_out / 2)
+  CUtensorMap out;  // (C_out, T_out, B); box (64, 64, 1)
+  const __nv_bfloat16* bias;  // (C_out,) or null
+  const float* ln_w;          // (C_out,)
+  const float* ln_b;          // (C_out,)
+  int t_out, c_in, taps, stride;
   float eps;
 };
 
@@ -66,223 +113,208 @@ __device__ __forceinline__ float gelu_exact(float y) {
   return 0.5f * y * (1.f + erff(y * 0.70710678118654752f));
 }
 
+// where a block's ring, barriers and rows are. Each role builds it after
+// setmaxnreg: a value live across the split would have to fit in the
+// producer's few registers.
 template <int kCout>
-constexpr int smem_bytes_bf16() {
-  // the operand ring, reused afterwards as the output tile
-  constexpr int ring = kStages * (kBlockM + kCout) * kPitchK * 2;
-  constexpr int tile = kBlockM * (kCout + 8) * 2;
-  return ring > tile ? ring : tile;
-}
+struct Bf16Block {
+  unsigned char* ring;
+  uint64_t* full;   // [kStages]
+  uint64_t* empty;  // [kStages]
+  float* red;       // [2][kRowsBf16]: each pass's row partials
+  int half;         // the block's cluster rank: which half of the columns
+  int t0, b, n0, chunks_per_tap, num_k;
 
-// One stage of the ring: A rows t0 .. t0+63 and all C_out rows of W, over
-// reduction columns k0 .. k0+31, in 16-byte pieces.
-template <int kCout>
-__device__ __forceinline__ void load_stage(__nv_bfloat16* sa,
-                                           __nv_bfloat16* sb,
-                                           const __nv_bfloat16* xb,
-                                           const __nv_bfloat16* w,
-                                           const Params& p, int t0, int k0,
-                                           int k_total) {
-  constexpr int kPieces = kBlockK / 8;
-  {
-    const int r = threadIdx.x / kPieces;
-    const int c = (threadIdx.x % kPieces) * 8;
-    const int t = t0 + r;
-    const bool valid = t < p.t_out;
-    const __nv_bfloat16* src =
-        valid ? xb + static_cast<long long>(t) * p.stride * p.c_in + k0 + c
-              : xb;
-    cp_async16(sa + r * kPitchK + c, src, valid);
+  __device__ __forceinline__ Bf16Block(unsigned char* raw,
+                                       const Bf16Params& p) {
+    ring = aligned_smem(raw);
+    full = reinterpret_cast<uint64_t*>(ring + Bf16Tiles<kCout>::kRingBytes);
+    empty = full + kStages;
+    red = reinterpret_cast<float*>(empty + kStages);
+    half = static_cast<int>(cluster_ctarank());
+    t0 = (blockIdx.x / kClusterSize) * kRowsBf16;
+    b = blockIdx.y;
+    n0 = half * Bf16Tiles<kCout>::kCols;
+    chunks_per_tap = p.c_in / kChunk;
+    num_k = p.taps * chunks_per_tap;
   }
-#pragma unroll
-  for (int i = threadIdx.x; i < kCout * kPieces; i += kThreadsBf16) {
-    const int n = i / kPieces;
-    const int c = (i % kPieces) * 8;
-    cp_async16(sb + n * kPitchK + c,
-               w + static_cast<long long>(n) * k_total + k0 + c, true);
-  }
-}
+};
 
 template <int kCout>
 __global__ void __launch_bounds__(kThreadsBf16, 1)
-fused_conv_ln_gelu_bf16_kernel(const Params p) {
-  static_assert(kBlockM * kBlockK / 8 == kThreadsBf16,
-                "one A piece per thread");
-  constexpr int kWarpCols = kCout / kWarpsN;
-  constexpr int kNT = kWarpCols / 8;  // n-tiles of 8 columns per warp
-  static_assert(kNT % 2 == 0, "W fragments are loaded two n-tiles at once");
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
-  // stage s: A at ring + s * kStageElems, W right after it
-  constexpr int kStageElems = (kBlockM + kCout) * kPitchK;
-  __shared__ float red[kWarpsN][kBlockM];
+fused_conv_ln_gelu_bf16_kernel(const __grid_constant__ Bf16Params p) {
+  using T = Bf16Tiles<kCout>;
+  constexpr int kCols = T::kCols;
+  constexpr int kNT = kCols / 8;  // n-tiles of 8 columns in a thread's rows
+  extern __shared__ unsigned char smem_raw[];
 
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kBlockM;
+  if (threadIdx.x == 0) {
+    const Bf16Block<kCout> blk(smem_raw, p);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&blk.full[s], 1);
+      mbar_init(&blk.empty[s], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  // the barriers are local; the peer's shared memory is first read after
+  // the epilogue's first cluster barrier
+  __syncthreads();
+
+  if (threadIdx.x / 32 >= kProducerWarp) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kProducerWarp * 32) {
+      const Bf16Block<kCout> blk(smem_raw, p);
+      unsigned char* ring = blk.ring;
+      uint64_t* full = blk.full;
+      uint64_t* empty = blk.empty;
+      const int t0 = blk.t0, b = blk.b, n0 = blk.n0;
+      const int chunks_per_tap = blk.chunks_per_tap;
+      tma_prefetch_map(&p.x);
+      tma_prefetch_map(&p.w);
+      for (int it = 0; it < blk.num_k; ++it) {
+        const int s = it % kStages;
+        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        unsigned char* a = ring + s * T::kStageBytes;
+        unsigned char* w = a + T::kABytes;
+        mbar_arrive_expect_tx(&full[s], T::kStageBytes);
+        const int j = it / chunks_per_tap;
+        const int c0 = (it % chunks_per_tap) * kChunk;
+        tma_load_3d(a, &p.x, &full[s], c0, p.stride * t0 + j, b);
+        tma_load_3d(a + 64 * 128, &p.x, &full[s], c0,
+                    p.stride * (t0 + 64) + j, b);
+        tma_load_2d(w, &p.w, &full[s], j * p.c_in + c0, n0);
+      }
+    }
+    __syncwarp();
+    // the consumers' three cluster barriers (two statistics, the end)
+    cluster_sync();
+    cluster_sync();
+    cluster_sync();
+    return;
+  }
+
+  // -- consumers: warpgroup wg owns rows t0 + 64 wg .. + 63 ------------------
+  setmaxnreg_inc<kConsumerRegs>();
+  const Bf16Block<kCout> blk(smem_raw, p);
+  unsigned char* ring = blk.ring;
+  uint64_t* full = blk.full;
+  uint64_t* empty = blk.empty;
+  const int half = blk.half, t0 = blk.t0, b = blk.b, n0 = blk.n0;
+  const int num_k = blk.num_k;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int wm = warp / kWarpsN;
-  const int wn = warp % kWarpsN;
+  const int wg = warp / 4;
+  float acc[kCols / 2];
+#pragma unroll
+  for (int i = 0; i < kCols / 2; ++i) acc[i] = 0.f;
+
+  for (int it = 0; it < num_k; ++it) {
+    const int s = it % kStages;
+    mbar_wait(&full[s], (it / kStages) & 1);
+    const unsigned char* a = ring + s * T::kStageBytes + wg * 64 * 128;
+    const uint64_t da = smem_desc(a);
+    const uint64_t dw = smem_desc(a - wg * 64 * 128 + T::kABytes);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      wgmma_ss<kCols>(acc, da + 2 * kk, dw + 2 * kk, 1);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // this chunk's products stay in flight; the previous chunk's are done
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    fence_regs(acc);
+    if (it > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_regs(acc);
+
+  // acc[4 j + 2 h + e]: row r_loc + 8 h of the warpgroup, column
+  // n0 + 8 j + 2 t4 + e (the wgmma accumulator layout)
   const int g = lane / 4;
   const int t4 = lane % 4;
-  const int k_total = p.taps * p.c_in;
-  const int num_k = k_total / kBlockK;
-
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(p.x) +
-                            static_cast<long long>(b) * p.length * p.c_in;
-  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(p.w);
-
-  float acc[2][kNT][4];
+  const int r_loc = (warp % 4) * 16 + g;
+  const int row = wg * 64 + r_loc;  // in the block's 128
+  if (p.bias != nullptr) {  // rounded to bf16 by the caller, added in f32
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < kNT; ++ni) {
-      acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
+    for (int j = 0; j < kNT; ++j) {
+      const int col = n0 + 8 * j + 2 * t4;
+      const float b0 = __bfloat162float(p.bias[col]);
+      const float b1 = __bfloat162float(p.bias[col + 1]);
+      acc[4 * j] += b0;
+      acc[4 * j + 1] += b1;
+      acc[4 * j + 2] += b0;
+      acc[4 * j + 3] += b1;
     }
   }
 
-  // ldmatrix row addresses of this lane (matrix q = lane / 8, its row
-  // lane % 8): A matrices (rows +0 / +8) x (k +0 / +8); W matrices
-  // (k +0 / +8) x (n-tile +0 / +1)
-  const int q = lane / 8, rr = lane % 8;
-  const int a_off = (wm * 32 + (q & 1) * 8 + rr) * kPitchK + (q >> 1) * 8;
-  const int b_off = (kBlockM + wn * kWarpCols + (q >> 1) * 8 + rr) * kPitchK +
-                    (q & 1) * 8;
-
-  // prologue: stages 0 .. kStages-2 in flight (a group per stage, empty
-  // groups past the end keep the count uniform)
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < num_k) {
-      __nv_bfloat16* stage = ring + st * kStageElems;
-      load_stage<kCout>(stage, stage + kBlockM * kPitchK, xb, w, p, t0,
-                        st * kBlockK, k_total);
-    }
-    cp_async_commit();
-  }
-  for (int kc = 0; kc < num_k; ++kc) {
-    cp_async_wait<kStages - 2>();  // chunk kc has landed
-    __syncthreads();  // ... for every thread; and chunk kc - 1 is consumed
-    {
-      const int next = kc + kStages - 1;  // into the stage of chunk kc - 1
-      if (next < num_k) {
-        __nv_bfloat16* stage = ring + (next % kStages) * kStageElems;
-        load_stage<kCout>(stage, stage + kBlockM * kPitchK, xb, w, p, t0,
-                          next * kBlockK, k_total);
-      }
-      cp_async_commit();
-    }
-
-    const __nv_bfloat16* tile = ring + (kc % kStages) * kStageElems;
-#pragma unroll
-    for (int ks = 0; ks < kBlockK / 16; ++ks) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        ldmatrix_x4(af[mi], tile + a_off + mi * 16 * kPitchK + ks * 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < kNT; ni += 2) {
-        uint32_t bf[4];  // n-tiles ni and ni + 1, k +0 and +8
-        ldmatrix_x4(bf, tile + b_off + ni * 8 * kPitchK + ks * 16);
-        mma_16816(acc[0][ni], af[0], bf);
-        mma_16816(acc[1][ni], af[1], bf);
-        mma_16816(acc[0][ni + 1], af[0], bf + 2);
-        mma_16816(acc[1][ni + 1], af[1], bf + 2);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the ring: it becomes the tile
-
-  // bias, rounded to bf16 by the caller, added in f32
-  if (p.bias != nullptr) {
-    const __nv_bfloat16* bias = static_cast<const __nv_bfloat16*>(p.bias);
-#pragma unroll
-    for (int ni = 0; ni < kNT; ++ni) {
-      const int col = wn * kWarpCols + ni * 8 + 2 * t4;
-      const float b0 = __bfloat162float(bias[col]);
-      const float b1 = __bfloat162float(bias[col + 1]);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        acc[mi][ni][0] += b0;
-        acc[mi][ni][1] += b1;
-        acc[mi][ni][2] += b0;
-        acc[mi][ni][3] += b1;
-      }
-    }
-  }
-
-  // per thread: rows wm*32 + mi*16 + g + 8*h, indexed ri = 2*mi + h
-  float mean[4], rstd[4];
+  const uint32_t peer = static_cast<uint32_t>(half ^ 1);
+  float mean[2], rstd[2];
 #pragma unroll
   for (int pass = 0; pass < 2; ++pass) {
+    float* part = blk.red + pass * kRowsBf16;
 #pragma unroll
-    for (int ri = 0; ri < 4; ++ri) {
-      const int mi = ri / 2, h = ri % 2;
+    for (int h = 0; h < 2; ++h) {
       float s = 0.f;
 #pragma unroll
-      for (int ni = 0; ni < kNT; ++ni) {
-        const float v0 = acc[mi][ni][2 * h];
-        const float v1 = acc[mi][ni][2 * h + 1];
+      for (int j = 0; j < kNT; ++j) {
+        const float v0 = acc[4 * j + 2 * h];
+        const float v1 = acc[4 * j + 2 * h + 1];
         if (pass == 0) {
           s += v0 + v1;
         } else {
-          const float d0 = v0 - mean[ri], d1 = v1 - mean[ri];
+          const float d0 = v0 - mean[h], d1 = v1 - mean[h];
           s += d0 * d0 + d1 * d1;
         }
       }
       s += __shfl_xor_sync(0xffffffffu, s, 1);
       s += __shfl_xor_sync(0xffffffffu, s, 2);
-      if (t4 == 0) red[wn][wm * 32 + mi * 16 + h * 8 + g] = s;
+      if (t4 == 0) part[row + 8 * h] = s;
     }
-    __syncthreads();
+    cluster_sync();  // both halves' partials are written
 #pragma unroll
-    for (int ri = 0; ri < 4; ++ri) {
-      const int row = wm * 32 + (ri / 2) * 16 + (ri % 2) * 8 + g;
-      float s = 0.f;
-#pragma unroll
-      for (int wi = 0; wi < kWarpsN; ++wi) s += red[wi][row];
+    for (int h = 0; h < 2; ++h) {
+      const float mine = part[row + 8 * h];
+      const float theirs = ld_cluster_f32(map_to_rank(&part[row + 8 * h],
+                                                      peer));
+      const float total = half == 0 ? mine + theirs : theirs + mine;
       if (pass == 0) {
-        mean[ri] = s / kCout;
+        mean[h] = total / kCout;
       } else {
-        rstd[ri] = rsqrtf(s / kCout + p.eps);
+        rstd[h] = rsqrtf(total / kCout + p.eps);
       }
     }
-    __syncthreads();  // red is rewritten by the next pass
   }
 
-  // normalise, GELU, round, into the output tile staged in the ring
-  constexpr int kOutPitch = kCout + 8;
-  __nv_bfloat16* tile = ring;
+  // normalise, GELU, round; stage the warpgroup's 64 rows as kCols / 64
+  // swizzled sub-tiles of 64 columns in the freed ring, then TMA them out
+  unsigned char* tile = ring + wg * (kCols / 64) * 8192;
 #pragma unroll
-  for (int ni = 0; ni < kNT; ++ni) {
-    const int col = wn * kWarpCols + ni * 8 + 2 * t4;
+  for (int j = 0; j < kNT; ++j) {
+    const int col = n0 + 8 * j + 2 * t4;
     const float w0 = p.ln_w[col], w1 = p.ln_w[col + 1];
     const float c0 = p.ln_b[col], c1 = p.ln_b[col + 1];
+    unsigned char* sub = tile + (j / 8) * 8192;
 #pragma unroll
-    for (int ri = 0; ri < 4; ++ri) {
-      const int mi = ri / 2, h = ri % 2;
-      const int row = wm * 32 + mi * 16 + h * 8 + g;
-      const float y0 = (acc[mi][ni][2 * h] - mean[ri]) * rstd[ri] * w0 + c0;
-      const float y1 =
-          (acc[mi][ni][2 * h + 1] - mean[ri]) * rstd[ri] * w1 + c1;
-      *reinterpret_cast<uint32_t*>(&tile[row * kOutPitch + col]) =
+    for (int h = 0; h < 2; ++h) {
+      const int r = r_loc + 8 * h;
+      const float y0 = (acc[4 * j + 2 * h] - mean[h]) * rstd[h] * w0 + c0;
+      const float y1 = (acc[4 * j + 2 * h + 1] - mean[h]) * rstd[h] * w1 + c1;
+      *reinterpret_cast<uint32_t*>(sub + r * 128 + (((j % 8) ^ (r & 7)) << 4) +
+                                   4 * t4) =
           pack_bf16(gelu_exact(y0), gelu_exact(y1));
     }
   }
-  __syncthreads();
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.out) +
-                      (static_cast<long long>(b) * p.t_out + t0) * kCout;
-  constexpr int kRowPieces = kCout / 8;
-  for (int i = threadIdx.x; i < kBlockM * kRowPieces; i += kThreadsBf16) {
-    const int r = i / kRowPieces;
-    const int c = (i % kRowPieces) * 8;
-    if (t0 + r < p.t_out) {
-      *reinterpret_cast<uint4*>(ob + static_cast<long long>(r) * kCout + c) =
-          *reinterpret_cast<const uint4*>(&tile[r * kOutPitch + c]);
+  fence_proxy_async();  // the staged tile, visible to the TMA stores
+  named_barrier_sync(1 + wg, 128);
+  if (threadIdx.x % 128 == 0 && t0 + 64 * wg < p.t_out) {
+#pragma unroll
+    for (int c = 0; c < kCols / 64; ++c) {
+      tma_store_3d(&p.out, tile + c * 8192, n0 + 64 * c, t0 + 64 * wg, b);
     }
+    tma_store_commit_and_wait_read();
   }
+  cluster_sync();  // the peer has read this block's partials
 }
 
 // The float32 variant, for models run in float32 (the bf16 kernel above is
@@ -293,6 +325,17 @@ fused_conv_ln_gelu_bf16_kernel(const Params p) {
 // at a pitch of 17 words (W, conflict-free).
 constexpr int kRowsF32 = 16;
 constexpr int kChunkF32 = 16;
+
+struct Params {
+  const void* x;       // (B, L, C_in) contiguous
+  const void* w;       // (C_out, k, C_in) contiguous
+  const void* bias;    // (C_out,) float32, or null
+  const float* ln_w;   // (C_out,)
+  const float* ln_b;   // (C_out,)
+  void* out;           // (B, T_out, C_out) contiguous
+  int length, t_out, c_in, taps, stride;
+  float eps;
+};
 
 template <int kCout>
 __global__ void __launch_bounds__(kCout / 2)
@@ -400,14 +443,60 @@ fused_conv_ln_gelu_f32_kernel(const Params p) {
 }
 
 template <int kCout>
-int launch_bf16(const Params& p, int batch, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes_bf16<kCout>();
+int launch_bf16(const void* x, const void* w, const void* bias,
+                const void* ln_w, const void* ln_b, void* out, int batch,
+                int length, int c_in, int taps, int stride, int t_out,
+                float eps, cudaStream_t stream) {
+  using T = Bf16Tiles<kCout>;
+  Bf16Params p;
+  const cuuint64_t k_total = static_cast<cuuint64_t>(taps) * c_in;
+  const cuuint64_t x_dims[3] = {static_cast<cuuint64_t>(c_in),
+                                static_cast<cuuint64_t>(length),
+                                static_cast<cuuint64_t>(batch)};
+  const cuuint64_t x_strides[2] = {2ull * c_in, 2ull * length * c_in};
+  const cuuint32_t x_box[3] = {kChunk, 64u * stride, 1};
+  const cuuint32_t x_step[3] = {1, static_cast<cuuint32_t>(stride), 1};
+  const cuuint64_t w_dims[2] = {k_total, kCout};
+  const cuuint64_t w_strides[1] = {2 * k_total};
+  const cuuint32_t w_box[2] = {kChunk, T::kCols};
+  const cuuint64_t o_dims[3] = {kCout, static_cast<cuuint64_t>(t_out),
+                                static_cast<cuuint64_t>(batch)};
+  const cuuint64_t o_strides[2] = {2ull * kCout, 2ull * kCout * t_out};
+  const cuuint32_t o_box[3] = {64, 64, 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  if (!encode_bf16_map(&p.x, x, 3, x_dims, x_strides, x_box, x_step) ||
+      !encode_bf16_map(&p.w, w, 2, w_dims, w_strides, w_box, ones) ||
+      !encode_bf16_map(&p.out, out, 3, o_dims, o_strides, o_box, ones)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.bias = static_cast<const __nv_bfloat16*>(bias);
+  p.ln_w = static_cast<const float*>(ln_w);
+  p.ln_b = static_cast<const float*>(ln_b);
+  p.t_out = t_out;
+  p.c_in = c_in;
+  p.taps = taps;
+  p.stride = stride;
+  p.eps = eps;
+
   auto kernel = fused_conv_ln_gelu_bf16_kernel<kCout>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.t_out + kBlockM - 1) / kBlockM, batch);
-  kernel<<<grid, kThreadsBf16, bytes, stream>>>(p);
+  const int tiles = (t_out + kRowsBf16 - 1) / kRowsBf16;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kClusterSize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * kClusterSize, batch, 1);
+  cfg.blockDim = dim3(kThreadsBf16, 1, 1);
+  cfg.dynamicSmemBytes = T::kSmemBytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -418,15 +507,53 @@ int launch_f32(const Params& p, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int check_and_fill(Params& p, const void* x, const void* w, const void* bias,
-                   const void* ln_w, const void* ln_b, void* out, int batch,
-                   int length, int c_in, int taps, int stride, int t_out,
-                   float eps, int chunk) {
-  if (batch <= 0 || taps <= 0 || stride <= 0 || c_in <= 0 ||
-      c_in % chunk != 0 || length < taps ||
-      t_out != (length - taps) / stride + 1) {
+bool valid_shape(int batch, int length, int c_in, int taps, int stride,
+                 int t_out, int chunk) {
+  return batch > 0 && taps > 0 && stride > 0 && c_in > 0 &&
+         c_in % chunk == 0 && length >= taps &&
+         t_out == (length - taps) / stride + 1;
+}
+
+}  // namespace
+
+// Both entry points launch on `stream` and return a CUDA error code (0 on
+// success). x (B, L, C_in), w (C_out, taps, C_in), out (B, T_out, C_out) are
+// contiguous device buffers of the entry point's type with 16-byte aligned
+// starts; bias (C_out,) of the same type or null; ln_w, ln_b (C_out,) float32.
+// C_out must be 128, 256 or 512; C_in a multiple of 64 (bf16) or 16 (f32);
+// the bf16 kernel takes strides 1 to 4.
+#define APTAI_FUSED_CONV_ARGS                                               \
+  const void *x, const void *w, const void *bias, const void *ln_w,         \
+      const void *ln_b, void *out, int batch, int length, int c_in,         \
+      int c_out, int taps, int stride, int t_out, float eps, void *stream
+
+extern "C" int aptai_fused_conv_ln_gelu_bf16(APTAI_FUSED_CONV_ARGS) {
+  const auto misaligned = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 != 0;
+  };
+  if (!valid_shape(batch, length, c_in, taps, stride, t_out, kChunk) ||
+      stride > kMaxStrideBf16 || misaligned(x) || misaligned(w) ||
+      misaligned(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define APTAI_LAUNCH_BF16(N)                                                 \
+  launch_bf16<N>(x, w, bias, ln_w, ln_b, out, batch, length, c_in, taps,     \
+                 stride, t_out, eps, s)
+  switch (c_out) {
+    case 128: return APTAI_LAUNCH_BF16(128);
+    case 256: return APTAI_LAUNCH_BF16(256);
+    case 512: return APTAI_LAUNCH_BF16(512);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef APTAI_LAUNCH_BF16
+}
+
+extern "C" int aptai_fused_conv_ln_gelu_f32(APTAI_FUSED_CONV_ARGS) {
+  if (!valid_shape(batch, length, c_in, taps, stride, t_out, kChunkF32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p;
   p.x = x;
   p.w = w;
   p.bias = bias;
@@ -439,40 +566,6 @@ int check_and_fill(Params& p, const void* x, const void* w, const void* bias,
   p.taps = taps;
   p.stride = stride;
   p.eps = eps;
-  return 0;
-}
-
-}  // namespace
-
-// Both entry points launch on `stream` and return a CUDA error code (0 on
-// success). x (B, L, C_in), w (C_out, taps, C_in), out (B, T_out, C_out) are
-// contiguous device buffers of the entry point's type with 16-byte aligned
-// starts; bias (C_out,) of the same type or null; ln_w, ln_b (C_out,) float32.
-// C_out must be 128, 256 or 512; C_in a multiple of 32 (bf16) or 16 (f32).
-#define APTAI_FUSED_CONV_ARGS                                               \
-  const void *x, const void *w, const void *bias, const void *ln_w,         \
-      const void *ln_b, void *out, int batch, int length, int c_in,         \
-      int c_out, int taps, int stride, int t_out, float eps, void *stream
-
-extern "C" int aptai_fused_conv_ln_gelu_bf16(APTAI_FUSED_CONV_ARGS) {
-  Params p;
-  const int rc = check_and_fill(p, x, w, bias, ln_w, ln_b, out, batch, length,
-                                c_in, taps, stride, t_out, eps, kBlockK);
-  if (rc != 0) return rc;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (c_out) {
-    case 128: return launch_bf16<128>(p, batch, s);
-    case 256: return launch_bf16<256>(p, batch, s);
-    case 512: return launch_bf16<512>(p, batch, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-extern "C" int aptai_fused_conv_ln_gelu_f32(APTAI_FUSED_CONV_ARGS) {
-  Params p;
-  const int rc = check_and_fill(p, x, w, bias, ln_w, ln_b, out, batch, length,
-                                c_in, taps, stride, t_out, eps, kChunkF32);
-  if (rc != 0) return rc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (c_out) {
     case 128: return launch_f32<128>(p, batch, s);

@@ -80,18 +80,21 @@ _FNS = {torch.bfloat16: "aptai_fused_conv_ln_gelu_bf16",
         torch.float32: "aptai_fused_conv_ln_gelu_f32"}
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_void_p])
-# the reduction chunk each variant steps C_in by
-_C_IN_MULTIPLE = {torch.bfloat16: 32, torch.float32: 16}
+# the reduction chunk each variant steps C_in by: 64 channels (128-byte rows
+# of a TMA box) in bf16, 16 in float32
+_C_IN_MULTIPLE = {torch.bfloat16: 64, torch.float32: 16}
+# the bf16 kernel loads 64 rows of the im2col matrix as one TMA box that
+# spans 64·stride rows of x, and a box spans at most 256
+_BF16_MAX_STRIDE = 4
 
 
 def _check_kernel_inputs(x, w, b, ln_w, ln_b, stride) -> None:
+    """Raise on inputs the kernel does not take: dtypes, shapes, widths,
+    stride, layout, then the device, so that every refusal but the last is
+    reachable with CPU tensors."""
     tensors = {"x": x, "w": w, "ln_w": ln_w, "ln_b": ln_b}
     if b is not None:
         tensors["b"] = b
-    if not all(t.is_cuda and t.device == x.device for t in tensors.values()):
-        raise ValueError(
-            "the fused conv kernel needs every tensor on one CUDA device (got "
-            + ", ".join(f"{n} on {t.device}" for n, t in tensors.items()) + ")")
     if x.dtype not in _FNS or w.dtype != x.dtype or (
             b is not None and b.dtype != x.dtype):
         raise TypeError(f"the fused conv kernel takes bfloat16 or float32 x, "
@@ -115,10 +118,17 @@ def _check_kernel_inputs(x, w, b, ln_w, ln_b, stride) -> None:
     if stride < 1 or x.shape[0] == 0 or x.shape[1] < k:
         raise ValueError(f"no output rows: x {tuple(x.shape)}, k {k}, stride "
                          f"{stride}")
+    if x.dtype == torch.bfloat16 and stride > _BF16_MAX_STRIDE:
+        raise ValueError(f"the bf16 kernel takes strides up to "
+                         f"{_BF16_MAX_STRIDE}, got {stride}")
     for name, t in tensors.items():
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous with a 16-byte "
                              f"aligned start")
+    if not all(t.is_cuda and t.device == x.device for t in tensors.values()):
+        raise ValueError(
+            "the fused conv kernel needs every tensor on one CUDA device (got "
+            + ", ".join(f"{n} on {t.device}" for n, t in tensors.items()) + ")")
 
 
 def fused_conv_ln_gelu_cuda(x: torch.Tensor, w: torch.Tensor,
@@ -126,9 +136,10 @@ def fused_conv_ln_gelu_cuda(x: torch.Tensor, w: torch.Tensor,
                             ln_b: torch.Tensor, stride: int,
                             eps: float = 1e-5) -> torch.Tensor:
     """Launch the Hopper kernel on the current stream: x (B, L, C_in) and w
-    (C_out, k, C_in), contiguous, both bf16 (tensor cores) or both float32
-    (scalar FMA); b (C_out,) of that dtype or None; ln_w, ln_b (C_out,)
-    float32; C_out in :data:`KERNEL_C_OUT`. Returns a new (B, T_out, C_out)
+    (C_out, k, C_in), contiguous, both bf16 (tensor cores; C_in a multiple
+    of 64, stride at most 4) or both float32 (scalar FMA; C_in a multiple of
+    16); b (C_out,) of that dtype or None; ln_w, ln_b (C_out,) float32;
+    C_out in :data:`KERNEL_C_OUT`. Returns a new (B, T_out, C_out)
     tensor of x's dtype. Raises on inputs the kernel does not take, and if
     the launch fails; it never falls back to another implementation."""
     _check_kernel_inputs(x, w, b, ln_w, ln_b, stride)

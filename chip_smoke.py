@@ -21,12 +21,15 @@ Phases (any failure ends the run with a non-zero exit code):
    ``attention_delta``, and a relaunch of the forward and of both backward
    kernels on the same inputs bit for bit; the fused conv + LayerNorm +
    GELU at the shapes of feature-extractor layers 1 and 6 of a 32 x 10 s
-   batch, ragged (T_out not a multiple of the tile, T_out = 1), with and
-   without bias, and its float32 variant; then each kernel's time beside
+   batch, at the edges of its 128-row tile and of two tiles (T_out 127,
+   128, 129, 255, 256, 257), with an item ending mid-tile, T_out = 1, C_out
+   128 and 256, strides 1 and 4, with and without bias, x followed by NaN
+   in its buffer (nothing past x may be read), a relaunch bit for bit, and
+   its float32 variant; then each kernel's time beside
    its bound, its plain version's time and a PyTorch yardstick (one library
    call: SDPA's forward at both shapes, at the serving shape also without
    a mask, and its backward; for the fused conv the chain conv1d ->
-   LayerNorm -> GELU, per fused layer).
+   LayerNorm -> GELU, per fused layer, with each layer's TFLOP/s).
 3. Serving: a small float32 model on the card against the same model on
    the CPU; then full-width wav2vec2-large APTAI in bf16 (weights from seed
    0) served by the ``MicroBatcher`` on its background thread, 8 requests of
@@ -471,46 +474,96 @@ def fused_operands(gen, b, length, c_in, c_out, k, dtype, bias=True):
     return x, w, bb, ln_w, ln_b
 
 
+def _check_fused(name, got, want, dtype):
+    """One fused-conv result against its plain version: bf16 within one
+    bf16 ulp of the output plus FUSED_BF16_ATOL, float32 within F32_TOL,
+    finite and of the plain version's shape. Returns the max abs error."""
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.bfloat16:
+        ok = bool((err <= bf16_ulp(want) + FUSED_BF16_ATOL).all())
+    else:
+        ok = err.max().item() <= F32_TOL
+    ok = ok and got.shape == want.shape and bool(
+        torch.isfinite(got.float()).all())
+    if not ok:
+        raise AssertionError(f"the fused conv kernel disagrees with its "
+                             f"plain version: {name}")
+    return err.max().item()
+
+
 def check_fused_cases(gen):
     """The fused kernel against its plain version: bf16 within one bf16
-    ulp of the output plus FUSED_BF16_ATOL, float32 within F32_TOL.
-    Returns the max abs error."""
+    ulp of the output plus FUSED_BF16_ATOL, float32 within F32_TOL; then x
+    at the start of a NaN-filled buffer (nothing past x may be read) and a
+    bit-for-bit relaunch. Returns the max abs error."""
     first, last = fe_input_lengths()[0], fe_input_lengths()[-1]
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (B, L, C_in, C_out, k, stride, dtype, bias)
     cases = [
-        ("layer 1, 32 x 10 s", (32, first, 512, 512, 3, torch.bfloat16,
-                                True)),
-        ("layer 6, 32 x 10 s, no bias", (32, last, 512, 512, 2,
-                                         torch.bfloat16, False)),
-        ("ragged: T_out 150, 3 tiles", (3, 301, 512, 512, 3, torch.bfloat16,
-                                        True)),
-        ("T_out 1, k 3", (2, 3, 512, 512, 3, torch.bfloat16, True)),
-        ("T_out 1, k 2, no bias", (1, 2, 512, 512, 2, torch.bfloat16, False)),
-        ("float32 variant", (4, 1601, 512, 512, 3, torch.float32, True)),
-        ("float32 variant, C 128, no bias", (2, 301, 128, 128, 2,
-                                             torch.float32, False)),
-        ("float32 variant, T_out 1", (1, 3, 512, 512, 3, torch.float32, True)),
+        ("layer 1, 32 x 10 s", (32, first, 512, 512, 3, 2, bf16, True)),
+        ("layer 6, 32 x 10 s, no bias", (32, last, 512, 512, 2, 2, bf16,
+                                         False)),
+        ("an item ends mid-tile: T_out 150", (3, 301, 512, 512, 3, 2, bf16,
+                                              True)),
+        ("T_out 1, k 3", (2, 3, 512, 512, 3, 2, bf16, True)),
+        ("T_out 1, k 2, no bias", (1, 2, 512, 512, 2, 2, bf16, False)),
+        ("C_out 128", (3, 401, 512, 128, 3, 2, bf16, True)),
+        ("C_out 128, no bias", (2, 300, 128, 128, 2, 2, bf16, False)),
+        ("C_out 256", (3, 401, 128, 256, 3, 2, bf16, True)),
+        ("C_out 256, C_in 64, no bias", (2, 515, 64, 256, 3, 2, bf16,
+                                         False)),
+        ("stride 1", (2, 300, 512, 512, 2, 1, bf16, True)),
+        ("stride 4", (2, 1001, 512, 256, 3, 4, bf16, False)),
+        ("float32 variant", (4, 1601, 512, 512, 3, 2, f32, True)),
+        ("float32 variant, C 128, no bias", (2, 301, 128, 128, 2, 2, f32,
+                                             False)),
+        ("float32 variant, T_out 1", (1, 3, 512, 512, 3, 2, f32, True)),
     ]
+    # the edges of the 128-row tile and of a cluster of two row tiles
+    for i, t_out in enumerate((127, 128, 129, 255, 256, 257)):
+        cases.append((f"tile edge T_out {t_out}",
+                      (2, 2 * t_out + 1, 512, 512, 3, 2, bf16, i % 2 == 0)))
     worst = 0.0
-    for name, (b, length, c_in, c_out, k, dtype, bias) in cases:
+    for name, (b, length, c_in, c_out, k, stride, dtype, bias) in cases:
         x, w, bb, ln_w, ln_b = fused_operands(gen, b, length, c_in, c_out, k,
                                               dtype, bias)
-        got = fused_conv.fused_conv_ln_gelu_cuda(x, w, bb, ln_w, ln_b, 2)
+        got = fused_conv.fused_conv_ln_gelu_cuda(x, w, bb, ln_w, ln_b, stride)
         torch.cuda.synchronize()
-        want = fused_conv.fused_conv_ln_gelu_plain(x, w, bb, ln_w, ln_b, 2)
-        err = (got.float() - want.float()).abs()
-        if dtype == torch.bfloat16:
-            ok = bool((err <= bf16_ulp(want) + FUSED_BF16_ATOL).all())
-        else:
-            ok = err.max().item() <= F32_TOL
-        ok = ok and got.shape == want.shape and bool(
-            torch.isfinite(got.float()).all())
+        want = fused_conv.fused_conv_ln_gelu_plain(x, w, bb, ln_w, ln_b,
+                                                   stride)
+        err = _check_fused(name, got, want, dtype)
         log(f"  fused_conv_ln_gelu {name}: x {tuple(x.shape)} {dtype} k {k} "
-            f"-> T_out {got.shape[1]}, max_abs_err {err.max().item():.3e}")
-        if not ok:
-            raise AssertionError(f"the fused conv kernel disagrees with its "
-                                 f"plain version: {name}")
-        worst = max(worst, err.max().item())
-        del x, got, want, err
+            f"stride {stride} -> T_out {got.shape[1]}, max_abs_err "
+            f"{err:.3e}")
+        worst = max(worst, err)
+        del x, got, want
+
+    # x at the start of a larger buffer whose other elements are NaN: a
+    # read past x (or past an item into the next) would poison whole rows
+    x, w, bb, ln_w, ln_b = fused_operands(gen, 3, 301, 512, 512, 3,
+                                          torch.bfloat16)
+    buf = torch.full((x.numel() + 64 * 512,), float("nan"),
+                     dtype=torch.bfloat16, device="cuda")
+    buf[:x.numel()] = x.reshape(-1)
+    got = fused_conv.fused_conv_ln_gelu_cuda(
+        buf[:x.numel()].view(x.shape), w, bb, ln_w, ln_b, 2)
+    torch.cuda.synchronize()
+    want = fused_conv.fused_conv_ln_gelu_plain(x, w, bb, ln_w, ln_b, 2)
+    err = _check_fused("x followed by NaN", got, want, torch.bfloat16)
+    worst = max(worst, err)
+    log(f"  fused_conv_ln_gelu x at the start of a NaN-filled buffer: "
+        f"finite, max_abs_err {err:.3e}")
+
+    # a relaunch at layer 1's shape gives the same bits
+    x, w, bb, ln_w, ln_b = fused_operands(gen, 32, first, 512, 512, 3,
+                                          torch.bfloat16)
+    one = fused_conv.fused_conv_ln_gelu_cuda(x, w, bb, ln_w, ln_b, 2)
+    two = fused_conv.fused_conv_ln_gelu_cuda(x, w, bb, ln_w, ln_b, 2)
+    torch.cuda.synchronize()
+    if not torch.equal(one, two):
+        raise AssertionError("the fused conv kernel is not bit-identical "
+                             "on a relaunch")
+    log("  fused_conv_ln_gelu relaunch at layer 1's shape: bit-identical")
     return worst
 
 
@@ -546,7 +599,8 @@ def time_fused_layers(gen):
         layers.append({"layer": i, "x": [32, length, 512], "k": k,
                        "t_out": t_out, "ms": ms, "plain_ms": plain_ms,
                        "chain_ms": chain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "flops": flops, "bytes": nbytes})
+                       "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+                       "tflops": flops / (ms * 1e-3) / 1e12})
         log(f"  fused_conv_ln_gelu layer {i} (x (32, {length}, 512), k {k}, "
             f"T_out {t_out}): {ms * 1e3:.1f} us | plain {plain_ms * 1e3:.1f} "
             f"us | conv->LN->GELU chain {chain_ms * 1e3:.1f} us | bound "

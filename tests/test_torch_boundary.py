@@ -27,7 +27,7 @@ import aptai_tpu_torch
 for m in pkgutil.walk_packages(aptai_tpu_torch.__path__, "aptai_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-import compare_attention
+import compare_kernels
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "aptai_tpu"))
 print("LOADED", len([m for m in sys.modules if m.startswith("aptai_tpu_torch")]))
@@ -116,30 +116,48 @@ def test_flops_match_jax(samples):
                 == jflops.pr_forward_flops(j, samples, vocab_size=7))
 
 
+# the chip_smoke, attention, fused_conv and kernels names a comparison turn
+# may use: each one existed already when this script was
+# compare_attention.py, so older checkouts can be timed too
+_PARENT_NAMES = {
+    ("cs", "_qkv"), ("cs", "device_ms"), ("cs", "train_batch"),
+    ("cs", "time_training_kernels"), ("cs", "fused_operands"),
+    ("cs", "fe_input_lengths"), ("cs", "bf16_ulp"),
+    ("attention", "flash_attention_bhtd_cuda"),
+    ("attention", "flash_attention_bwd_cuda"),
+    ("fused_conv", "fused_conv_ln_gelu_cuda"),
+    ("fused_conv", "fused_conv_ln_gelu_plain"), ("kernels", "build_all")}
+
+
 def test_backward_comparison_script_fits_this_checkout():
-    """compare_attention.py runs one snippet in each checkout it times:
-    every chip_smoke, attention and kernels name the snippet uses exists in
-    this one; with no checkout to time it prints its usage."""
+    """compare_kernels.py runs one snippet in each checkout it times: every
+    chip_smoke, attention, fused_conv and kernels name the snippet uses is
+    one older checkouts have too, and exists in this one; with no checkout
+    to time it prints its usage."""
     import ast
 
     import chip_smoke
-    import compare_attention
-    from aptai_tpu_torch.ops import kernels
+    import compare_kernels
+    from aptai_tpu_torch.ops import fused_conv, kernels
 
-    modules = {"cs": chip_smoke, "attention": tatt, "kernels": kernels}
+    modules = {"cs": chip_smoke, "attention": tatt, "kernels": kernels,
+               "fused_conv": fused_conv}
     used = {(node.value.id, node.attr)
-            for node in ast.walk(ast.parse(compare_attention._TURN))
+            for node in ast.walk(ast.parse(compare_kernels._TURN))
             if isinstance(node, ast.Attribute)
             and isinstance(node.value, ast.Name)
             and node.value.id in modules}
-    assert len(used) >= 6
+    assert len(used) >= 10
     assert ("attention", "flash_attention_bhtd_cuda") in used
+    assert ("fused_conv", "fused_conv_ln_gelu_cuda") in used
+    assert used <= _PARENT_NAMES, used - _PARENT_NAMES
     assert all(hasattr(modules[m], name) for m, name in used), used
-    assert compare_attention.main([]) == 2
+    assert compare_kernels.main([]) == 2
+    assert compare_kernels.main(["--only", "fused_conv"]) == 2
 
 
 @pytest.mark.parametrize("header", ["flash_attn_common.cuh",
-                                    "wgmma_tiles.cuh"])
+                                    "wgmma_tiles.cuh", "tma_cluster.cuh"])
 def test_header_edit_rebuilds_every_kernel(monkeypatch, tmp_path, header):
     """A library is named by its sources and every header, so an edited
     (or moved) header gives all three kernels new library paths: no stale

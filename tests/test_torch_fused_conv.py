@@ -41,22 +41,57 @@ def _operands(rng, b, length, c, k, bias):
     return x, w, bb, ls, lb
 
 
-def _float64_reference(x, w, bb, ls, lb, stride, eps=1e-5):
-    """The same function evaluated in float64 from the float32 operands:
-    x (B, L, C), w (k, C_in, C_out) in the JAX kernel's layout."""
+U32 = 2.0 ** -24  # float32 unit roundoff
+GELU_PRIME_MAX = 1.13  # max of d/dy 0.5·y·(1 + erf(y/√2)), at y = √2
+# absolute error of an f32 erf: the TPU kernel's Abramowitz-Stegun
+# polynomial (1.5e-7) plus its f32 evaluation; torch's is within an ulp
+ERF_ABS_ERR = 1.5e-7 + 8 * U32
+
+
+def _float32_error_bound(x, w, bb, ls, lb, stride, eps=1e-5):
+    """The function evaluated in float64 from the float32 operands (x
+    (B, L, C), w (k, C_in, C_out), the JAX kernel's layout), and a
+    per-element bound on the error of ANY float32 evaluation of it: the
+    forward-error bound γ_n·Σ|x·w| of the (k·C_in + 1)-term dot (bias
+    included), whatever its summation order, carried through the mean, the
+    two-pass variance, rsqrt (a few ulps), the affine and GELU (its slope
+    is at most GELU_PRIME_MAX; erf within ERF_ABS_ERR). Returns (exact,
+    bound)."""
+    def gamma(m):
+        return m * U32 / (1 - m * U32)
+
     x, w = torch.from_numpy(x).double(), torch.from_numpy(w).double()
     bsz, length, c = x.shape
-    k = w.shape[0]
+    k, _, c_out = w.shape
     t_out = (length - k) // stride + 1
     patches = x.as_strided((bsz, t_out, k * c), (length * c, stride * c, 1))
-    out = patches @ w.reshape(k * c, -1)
+    wk = w.reshape(k * c, -1)
+    acc, mag = patches @ wk, patches.abs() @ wk.abs()
     if bb is not None:
-        out = out + torch.from_numpy(bb).double()
-    mean = out.mean(-1, keepdim=True)
-    var = ((out - mean) ** 2).mean(-1, keepdim=True)
-    y = ((out - mean) * torch.rsqrt(var + eps) * torch.from_numpy(ls).double()
-         + torch.from_numpy(lb).double())
-    return (0.5 * y * (1.0 + torch.erf(y * 2.0 ** -0.5))).numpy()
+        acc = acc + torch.from_numpy(bb).double()
+        mag = mag + torch.from_numpy(bb).double().abs()
+    e_acc = gamma(k * c + 1) * mag
+    mean = acc.mean(-1, keepdim=True)
+    e_mean = (e_acc.mean(-1, keepdim=True)
+              + gamma(c_out) * acc.abs().mean(-1, keepdim=True)
+              + U32 * mean.abs())
+    d = acc - mean
+    e_d = e_acc + e_mean + U32 * (d.abs() + e_acc + e_mean)
+    var = (d ** 2).mean(-1, keepdim=True)
+    e_var = ((2 * d.abs() * e_d + e_d ** 2).mean(-1, keepdim=True)
+             + gamma(c_out + 1) * ((d.abs() + e_d) ** 2).mean(-1,
+                                                              keepdim=True))
+    rel_var = e_var / (var + eps)
+    rstd = torch.rsqrt(var + eps)
+    e_rstd = rstd * (0.5 * rel_var / (1 - rel_var) + 6 * U32)
+    ls, lb = torch.from_numpy(ls).double(), torch.from_numpy(lb).double()
+    y = d * rstd * ls + lb
+    e_y = (ls.abs() * (e_d * rstd + (d.abs() + e_d) * e_rstd)
+           + gamma(3) * ((d * rstd * ls).abs() + lb.abs()))
+    out = 0.5 * y * (1.0 + torch.erf(y * 2.0 ** -0.5))
+    bound = (GELU_PRIME_MAX * e_y + 0.5 * (y.abs() + e_y) * ERF_ABS_ERR
+             + 4 * U32 * out.abs())
+    return out.numpy(), bound.numpy()
 
 
 @pytest.mark.parametrize("k,length,bias", [
@@ -84,16 +119,28 @@ def test_plain_matches_pallas_kernel(k, length, bias, dtype):
     assert got.shape[1] == (length - k) // 2 + 1
     got = got.float().numpy()
     if dtype == "float32":
-        # each one against the exact value, not against the other: the f32
-        # sums of the 384-term conv and of the LayerNorm statistics err by
-        # a few 1e-6 in an order each CPU's matmul picks, and the error of
-        # the normalised output grows with |y| (through rsqrt(var) and
-        # GELU' -> 1); the TPU kernel's polynomial erf adds 1.5e-7
-        exact = _float64_reference(x, w, bb, ls, lb, 2)
-        tol = 1e-5 * np.maximum(1.0, np.abs(exact))
+        # each one against the exact value within the error any float32
+        # evaluation may have (a fixed 1e-5·max(1, |y|) left no room for
+        # the orders and kernels another CPU's libraries pick)
+        exact, bound = _float32_error_bound(x, w, bb, ls, lb, 2)
         for name, out in (("plain", got), ("pallas", want)):
-            err = np.abs(out - exact)
-            assert (err <= tol).all(), (name, float((err / tol).max()))
+            ratio = np.abs(out - exact) / bound
+            assert (ratio <= 1).all(), (name, float(ratio.max()))
+        # ... and the bound still catches real faults: a tap shifted by one
+        # row, and operands rounded to bf16 (a reduced-precision matmul)
+        def plain(xx, ww):
+            return tfc.fused_conv_ln_gelu_plain(
+                torch.from_numpy(xx), tfc.kernel_weight(
+                    torch.from_numpy(ww).permute(2, 1, 0)),
+                None if bb is None else torch.from_numpy(bb),
+                torch.from_numpy(ls), torch.from_numpy(lb), 2).numpy()
+
+        def to_bf16(a):
+            return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+        for fault in (plain(np.roll(x, 1, axis=1), w),
+                      plain(to_bf16(x), to_bf16(w))):
+            assert (np.abs(fault - exact) / bound).max() > 4
     else:
         # a rounding boundary may fall on either side: one bf16 ulp; plus
         # 1e-6 where GELU is tiny (y ≲ −4), where the polynomial erf's
@@ -315,3 +362,47 @@ def test_fused_dispatch_by_device(monkeypatch):
     # the kernel's wrapper refuses a CPU tensor before it builds anything
     with pytest.raises(ValueError, match="CUDA device"):
         tfc.fused_conv_ln_gelu_cuda(x, w, None, ones, zeros, 2)
+
+
+def _wrapper_case(case):
+    """CPU operands for the kernel wrapper, valid but for ``case``."""
+    bf16 = torch.bfloat16
+    dt = torch.float32 if case in ("f32 C_in", "f32 stride 5") else bf16
+    c_in = {"C_in 96": 96, "f32 C_in": 24}.get(case, 128)
+    c_out = 192 if case == "C_out 192" else 128
+    length = 2 if case == "no rows" else 33
+    x = torch.zeros((2, length, c_in), dtype=dt)
+    w = torch.zeros((c_out, 3, c_in),
+                    dtype=torch.float32 if case == "w dtype" else dt)
+    ln_w = torch.ones(c_out, dtype=bf16 if case == "ln dtype" else
+                      torch.float32)
+    ln_b = torch.zeros(c_out)
+    if case == "x strided":
+        x = torch.zeros((2, c_in, length), dtype=dt).transpose(1, 2)
+    if case == "x misaligned":
+        x = torch.zeros(x.numel() + 1, dtype=dt)[1:].view(x.shape)
+    stride = 5 if case in ("stride 5", "f32 stride 5") else 2
+    return x, w, None, ln_w, ln_b, stride
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("C_in 96", ValueError, "multiple of 64"),
+    ("f32 C_in", ValueError, "multiple of 16"),
+    ("C_out 192", ValueError, "built for C_out"),
+    ("stride 5", ValueError, "strides up to 4"),
+    ("w dtype", TypeError, "same dtype"),
+    ("ln dtype", TypeError, "float32"),
+    ("no rows", ValueError, "no output rows"),
+    ("x strided", ValueError, "contiguous"),
+    ("x misaligned", ValueError, "16-byte"),
+    # the float32 variant takes any stride; then only the device is wrong
+    ("f32 stride 5", ValueError, "CUDA device"),
+    ("valid", ValueError, "CUDA device"),
+])
+def test_kernel_wrapper_refuses(case, error, match):
+    """The wrapper checks dtypes, shapes, widths, stride and layout before
+    the device, so each refusal the kernel needs is reached on the CPU."""
+    before = tfc.fused_conv_ln_gelu_cuda.launches
+    with pytest.raises(error, match=match):
+        tfc.fused_conv_ln_gelu_cuda(*_wrapper_case(case))
+    assert tfc.fused_conv_ln_gelu_cuda.launches == before
