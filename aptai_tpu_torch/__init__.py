@@ -7,11 +7,15 @@ only. Module names mirror the JAX package so each counterpart is easy to
 find:
 
 ``aptai_tpu_torch.ops``     attention (flash forward and backward kernels +
-                            plain versions), FIR low-pass
+                            plain versions), the fused conv, CTC, FIR
 ``aptai_tpu_torch.models``  config, wav2vec2 encoder, APTAI heads and loss,
                             weight bridge
-``aptai_tpu_torch.train``   ``torch_adam``, ``TrainStep``, the LR schedule
-``aptai_tpu_torch.infer``   ``APTAIPredictor`` and the ``MicroBatcher``
+``aptai_tpu_torch.train``   ``torch_adam``, ``TrainStep`` with the loss
+                            adapters of both families, the LR schedule,
+                            the validation passes and metrics
+``aptai_tpu_torch.decode``  the CTC beam search (C++ first) and the edit
+                            distance
+``aptai_tpu_torch.infer``   the predictors and the ``MicroBatcher``
 ``aptai_tpu_torch.utils``   FLOP count and device peaks
 ``aptai_tpu_torch/csrc``    CUDA sources, built with ``nvcc`` at first use
 

@@ -6,6 +6,9 @@ The configuration surface and output contract of
 beam_size=10, beam_threshold=50)``: the collapsed token sequence and the
 frame at which each token was emitted. Scoring is Graves-style prefix
 search, hypotheses that share a collapsed prefix merged by log-sum-exp.
+:func:`decode_best` and :func:`decode_with_times` call the C++ twin
+(:mod:`aptai_tpu_torch.decode.native`) first, as the JAX package's
+predictors and evaluator do, and this search only without its library.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from aptai_tpu_torch.decode.native import beam_search_native
 
 NEG_INF = -math.inf
 
@@ -109,12 +114,20 @@ def beam_search(log_probs: np.ndarray, blank: int = 0, beam_size: int = 10,
 
 def decode_best(log_probs: np.ndarray, blank: int = 0,
                 beam_size: int = 10) -> List[int]:
-    """The best beam's token ids for one utterance, (T, V) log-probs."""
+    """The best beam's token ids for one utterance, (T, V) log-probs: the
+    C++ beam if its library loads, this module's otherwise."""
+    nat = beam_search_native(log_probs, blank=blank, beam_size=beam_size)
+    if nat is not None:
+        return nat[0]
     return list(beam_search(log_probs, blank=blank,
                             beam_size=beam_size)[0].tokens)
 
 
 def decode_with_times(log_probs: np.ndarray) -> Tuple[List[int], List[int]]:
-    """The best beam's token ids and the frame at which each was emitted."""
+    """The best beam's token ids and the frame at which each was emitted:
+    the C++ beam if its library loads, this module's otherwise."""
+    nat = beam_search_native(log_probs)
+    if nat is not None:
+        return nat
     hyp = beam_search(log_probs)[0]
     return list(hyp.tokens), list(hyp.timesteps)

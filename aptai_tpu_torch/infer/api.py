@@ -10,7 +10,8 @@ runs the model and slices the pad rows off:
 * :class:`W2V2PRPredictor` runs ``W2V2PR.encode``; ``get_embeddings``,
   ``get_ctc_logits``, ``predict_phonemes_durations`` and ``pred_phn_seq``
   give the reference's dicts, with the host beam search
-  (``aptai_tpu_torch.decode``).
+  (``aptai_tpu_torch.decode``: the C++ beam first, the Python one without
+  its library).
 """
 
 from __future__ import annotations

@@ -64,8 +64,9 @@ class Wav2Vec2Config:
     dtype: str = "float32"  # compute dtype: "float32" | "bfloat16"
     # "auto": tanh-approximate GELU in bfloat16, exact erf in float32
     gelu: str = "auto"
-    # training only: "none" (save every activation) or "full" (per-layer
-    # torch.utils.checkpoint); "dots" is not ported yet
+    # training only: "none" (save every activation), "full" (per-layer
+    # torch.utils.checkpoint) or "dots" (per layer, the dense products'
+    # outputs saved and the rest recomputed)
     remat_policy: str = "none"
     attention_layout: str = "bhtd"
     fused_qkv: bool = False
@@ -84,7 +85,6 @@ class Wav2Vec2Config:
             "attention_layout": self.attention_layout != "bhtd",
             "activation_partition": self.activation_partition is not None,
             "do_stable_layer_norm": not self.do_stable_layer_norm,
-            "remat_policy": self.remat_policy == "dots",
         }
         bad = sorted(k for k, v in unported.items() if v)
         if bad:
@@ -94,9 +94,9 @@ class Wav2Vec2Config:
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype must be 'float32' or 'bfloat16', "
                              f"got {self.dtype!r}")
-        if self.remat_policy not in ("none", "full"):
-            raise ValueError(f"remat_policy must be 'none' or 'full', "
-                             f"got {self.remat_policy!r}")
+        if self.remat_policy not in ("none", "full", "dots"):
+            raise ValueError(f"remat_policy must be 'none', 'full' or "
+                             f"'dots', got {self.remat_policy!r}")
         if self.gelu not in ("auto", "exact", "tanh"):
             raise ValueError(f"gelu must be 'auto', 'exact' or 'tanh', "
                              f"got {self.gelu!r}")

@@ -18,7 +18,9 @@
     → pre-norm transformer layers (length-masked attention through
       ``ops.attention``, dropout on the out-projection output; GELU FFN with
       dropout after the GELU and after the FFN), each under
-      ``torch.utils.checkpoint`` with ``remat_policy="full"``
+      ``torch.utils.checkpoint`` with ``remat_policy="full"`` (the layer's
+      input saved, the rest recomputed) or ``"dots"`` (the dense products'
+      outputs saved, the rest recomputed, attention included)
     → final LayerNorm
 
 Dropouts sit where the JAX package puts them, not where HF does: attention
@@ -40,13 +42,15 @@ bf16 once, and the in-op casts become no-ops.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from aptai_tpu_torch.models.configs import Wav2Vec2Config
 from aptai_tpu_torch.ops.attention import multi_head_attention_bhtd
@@ -305,6 +309,28 @@ class EncoderLayer(nn.Module):
         return x + self.feed_forward(_layer_norm(self.final_layer_norm, x))
 
 
+# the dense products F.linear and torch.matmul dispatch to: the ops whose
+# outputs remat "dots" saves (JAX's dots_saveable saves dot_general's)
+DENSE_PRODUCTS = frozenset((torch.ops.aten.mm.default,
+                            torch.ops.aten.addmm.default,
+                            torch.ops.aten.bmm.default,
+                            torch.ops.aten.baddbmm.default))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the dense products' outputs, recompute everything else: casts,
+    LayerNorm, GELU, dropout (its masks redrawn from the restored RNG
+    state) and attention, whose kernel allocates its outputs with
+    ``torch.empty`` and is launched again."""
+    del ctx, args, kwargs
+    return (CheckpointPolicy.MUST_SAVE if op in DENSE_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_policy)
+
+
 class Encoder(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
@@ -318,13 +344,17 @@ class Encoder(nn.Module):
         h = h + self.pos_conv_embed(h)
         h = _dropout(h, self.cfg.hidden_dropout, self.training)
         # per-layer recomputation in the backward, like the JAX package's
-        # nn.remat; only while training with a gradient to take
-        remat = (self.cfg.remat_policy == "full" and self.training
+        # nn.remat (with jax.checkpoint_policies.dots_saveable for "dots");
+        # only while training with a gradient to take
+        remat = (self.cfg.remat_policy != "none" and self.training
                  and torch.is_grad_enabled())
+        kwargs = ({"context_fn": _DOTS_CONTEXT}
+                  if self.cfg.remat_policy == "dots" else {})
         all_hidden = [h] if output_hidden_states else None
         for i, layer in enumerate(self.layers):
             if remat:
-                h = checkpoint(layer, h, frame_lengths, use_reentrant=False)
+                h = checkpoint(layer, h, frame_lengths, use_reentrant=False,
+                               **kwargs)
             else:
                 h = layer(h, frame_lengths)
             if output_hidden_states and i < len(self.layers) - 1:

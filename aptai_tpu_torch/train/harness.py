@@ -1,27 +1,32 @@
-"""The train step: Adam with ``torch.optim.Adam`` semantics and one
-forward + backward + update per call.
+"""The train step shared by both model families: Adam with
+``torch.optim.Adam`` semantics and one forward + backward + update per call.
 
   * :func:`torch_adam` — Adam with L2 weight decay folded into the
     gradient (not AdamW), over the trainable parameters only;
-  * :class:`TrainStep` — ``step(batch, lr)``: sets the LR, runs the model's
-    training forward (dropout and SpecAugment from a per-step seed), the
-    backward and the optimizer update; ``grad_accum=k`` averages the
-    gradients of ``k`` equal microbatches before the one update.
+  * :class:`TrainStep` — ``step(batch, lr)``: sets the LR, runs the loss
+    adapter's training forward (dropout and SpecAugment from a per-step
+    seed), the backward and the optimizer update; ``grad_accum=k`` averages
+    the gradients of ``k`` equal microbatches before the one update.
 
-Frozen parameters (the feature encoder, which the model runs without a
+A loss adapter is the counterpart of the JAX engine's ``loss_fn``:
+``loss_fn(model, batch, generator) -> (loss, aux)``, with the batch keys it
+reads in its ``batch_keys`` attribute (``train_pr.pr_loss_fn``,
+``train_aptai.aptai_loss_fn``, the default).
+
+Frozen parameters (a frozen feature encoder, which the model runs without a
 gradient) carry no optimizer state and stay bit-identical.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from aptai_tpu_torch.infer.api import resolve_device
+from aptai_tpu_torch.train.train_aptai import aptai_loss_fn
 
-BATCH_KEYS = ("audio", "audio_lengths", "phn_frames", "tv_targets")
 # SpecAugment's generator is seeded this far from dropout's, so the two draw
 # from separate Philox streams instead of repeating each other's uniforms
 SPEC_AUGMENT_SEED_OFFSET = 1 << 62
@@ -42,23 +47,24 @@ def torch_adam(model: nn.Module, b1: float = 0.9, b2: float = 0.999,
 
 
 class TrainStep:
-    """One training step of an APTAI model per call.
+    """One training step per call, through a loss adapter.
 
     ``model`` moves to ``device`` (``cuda`` unless named) and into
     ``train()`` mode; build ``optimizer`` over its parameters
-    (:func:`torch_adam`). ``step(batch, lr)`` takes a dict with ``audio``
-    (B, L), ``audio_lengths`` (B,) in samples, ``phn_frames`` (B, T) and
-    ``tv_targets`` (B, T, 9), as tensors or arrays, and returns the step's
-    ``loss``, ``mse_loss`` and ``ce_loss`` as device tensors (no
-    synchronisation). Each microbatch's dropout draws from the default
-    generator seeded with ``s = seed + step * grad_accum + microbatch`` and
-    its SpecAugment from a generator of its own seeded with
-    ``s + SPEC_AUGMENT_SEED_OFFSET``; the process's default generators are
-    left as they were.
+    (:func:`torch_adam`). ``loss_fn`` is the family's adapter (APTAI's,
+    ``aptai_loss_fn()``, when None). ``step(batch, lr)`` takes a dict
+    holding the adapter's ``batch_keys`` (tensors or arrays, the batch on
+    the leading axis; other keys are ignored) and returns the step's
+    ``loss`` and the adapter's aux values, each averaged over the
+    microbatches, as device tensors (no synchronisation). Each
+    microbatch's dropout draws from the default generator seeded with
+    ``s = seed + step * grad_accum + microbatch`` and its SpecAugment from
+    a generator of its own seeded with ``s + SPEC_AUGMENT_SEED_OFFSET``;
+    the process's default generators are left as they were.
     """
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
-                 grad_accum: int = 1,
+                 loss_fn: Optional[Callable] = None, grad_accum: int = 1,
                  device: Union[str, torch.device, None] = None,
                  seed: int = 0):
         if grad_accum < 1:
@@ -66,30 +72,35 @@ class TrainStep:
         self.device = resolve_device(device)
         self.model = model.to(self.device).train()
         self.optimizer = optimizer
+        self.loss_fn = aptai_loss_fn() if loss_fn is None else loss_fn
         self.grad_accum = grad_accum
         self.seed = seed
         self.step_count = 0
 
-    def _batch(self, batch) -> Dict[str, torch.Tensor]:
-        missing = set(BATCH_KEYS) - set(batch)
+    def _batch(self, batch) -> Tuple[Dict[str, torch.Tensor], int]:
+        """The adapter's keys on the device, and the batch size."""
+        keys = self.loss_fn.batch_keys
+        missing = set(keys) - set(batch)
         if missing:
             raise KeyError(f"batch lacks {sorted(missing)}")
-        out = {k: torch.as_tensor(batch[k]).to(self.device)
-               for k in BATCH_KEYS}
-        b = out["audio"].shape[0]
-        if b % self.grad_accum:
-            raise ValueError(f"batch {b} not divisible into "
+        out = {k: torch.as_tensor(batch[k]).to(self.device) for k in keys}
+        sizes = [x.shape[0] for x in out.values()]
+        if len(set(sizes)) != 1:
+            raise ValueError(f"batch keys {list(keys)} disagree on the "
+                             f"batch size: {sizes}")
+        if sizes[0] % self.grad_accum:
+            raise ValueError(f"batch {sizes[0]} not divisible into "
                              f"{self.grad_accum} gradient-accumulation "
                              "microbatches")
-        return out
+        return out, sizes[0]
 
     def __call__(self, batch, lr: float) -> Dict[str, torch.Tensor]:
-        data = self._batch(batch)
+        data, b = self._batch(batch)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.zero_grad(set_to_none=True)
         k = self.grad_accum
-        mb = data["audio"].shape[0] // k
+        mb = b // k
         totals: Dict[str, torch.Tensor] = {}
         devices = [self.device] if self.device.type == "cuda" else []
         for i in range(k):
@@ -99,12 +110,10 @@ class TrainStep:
                 torch.manual_seed(seed)
                 gen = torch.Generator(self.device).manual_seed(
                     (seed + SPEC_AUGMENT_SEED_OFFSET) % (1 << 64))
-                out = self.model(sub["audio"], sub["audio_lengths"],
-                                 sub["phn_frames"], sub["tv_targets"],
-                                 generator=gen)
-                (out["loss"] / k).backward()
-            for name in ("loss", "mse_loss", "ce_loss"):
-                val = out[name].detach() / k
+                loss, aux = self.loss_fn(self.model, sub, gen)
+                (loss / k).backward()
+            for name, val in {"loss": loss, **aux}.items():
+                val = val.detach() / k
                 totals[name] = val if i == 0 else totals[name] + val
         self.optimizer.step()
         self.step_count += 1

@@ -57,14 +57,30 @@ Phases (any failure ends the run with a non-zero exit code):
    step with ``remat_policy="full"``; one step with the fused feature
    extractor (6 fused launches, a finite loss); and W2V2PR with a trainable
    encoder and the flag on, which must refuse to run.
+5b. W2V2PR training through ``TrainStep(..., pr_loss_fn())``: a small
+   float32 W2V2PR's two Adam steps on the card against the CPU; then
+   full-width bf16 W2V2PR (seed 0) with its feature encoder trainable, at 8
+   x 5 s with 40-70 labels an item, dropout and SpecAugment on: the first
+   step's launches (24 of each flash kernel, no fused conv, Δ in the dq
+   kernel), train audio-s/s, MFU, peak memory and a profile, the CTC loss
+   and the feature encoder's backward each timed alone, every trainable
+   tensor moved; ``validate_pr`` through ``make_eval_forward`` over two
+   batches with the C++ beam (every item through it) and greedily; the
+   gradients of every encoder tensor through the kernels against plain
+   attention; one step each with ``remat_policy="dots"`` and ``"full"``
+   (48 forward launches, the same loss); and one step with the encoder
+   frozen and the fused flag on (6 fused launches, the encoder
+   bit-identical), then a step from that encoder's output
+   (``train_from_features``) against one from the audio.
 
 Output: the phases' lines, then one JSON line of kernel records, the card
 line, and last ``{"ok": true, "device": {...}}``. A flash kernel record's
 ``launches`` is its count over one train step of phase 5, the fused conv's
 its count over the W2V2PR batches of phase 3b; ``launches_by_path`` holds
-each path's own count (APTAI serving, W2V2PR serving, the train step, the
-train step with the fused feature extractor), each read with the counts set
-to 0 just before it.
+each path's own count (APTAI serving, W2V2PR serving, the APTAI train step,
+the APTAI train step with the fused feature extractor, the W2V2PR train
+step, and the W2V2PR train step with a frozen fused feature extractor),
+each read with the counts set to 0 just before it.
 """
 
 from __future__ import annotations
@@ -79,13 +95,17 @@ import time
 import numpy as np
 import torch
 
+from aptai_tpu_torch.decode import native
 from aptai_tpu_torch.infer import APTAIPredictor, MicroBatcher, W2V2PRPredictor
-from aptai_tpu_torch.models import (APTAI, Wav2Vec2Config, random_aptai,
-                                    random_w2v2_pr, tiny_config)
+from aptai_tpu_torch.models import (APTAI, W2V2PR, Wav2Vec2Config,
+                                    random_aptai, random_w2v2_pr, tiny_config)
+from aptai_tpu_torch.models import w2v2_pr
 from aptai_tpu_torch.models import wav2vec2 as w2v
 from aptai_tpu_torch.ops import attention, fused_conv, kernels
-from aptai_tpu_torch.ops.ctc import greedy_decode
-from aptai_tpu_torch.train import TrainStep, torch_adam
+from aptai_tpu_torch.ops.ctc import ctc_loss, greedy_decode
+from aptai_tpu_torch.train import TrainStep, pr_loss_fn, torch_adam
+from aptai_tpu_torch.train.evaluate import validate_pr
+from aptai_tpu_torch.train.train_pr import make_eval_forward
 from aptai_tpu_torch.utils.flops import (aptai_forward_flops,
                                          device_peak_tflops, mfu,
                                          pr_forward_flops,
@@ -992,10 +1012,22 @@ def phase_pr_serving(pr_cfg, pr_pred):
 
 # -- phase 4 ------------------------------------------------------------------
 
+def device_kernels(prof):
+    """The profile's device entries by name, without the device-side spans
+    of host ranges (``record_function``, ``Optimizer.step``), which cover
+    kernels counted on their own."""
+    from torch.autograd import DeviceType
+
+    ranges = {e.name for e in prof.events()
+              if e.device_type == DeviceType.CPU}
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total
+            and e.key not in ranges]
+
+
 def profile_breakdown(fn, what: str, top: int = 15):
     """One profiled call of ``fn``: device kernel time against wall time,
     and the top kernels by device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1004,8 +1036,7 @@ def profile_breakdown(fn, what: str, top: int = 15):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    gpu = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    gpu = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in gpu) / 1e3
     log(f"  profiler, {what}: kernels {busy_ms:.2f} ms of {wall * 1e3:.2f} "
         f"ms wall (device idle {1 - busy_ms / (wall * 1e3):.1%}, profiler "
@@ -1013,6 +1044,7 @@ def profile_breakdown(fn, what: str, top: int = 15):
     for e in sorted(gpu, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"    {e.self_device_time_total / 1e3:8.2f} ms "
             f"{e.count:5d}x  {e.key[:100]}")
+    return busy_ms, wall * 1e3, prof
 
 
 def phase_throughput(cfg, pred, card):
@@ -1146,14 +1178,16 @@ def flat_grads(model, prefix=""):
 def compare_grads(what, named_a, flat_a, named_b, flat_b, max_rel, min_cos):
     if set(named_a) != set(named_b):
         raise AssertionError(f"{what}: different parameters have gradients")
-    flat_b = flat_b.to(flat_a.device)
+    # in float64: a float32 cosine of ~1e6 terms is itself off by ~1e-7,
+    # coarser than the 1e-8 that float32 gradients are held to
+    flat_a, flat_b = flat_a.double(), flat_b.to(flat_a.device).double()
     rel = ((flat_a - flat_b).norm() / flat_b.norm()).item()
     cos = torch.nn.functional.cosine_similarity(flat_a, flat_b, dim=0).item()
     worst = max(named_b, key=lambda n: (
         (named_a[n].float() - named_b[n].float().to(flat_a.device)).norm()
         / named_b[n].float().norm().clamp(min=1e-30)).item())
     log(f"  {what}: {len(named_a)} gradients, relative L2 {rel:.3e} "
-        f"(bound {max_rel}), cosine {cos:.6f} (bound {min_cos}); worst "
+        f"(bound {max_rel}), cosine {cos:.12f} (bound {min_cos}); worst "
         f"tensor {worst}")
     if not (rel <= max_rel and cos >= min_cos):
         raise AssertionError(f"{what}: gradients disagree")
@@ -1193,6 +1227,65 @@ def timed_steps(step, batch, n: int):
     return times, m
 
 
+def grads_kernels_vs_plain(model, inputs, layers, what):
+    """The loss and the gradients of every encoder tensor of ``model`` on
+    ``inputs`` through the kernels (``layers`` launches of each) and
+    through plain attention autograd (none), held to relative L2 ≤ 0.1 and
+    cosine ≥ 0.99: bf16 activations round at other points in the two
+    versions (the kernel rounds p and ds, plain autograd its own
+    intermediates) and 24 layers compound the differences. Returns the
+    kernels' gradients by name."""
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        out = model(*inputs)
+        out["loss"].backward()
+        return (out["loss"].item(),) + flat_grads(model, "wav2vec2.")
+
+    reset_counts()
+    lk, gk, fk = loss_and_grads()
+    counts_k = read_counts()
+    w2v.multi_head_attention_bhtd = attention.flash_attention_bhtd_plain
+    try:
+        reset_counts()
+        lp, gp, fp = loss_and_grads()
+        counts_p = read_counts()
+    finally:
+        w2v.multi_head_attention_bhtd = attention.multi_head_attention_bhtd
+    model.zero_grad(set_to_none=True)
+    log(f"  no dropout, kernels vs plain attention (autograd): loss "
+        f"{lk:.6f} vs {lp:.6f}; launches {counts_k} vs {counts_p}")
+    if any(counts_p.values()) or any(counts_k[n] != layers for n in FLASH):
+        raise AssertionError("the kernel and plain runs took the wrong path")
+    compare_grads(what, gk, fk, gp, fp, max_rel=0.1, min_cos=0.99)
+    return gk
+
+
+def checked_first_step(step, batch, layers):
+    """The first step with the launch counts read around it: a finite
+    loss, ``layers`` launches of each flash kernel, no fused conv, and Δ
+    left to the dq kernel (not computed as tensor ops)."""
+    delta_calls = []
+    real_delta = attention.attention_delta
+    attention.attention_delta = (
+        lambda *a: delta_calls.append(1) or real_delta(*a))
+    try:
+        reset_counts()
+        loss0 = step(batch, 1e-5)["loss"].item()
+        counts = read_counts()
+    finally:
+        attention.attention_delta = real_delta
+    log(f"  first step: loss {loss0:.5f}, launches {counts}, delta as "
+        f"tensor ops {len(delta_calls)} times")
+    if not (np.isfinite(loss0) and all(counts[n] == layers for n in FLASH)
+            and counts["fused_conv_ln_gelu"] == 0 and not delta_calls):
+        raise AssertionError(f"expected {layers} launches of each kernel "
+                             f"per step, no delta outside the dq kernel and "
+                             f"a finite loss, got {counts}, "
+                             f"{len(delta_calls)}, {loss0}")
+    return loss0, counts
+
+
 def phase_train(card):
     log("== phase 5: the train step at 8 x 5 s")
     check_small_train_reference()
@@ -1207,26 +1300,8 @@ def phase_train(card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    # Δ is the dq kernel's: the step must not compute it as tensor ops
-    delta_calls = []
-    real_delta = attention.attention_delta
-    attention.attention_delta = (
-        lambda *a: delta_calls.append(1) or real_delta(*a))
-    try:
-        reset_counts()
-        loss0 = step(batch, 1e-5)["loss"].item()
-        counts = read_counts()
-    finally:
-        attention.attention_delta = real_delta
-    log(f"  first step: loss {loss0:.5f}, launches {counts}, delta as "
-        f"tensor ops {len(delta_calls)} times")
+    loss0, counts = checked_first_step(step, batch, cfg.num_hidden_layers)
     want = cfg.num_hidden_layers
-    if not (np.isfinite(loss0) and all(counts[n] == want for n in FLASH)
-            and counts["fused_conv_ln_gelu"] == 0 and not delta_calls):
-        raise AssertionError(f"expected {want} launches of each kernel per "
-                             f"step, no delta outside the dq kernel and a "
-                             f"finite loss, got {counts}, {len(delta_calls)}"
-                             f", {loss0}")
 
     timed_steps(step, batch, 1)  # the second warm-up step
     reset_counts()
@@ -1262,35 +1337,10 @@ def phase_train(card):
 
     # the same batch, no dropout or SpecAugment, kernels vs plain attention
     model.eval()
-    tensors = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
-
-    def loss_and_grads():
-        model.zero_grad(set_to_none=True)
-        out = model(tensors["audio"], tensors["audio_lengths"],
-                    tensors["phn_frames"], tensors["tv_targets"])
-        out["loss"].backward()
-        return (out["loss"].item(),) + flat_grads(model, "wav2vec2.")
-
-    reset_counts()
-    lk, gk, fk = loss_and_grads()
-    counts_k = read_counts()
-    w2v.multi_head_attention_bhtd = attention.flash_attention_bhtd_plain
-    try:
-        reset_counts()
-        lp, gp, fp = loss_and_grads()
-        counts_p = read_counts()
-    finally:
-        w2v.multi_head_attention_bhtd = attention.multi_head_attention_bhtd
-    log(f"  no dropout, kernels vs plain attention (autograd): loss "
-        f"{lk:.6f} vs {lp:.6f}; launches {counts_k} vs {counts_p}")
-    if any(counts_p.values()) or any(counts_k[n] != want for n in FLASH):
-        raise AssertionError("the kernel and plain runs took the wrong path")
-    # bf16 activations round at other points in the two versions (the
-    # kernel rounds p and ds; plain autograd rounds its own intermediates)
-    # and 24 layers compound the differences
-    compare_grads("encoder gradients, kernels vs plain", gk, fk, gp, fp,
-                  max_rel=0.1, min_cos=0.99)
-    del gk, fk, gp, fp, step, model
+    grads_kernels_vs_plain(model, [torch.as_tensor(batch[k]).cuda() for k in (
+        "audio", "audio_lengths", "phn_frames", "tv_targets")], want,
+        "encoder gradients, kernels vs plain")
+    del step, model
     torch.cuda.empty_cache()
 
     # one step with per-layer recomputation: the forward runs twice
@@ -1365,6 +1415,356 @@ def check_fused_refuses_gradients(device: str = "cuda"):
         raise AssertionError("the fused kernel launched before the refusal")
 
 
+# -- phase 5b -----------------------------------------------------------------
+
+def pr_train_batch(cfg, b: int = 8, seconds: int = 5, seed: int = 0,
+                   lengths=None):
+    """The train batch's audio and lengths (``train_batch``; ``lengths``
+    in samples silences each item past its length) with ``phoneme_labels``
+    of 40-70 ids in 1..vocab-1 from ``seed``, padded with -100: feasible
+    at 249 frames, so the CTC loss measures real work."""
+    base = train_batch(cfg, b, seconds, seed)
+    audio, lens = base["audio"], base["audio_lengths"]
+    if lengths is not None:
+        lens = np.asarray(lengths, np.int32)
+        for i, n in enumerate(lens):
+            audio[i, n:] = 0.0
+    rng = np.random.default_rng(seed + 1)
+    labels = np.full((b, 70), -100, np.int64)
+    for i, n in enumerate(rng.integers(40, 71, b)):
+        labels[i, :n] = rng.integers(1, cfg.vocab_size, n)
+    return {"audio": audio, "audio_lengths": lens, "phoneme_labels": labels}
+
+
+def check_small_pr_train_reference():
+    """Two Adam steps (lr 1e-5) of a small float32 W2V2PR (head dim 64,
+    trainable feature encoder, dropout and SpecAugment off) on the card
+    against the CPU: each step's loss and gradients, and every parameter
+    after the second step within 1e-4. Adam moves an element by about lr
+    a step whatever its gradient's size, so a gradient at roundoff level
+    (the key projection's bias: softmax ignores a shift shared by a row)
+    may step either way on either device; the gradients carry the check.
+    The third item (27 frames, 30 labels) is infeasible: its loss is
+    zeroed (``zero_infinity``) on both devices."""
+    cfg = tiny_config(hidden_size=128, num_attention_heads=2,
+                      intermediate_size=256, conv_dim=(128,) * 7,
+                      conv_kernel=(10, 3, 3, 3, 3, 2, 2),
+                      conv_stride=(5, 2, 2, 2, 2, 2, 2), vocab_size=46,
+                      final_dropout=0.0, mask_time_prob=0.0, **NO_DROP)
+    batch = pr_train_batch(cfg, b=3, seconds=2, seed=5,
+                           lengths=[32_000, 21_000, 9_000])
+    batch["phoneme_labels"][:, 30:] = -100  # frames 99, 65, 27
+    lr, runs = 1e-5, {}
+    for dev in ("cpu", "cuda"):
+        model = random_w2v2_pr(cfg, seed=1)
+        step = TrainStep(model, torch_adam(model), pr_loss_fn(), device=dev)
+        steps = []
+        for _ in range(2):
+            loss = step(batch, lr)["loss"].item()
+            steps.append((loss,) + flat_grads(model))
+        runs[dev] = (steps, {n: p.detach().cpu()
+                             for n, p in model.named_parameters()})
+    (steps_c, pc), (steps_g, pg) = runs["cpu"], runs["cuda"]
+    worst = max(pc, key=lambda n: (pg[n] - pc[n]).abs().max().item())
+    err = (pg[worst] - pc[worst]).abs().max().item()
+    log(f"  small f32 W2V2PR train steps, card vs CPU: losses "
+        f"{[round(s[0], 6) for s in steps_g]} vs "
+        f"{[round(s[0], 6) for s in steps_c]}; after two Adam steps (lr "
+        f"{lr}) parameters max_abs_err {err:.2e} ({worst})")
+    for i, ((lg, gg, fg), (lc, gc, fc)) in enumerate(zip(steps_g, steps_c)):
+        if not (np.isfinite(lg) and abs(lg - lc) <= 1e-4 * abs(lc)):
+            raise AssertionError(f"step {i + 1}: the card's loss disagrees "
+                                 "with the CPU's")
+        # float32 in both: only summation order and exp ulps differ
+        compare_grads(f"small f32 W2V2PR step {i + 1} gradients, card vs "
+                      f"CPU", gg, fg, gc, fc, max_rel=1e-4,
+                      min_cos=0.99999999)
+    if err > 1e-4:
+        raise AssertionError("the card's W2V2PR parameters disagree with "
+                             "the CPU's after two steps")
+
+
+def time_ctc(batch, log_probs_shape, frame_lengths):
+    """The CTC loss alone (forward and backward) on the step's shapes:
+    wall ms (median of 5, synchronised), device ms and its kernel
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(0)
+    lp = torch.randn(log_probs_shape, generator=gen).cuda()
+    lp = lp.log_softmax(-1).requires_grad_()
+    labels = torch.as_tensor(batch["phoneme_labels"]).cuda()
+    target_lengths = (labels >= 0).sum(-1).to(torch.int32)
+    targets = labels.clamp(min=0).to(torch.int32)
+
+    def run():
+        lp.grad = None
+        ctc_loss(lp, frame_lengths, targets, target_lengths).backward()
+
+    times = timed_batches(run, n=5)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels_ = device_kernels(prof)
+    dev = sum(e.self_device_time_total for e in kernels_) / 1e3
+    return (float(np.median(times)) * 1e3, dev,
+            sum(e.count for e in kernels_))
+
+
+def fe_backward_ms(model, audio):
+    """The trainable feature extractor's backward alone at the step's
+    shape: device ms of forward + backward less the forward's."""
+    fe = model.wav2vec2.feature_extractor
+    x = torch.as_tensor(audio).cuda().to(torch.bfloat16)
+    with torch.no_grad():
+        grad = torch.randn_like(fe(x))
+
+    def fwd():
+        with torch.no_grad():
+            fe(x)
+
+    def fwd_bwd():
+        fe(x).backward(grad)
+
+    fwd_ms = device_ms(fwd, iters=5)
+    both_ms = device_ms(fwd_bwd, iters=5)
+    model.zero_grad(set_to_none=True)
+    return both_ms - fwd_ms, fwd_ms
+
+
+def remat_step(cfg, remat, batch, loss_none):
+    """One W2V2PR step under ``remat``, its launches, its loss against
+    ``"none"``'s and its peak memory, then two more steps timed."""
+    model = random_w2v2_pr(dataclasses.replace(cfg, remat_policy=remat),
+                           seed=0)
+    step = TrainStep(model, torch_adam(model), pr_loss_fn())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    loss = step(batch, 1e-5)["loss"].item()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    times, _ = timed_steps(step, batch, 2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    layers = cfg.num_hidden_layers
+    log(f"  remat_policy={remat!r}: first step loss {loss:.5f} (none: "
+        f"{loss_none:.5f}), launches {counts}, steps 2-3 "
+        f"{[round(t * 1e3, 2) for t in times]} ms, peak memory {peak:.2f} "
+        f"GiB")
+    if not (counts["flash_attn_fwd"] == 2 * layers
+            and counts["flash_attn_bwd_dq"] == layers
+            and counts["flash_attn_bwd_dkv"] == layers
+            and counts["fused_conv_ln_gelu"] == 0
+            and abs(loss - loss_none) <= 1e-3 * abs(loss_none)):
+        raise AssertionError(f"the {remat!r} step took the wrong path or "
+                             "loss")
+    del step, model
+    torch.cuda.empty_cache()
+    return min(times) * 1e3, peak
+
+
+def frozen_fused_step(cfg, batch):
+    """A step of W2V2PR with the feature encoder frozen and the fused flag
+    on (6 fused launches, the encoder bit-identical); then, dropout and
+    SpecAugment off, a step from that encoder's output
+    (``pr_loss_fn(from_features=True)``) against a step from the audio on
+    the same weights."""
+    cfg_fused = dataclasses.replace(cfg, fused_feature_extractor=True)
+    model = random_w2v2_pr(cfg_fused, seed=0, freeze_feature_encoder=True)
+    fe_prefix = "wav2vec2.feature_extractor."
+    fe_before = {n: p.detach().clone() for n, p in model.named_parameters()
+                 if n.startswith(fe_prefix)}
+    step = TrainStep(model, torch_adam(model), pr_loss_fn())
+    reset_counts()
+    loss = step(batch, 1e-5)["loss"].item()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    fe_same = all(torch.equal(p.detach().cpu(), fe_before[n])
+                  for n, p in model.named_parameters() if n in fe_before)
+    layers = cfg.num_hidden_layers
+    log(f"  frozen FE, fused_feature_extractor=True: first step loss "
+        f"{loss:.5f}, launches {counts}, feature encoder bit-identical "
+        f"{fe_same}")
+    if not (np.isfinite(loss) and fe_same
+            and counts["fused_conv_ln_gelu"] == 6
+            and all(counts[n] == layers for n in FLASH)):
+        raise AssertionError("the frozen-fused W2V2PR step took the wrong "
+                             "path or moved the encoder")
+    state = model.state_dict()
+    del step, model
+    torch.cuda.empty_cache()
+
+    det = dataclasses.replace(cfg_fused, mask_time_prob=0.0,
+                              final_dropout=0.0, **NO_DROP)
+    losses = {}
+    for from_features in (False, True):
+        model = W2V2PR(det, freeze_feature_encoder=True)
+        model.load_state_dict(state)
+        data = dict(batch)
+        if from_features:
+            model.cuda()
+            with torch.no_grad():
+                data["fe_features"] = model.wav2vec2.feature_extractor(
+                    torch.as_tensor(batch["audio"]).cuda().to(
+                        torch.bfloat16))
+        step = TrainStep(model, torch_adam(model),
+                         pr_loss_fn(from_features=from_features))
+        reset_counts()
+        losses[from_features] = step(data, 1e-5)["loss"].item()
+        counts_f = read_counts()
+        del step, model, data
+        torch.cuda.empty_cache()
+    log(f"  train_from_features on the fused encoder's output (no dropout):"
+        f" loss {losses[True]:.6f} vs the audio step's {losses[False]:.6f}; "
+        f"launches {counts_f}")
+    if not (abs(losses[True] - losses[False]) <= 1e-3 * abs(losses[False])
+            and counts_f["fused_conv_ln_gelu"] == 0
+            and all(counts_f[n] == layers for n in FLASH)):
+        raise AssertionError("the step from features disagrees with the "
+                             "step from audio")
+    return counts
+
+
+def check_validate_pr(model, cfg):
+    """``validate_pr`` over two batches (8 x 5 s, then ragged 2-5 s)
+    through ``make_eval_forward``, beam and greedy: the native library
+    loads, every item goes through the C++ beam, the PER is finite."""
+    if not native.native_available():
+        raise AssertionError(f"the C++ beam did not build or load: "
+                             f"{native.build_error()}")
+    batches = [pr_train_batch(cfg, seed=11),
+               pr_train_batch(cfg, seed=12, lengths=[
+                   80_000, 32_000, 48_000, 64_000, 40_000, 56_000, 72_000,
+                   36_000])]
+    forward = make_eval_forward(model)
+    n_items = sum(len(b["audio"]) for b in batches)
+    results = {}
+    for decode in ("beam", "greedy"):
+        calls = native.beam_search_native.calls
+        t0 = time.perf_counter()
+        res = validate_pr(forward, batches, decode=decode)
+        sec = time.perf_counter() - t0
+        n_native = native.beam_search_native.calls - calls
+        results[decode] = res
+        log(f"  validate_pr decode={decode!r}: PER {res['mean_val_per']:.4f},"
+            f" loss {res['mean_val_loss']:.4f}, {sec:.3f} s for {n_items} "
+            f"items in 2 batches, native beam calls {n_native}")
+        want = n_items if decode == "beam" else 0
+        if not (np.isfinite(res["mean_val_per"])
+                and np.isfinite(res["mean_val_loss"]) and n_native == want):
+            raise AssertionError(f"validate_pr ({decode}) failed or fell "
+                                 f"back to the Python beam")
+    if not model.training:
+        raise AssertionError("make_eval_forward left the model in eval()")
+    return results
+
+
+def phase_pr_train(card):
+    log("== phase 5b: the W2V2PR train step at 8 x 5 s, trainable feature "
+        "encoder")
+    check_small_pr_train_reference()
+
+    cfg = Wav2Vec2Config(dtype="bfloat16")
+    batch = pr_train_batch(cfg)
+    b, samples = batch["audio"].shape
+    model = random_w2v2_pr(cfg, seed=0)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step = TrainStep(model, torch_adam(model), pr_loss_fn())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss0, counts = checked_first_step(step, batch, cfg.num_hidden_layers)
+    layers = cfg.num_hidden_layers
+
+    timed_steps(step, batch, 1)  # the second warm-up step
+    reset_counts()
+    times, m = timed_steps(step, batch, 5)
+    counts5 = read_counts()
+    sec = float(np.median(times))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    flops = training_step_flops(b * pr_forward_flops(cfg, samples))
+    util = mfu(flops, sec, device_peak_tflops())
+    log(f"  step times (s): {[round(x, 5) for x in times]}; launches over "
+        f"them {counts5}; last loss {m['loss'].item():.5f}")
+    log(f"  {b * samples / SAMPLE_RATE / sec:.1f} train audio-s/s, "
+        f"{sec * 1e3:.2f} ms per step, MFU "
+        f"{'not known for this card' if util is None else f'{util:.4f}'} "
+        f"({flops / 1e12:.2f} TFLOP per step, 3x forward, the feature "
+        f"encoder's backward included) on {card}; peak memory {peak:.2f} "
+        f"GiB")
+    if any(counts5[n] != 5 * layers for n in FLASH):
+        raise AssertionError(f"launches over 5 steps: {counts5}")
+
+    # the CTC loss in a profiler range of its own
+    real_ctc = w2v2_pr.ctc_loss
+
+    def ranged_ctc(*args, **kwargs):
+        with torch.profiler.record_function("ctc_loss_forward"):
+            return real_ctc(*args, **kwargs)
+
+    w2v2_pr.ctc_loss = ranged_ctc
+    try:
+        busy, wall, prof = profile_breakdown(lambda: step(batch, 1e-5),
+                                             "one W2V2PR train step",
+                                             top=20)
+    finally:
+        w2v2_pr.ctc_loss = real_ctc
+    rng_ev = [e for e in prof.key_averages() if e.key == "ctc_loss_forward"]
+    if not rng_ev:
+        raise AssertionError("the profiler saw no ctc_loss_forward range")
+    rng_host = max(e.cpu_time_total for e in rng_ev) / 1e3
+    rng_dev = max(e.device_time_total for e in rng_ev) / 1e3
+    t = int(cfg.feat_extract_output_lengths(samples))
+    frame_lengths = torch.full((b,), t, dtype=torch.int32).cuda()
+    ctc_wall, ctc_dev, ctc_n = time_ctc(batch, (b, t, cfg.vocab_size),
+                                        frame_lengths)
+    ctc_share = ctc_wall / (sec * 1e3)
+    log(f"  CTC loss: its forward's range in the profiled step "
+        f"{rng_host:.2f} ms on the host, a {rng_dev:.2f} ms span on the "
+        f"device; alone, "
+        f"forward + backward {ctc_wall:.2f} ms wall ({ctc_share:.1%} of the "
+        f"step's median), {ctc_dev:.2f} ms of kernels ({ctc_dev / busy:.1%} "
+        f"of the profiled step's), {ctc_n} kernel launches")
+    fe_bwd, fe_fwd = fe_backward_ms(model, batch["audio"])
+    log(f"  feature encoder alone (7 conv layers, trainable): forward "
+        f"{fe_fwd:.2f} ms, backward {fe_bwd:.2f} ms of kernels ("
+        f"{fe_bwd / busy:.1%} of the profiled step's kernels)")
+
+    unchanged = [n for n, p in model.named_parameters()
+                 if torch.equal(p.detach().cpu(), before[n].cpu())]
+    n_fe = sum(1 for n in before if n.startswith("wav2vec2.feature_"
+                                                 "extractor."))
+    log(f"  after {step.step_count} steps: trainable tensors unchanged: "
+        f"{unchanged} (of {len(before)}, {n_fe} in the feature encoder)")
+    if unchanged or not n_fe:
+        raise AssertionError("a trainable parameter did not move")
+    del before
+
+    validation = check_validate_pr(model, cfg)
+
+    # the same batch, no dropout or SpecAugment, kernels vs plain attention
+    model.eval()
+    gk = grads_kernels_vs_plain(
+        model, [torch.as_tensor(batch[k]).cuda() for k in (
+            "audio", "audio_lengths", "phoneme_labels")], layers,
+        "W2V2PR encoder gradients (FE included), kernels vs plain")
+    n_fe_grads = sum(1 for n in gk if n.startswith("wav2vec2.feature_"))
+    log(f"  {n_fe_grads} of them in the feature encoder")
+    if not n_fe_grads:
+        raise AssertionError("the feature encoder got no gradient")
+    del gk, step, model
+    torch.cuda.empty_cache()
+
+    memory = {"none": (sec * 1e3, peak)}
+    for remat in ("dots", "full"):
+        memory[remat] = remat_step(cfg, remat, batch, loss0)
+    log("  remat policies, ms a step and peak GiB: " + ", ".join(
+        f"{k} {v[0]:.2f} ms / {v[1]:.2f} GiB" for k, v in memory.items()))
+    counts_fused = frozen_fused_step(cfg, batch)
+    return ({name: counts[name] for name in COUNTED},
+            {name: counts_fused[name] for name in COUNTED}, validation)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1409,6 +1809,7 @@ def main() -> int:
     del pred, aptai_model
     torch.cuda.empty_cache()
     training, training_fused = phase_train(card)
+    pr_training, pr_training_fused, _ = phase_pr_train(card)
     for rec in records:
         name = rec["name"]
         rec["launches"] = (pr_serving if name == "fused_conv_ln_gelu"
@@ -1419,7 +1820,11 @@ def main() -> int:
                                 "launches": pr_serving[name]},
             "train_step": {"steps": 1, "launches": training[name]},
             "train_step_fused_fe": {"steps": 1,
-                                    "launches": training_fused[name]}}
+                                    "launches": training_fused[name]},
+            "w2v2_pr_train_step": {"steps": 1,
+                                   "launches": pr_training[name]},
+            "w2v2_pr_train_step_frozen_fused_fe": {
+                "steps": 1, "launches": pr_training_fused[name]}}
 
     print(json.dumps({"kernels": records}))
     print(card)

@@ -38,6 +38,13 @@ print("PR", all(m in sys.modules for m in (
     "aptai_tpu_torch.models.w2v2_pr", "aptai_tpu_torch.ops.ctc",
     "aptai_tpu_torch.ops.fused_conv", "aptai_tpu_torch.decode.beam",
     "aptai_tpu_torch.data.vocab")))
+print("PR_TRAIN", all(m in sys.modules for m in (
+    "aptai_tpu_torch.train.train_pr", "aptai_tpu_torch.train.train_aptai",
+    "aptai_tpu_torch.train.evaluate", "aptai_tpu_torch.train.metrics",
+    "aptai_tpu_torch.decode.native")))
+# importing builds and loads nothing
+print("NATIVE_LOADED", sys.modules["aptai_tpu_torch.decode.native"]._lib
+      is not None)
 """
 
 
@@ -52,6 +59,8 @@ def test_port_imports_no_jax_or_reference_package():
     assert int(res.stdout.split("LOADED")[1].split()[0]) >= 10, res.stdout
     assert "TRAIN True" in res.stdout, res.stdout
     assert "PR True" in res.stdout, res.stdout
+    assert "PR_TRAIN True" in res.stdout, res.stdout
+    assert "NATIVE_LOADED False" in res.stdout, res.stdout
 
 
 @pytest.mark.parametrize("family", ["aptai", "w2v2_pr"])
@@ -176,6 +185,44 @@ def test_header_edit_rebuilds_every_kernel(monkeypatch, tmp_path, header):
     after = {name: kernels.library_path(name) for name in kernels.SOURCES}
     assert all(after[n] != before[n] for n in kernels.SOURCES), (before,
                                                                  after)
+
+
+def test_native_library_builds_atomically_and_is_keyed_by_source(
+        monkeypatch, tmp_path):
+    """Four concurrent builds of the C++ helpers into one directory (as
+    test workers do) leave one loadable library and no partial file; an
+    edited source gets a new library path."""
+    import ctypes
+    import shutil
+    import threading
+
+    from aptai_tpu_torch.decode import native
+
+    src = tmp_path / "aptai_native.cpp"
+    shutil.copy(native.SOURCE, src)
+    monkeypatch.setattr(native, "SOURCE", src)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+    out = native.library_path()
+    errors = []
+
+    def build():
+        try:
+            native._build(out)
+        except RuntimeError as e:  # pragma: no cover - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=build) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert [p.name for p in (tmp_path / "_build").iterdir()] == [out.name]
+    lib = ctypes.CDLL(str(out))
+    assert hasattr(lib, "aptai_ctc_beam_search")
+    with open(src, "a") as f:
+        f.write("// edited\n")
+    assert native.library_path() != out
 
 
 def test_device_peak_by_card_name():

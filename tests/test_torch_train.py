@@ -322,12 +322,12 @@ def test_training_flops_match_jax():
 
 
 def test_training_config_and_entry_points():
-    """``remat_policy``: "none" and "full" train, "dots" is not ported;
-    the model holds float32 parameters under bf16; ``torch_adam`` leaves
-    out frozen prefixes; ``TrainStep`` runs on the card unless told
+    """``remat_policy``: "none", "full" and "dots" are accepted, others
+    raise; the model holds float32 parameters under bf16; ``torch_adam``
+    leaves out frozen prefixes; ``TrainStep`` runs on the card unless told
     otherwise."""
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        tcfg.Wav2Vec2Config(remat_policy="dots")
+    for remat in ("none", "full", "dots"):
+        assert tcfg.Wav2Vec2Config(remat_policy=remat).remat_policy == remat
     with pytest.raises(ValueError, match="remat_policy"):
         tcfg.Wav2Vec2Config(remat_policy="some")
     model = random_aptai(tcfg.tiny_config(dtype="bfloat16"), seed=0,
