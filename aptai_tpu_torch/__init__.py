@@ -7,14 +7,17 @@ only. Module names mirror the JAX package so each counterpart is easy to
 find:
 
 ``aptai_tpu_torch.ops``     attention (flash forward and backward kernels +
-                            plain versions), the fused conv, CTC, FIR
+                            plain versions), the fused conv, CTC, FIR,
+                            ForwardSum, the packed (bi)LSTM
 ``aptai_tpu_torch.models``  config, wav2vec2 encoder, APTAI heads and loss,
+                            W2V2PR, FORCE-APTAI and its head modules,
                             weight bridge
 ``aptai_tpu_torch.train``   ``torch_adam``, ``TrainStep`` with the loss
-                            adapters of both families, the LR schedule,
-                            the validation passes and metrics
-``aptai_tpu_torch.decode``  the CTC beam search (C++ first) and the edit
-                            distance
+                            adapters of the three families, FORCE's
+                            frozen-tower cache, the LR schedule, the
+                            validation passes and metrics
+``aptai_tpu_torch.decode``  the CTC beam search (C++ first), its padded
+                            batch form and the edit distance
 ``aptai_tpu_torch.infer``   the predictors and the ``MicroBatcher``
 ``aptai_tpu_torch.utils``   FLOP count and device peaks
 ``aptai_tpu_torch/csrc``    CUDA sources, built with ``nvcc`` at first use

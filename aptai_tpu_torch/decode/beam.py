@@ -6,7 +6,8 @@ The configuration surface and output contract of
 beam_size=10, beam_threshold=50)``: the collapsed token sequence and the
 frame at which each token was emitted. Scoring is Graves-style prefix
 search, hypotheses that share a collapsed prefix merged by log-sum-exp.
-:func:`decode_best` and :func:`decode_with_times` call the C++ twin
+:func:`decode_best`, :func:`decode_with_times` and
+:func:`beam_decode_padded` call the C++ twin
 (:mod:`aptai_tpu_torch.decode.native`) first, as the JAX package's
 predictors and evaluator do, and this search only without its library.
 """
@@ -15,9 +16,10 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from aptai_tpu_torch.decode.native import beam_search_native
 
@@ -131,3 +133,42 @@ def decode_with_times(log_probs: np.ndarray) -> Tuple[List[int], List[int]]:
         return nat
     hyp = beam_search(log_probs)[0]
     return list(hyp.tokens), list(hyp.timesteps)
+
+
+def beam_decode_padded(log_probs, frame_lengths, max_len: int,
+                       out_rows: Optional[int] = None):
+    """Beam-decode a batch on the host into fixed-width padded sequences:
+    the host half of FORCE-APTAI's split ``beam_host`` path.
+
+    ``log_probs`` (B, T, V) and ``frame_lengths`` (B,), tensors (fetched
+    here) or arrays. Returns ``(seqs (rows, max_len) int32, lengths (rows,)
+    int32, truncated (rows,) int32)``: each item's best beam cut to
+    ``max_len`` tokens (the reference's 60-token cap), the tokens cut off
+    counted in ``truncated``. ``out_rows`` > B appends zero-length rows, so
+    a caller whose device batch has pad rows decodes only its real rows and
+    keeps the batch shape."""
+    lp = _host(log_probs, np.float32)
+    fl = _host(frame_lengths, np.int64)
+    b = lp.shape[0]
+    rows = b if out_rows is None else out_rows
+    if rows < b:
+        raise ValueError(f"out_rows {rows} < the {b} rows to decode")
+    out = np.zeros((rows, max_len), np.int32)
+    lens = np.zeros((rows,), np.int32)
+    trunc = np.zeros((rows,), np.int32)
+    for i in range(b):
+        toks = decode_best(lp[i, :fl[i]])
+        n = min(len(toks), max_len)
+        out[i, :n] = toks[:n]
+        lens[i] = n
+        trunc[i] = max(len(toks) - max_len, 0)
+    return out, lens, trunc
+
+
+def _host(x, dtype) -> np.ndarray:
+    """A tensor (on any device, bf16 included) or array as a numpy array
+    of ``dtype``."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        x = (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x, dtype)

@@ -11,7 +11,10 @@ runs the model and slices the pad rows off:
   ``get_ctc_logits``, ``predict_phonemes_durations`` and ``pred_phn_seq``
   give the reference's dicts, with the host beam search
   (``aptai_tpu_torch.decode``: the C++ beam first, the Python one without
-  its library).
+  its library);
+* :class:`ForceAPTAIPredictor` runs ``ForceAPTAI.predict`` (greedy) or its
+  split ``beam_host`` path; ``get_faptai_output`` and ``get_alignment``
+  give the reference's dicts.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from aptai_tpu_torch import SAMPLE_RATE, TV_ORDER
 from aptai_tpu_torch.data.vocab import ids_to_phonemes
 from aptai_tpu_torch.decode.beam import decode_best, decode_with_times
+from aptai_tpu_torch.models import force_aptai
 from aptai_tpu_torch.models.aptai import PREDICT_FIELDS
 from aptai_tpu_torch.models.w2v2_pr import ENCODE_FIELDS
 from aptai_tpu_torch.models.wav2vec2 import cast_matmul_weights, compute_dtype
@@ -164,11 +168,12 @@ def _log_softmax_host(logits: np.ndarray) -> np.ndarray:
 class _Predictor:
     def __init__(self, model, device: Union[str, torch.device, None] = None,
                  transfer_dtype: str = "float32"):
-        """``model``: a model of this package (``APTAI``, ``W2V2PR``) with
-        its weights loaded. The predictor serves a copy of it on ``device``
-        (``cuda`` unless named), in eval mode, whose encoder Linear and
-        Conv1d weights are cast once to the compute dtype (bf16 under
-        ``dtype="bfloat16"``); ``model`` itself is left as it is.
+        """``model``: a model of this package (``APTAI``, ``W2V2PR``,
+        ``ForceAPTAI``) with its weights loaded. The predictor serves a
+        copy of it on ``device`` (``cuda`` unless named), in eval mode,
+        whose encoder Linear and Conv1d weights are cast once to the
+        compute dtype (bf16 under ``dtype="bfloat16"``; heads stay float32);
+        ``model`` itself is left as it is.
         ``transfer_dtype``: "float32", "int16" (lossless for 16-bit PCM,
         half the upload) or "uint8_mulaw" (lossy, a quarter)."""
         if transfer_dtype not in TRANSFER_DTYPES:
@@ -296,3 +301,78 @@ class W2V2PRPredictor(_Predictor):
         out = self.predict_phonemes_durations(wav, vocab)
         return {"phn_seq_idx": out["phn_seq_idx"],
                 "phn_seq_ipa": out["phn_seq_ipa"]}
+
+
+class ForceAPTAIPredictor(_Predictor):
+    """Serves an :class:`aptai_tpu_torch.models.ForceAPTAI` (see
+    :class:`_Predictor` for the serving copy, ``device`` and
+    ``transfer_dtype``). A ``beam_host`` model runs split: the tower on
+    the device, the C++ beam on the calling thread over the real rows
+    only, then the head (``ForceAPTAI.predict_from_encoded``)."""
+
+    def _encoded(self, audio, lengths, n: int):
+        """The head's inputs on the split path; rows past ``n`` get
+        zero-length sequences."""
+        e = self.model.encode_and_decode(audio, lengths, n)
+        return tuple(e[k] for k in ("frame_embs", "frame_lengths",
+                                    "phn_pred_seq", "phn_seq_lengths",
+                                    "phn_seq_truncated"))
+
+    @torch.inference_mode()
+    def predict_batch(self, wavs: Sequence[np.ndarray],
+                      fields: Optional[Sequence[str]] = None,
+                      real_rows: Optional[int] = None) -> Dict:
+        """Batched forward; every returned tensor has leading dim
+        ``len(wavs)`` and stays on the device. ``fields`` keeps only the
+        named outputs (plus ``frame_lengths``). ``real_rows`` (the
+        MicroBatcher protocol): only the first N wavs are real, and the
+        ``beam_host`` path beam-decodes only those."""
+        if fields is not None:
+            check_fields(fields, force_aptai.PREDICT_FIELDS,
+                         "ForceAPTAI.predict")
+        audio, lengths = _prepare(wavs, self.transfer_dtype, self.device)
+        audio = dequantize_transfer(audio)
+        if self.model.decode_method == "beam_host":
+            n = len(wavs) if real_rows is None else min(real_rows, len(wavs))
+            out = self.model.predict_from_encoded(
+                *self._encoded(audio, lengths, n))
+        else:
+            out = self.model.predict(audio, lengths)
+        if fields is not None:
+            out = {k: v for k, v in out.items()
+                   if k in fields or k == "frame_lengths"}
+        return _strip_pad_rows(out, len(wavs))
+
+    def get_faptai_output(self, wav) -> Dict:
+        """The reference's single-utterance dict: per-TV lists, the frame
+        phonemes, the decoded sequence, the attention output and the
+        BiLSTM output over the valid frames."""
+        out = fetch_outputs(self.predict_batch([np.asarray(wav, np.float32)]))
+        n = int(out["frame_lengths"][0])
+        s = int(out["phn_seq_lengths"][0])
+        return {
+            "tvs_pred": _tv_dict(out["tvs_pred"][0, :n]),
+            "pred_frame_phns": out["pred_frame_phns"][0, :n].tolist(),
+            "pred_ctc_phn_seq": out["pred_ctc_phn_seq"][0, :s].tolist(),
+            "hidden_alignment": out["hidden_alignment"][0, :n],
+            "hidden_tvs": out["hidden_tvs"][0, :n],
+        }
+
+    @torch.inference_mode()
+    def get_alignment(self, wav) -> Dict:
+        """``{"alignment": (phonemes × frames)}``: the log-softmax
+        alignment of one utterance over its decoded phonemes and valid
+        frames."""
+        audio, lengths = _prepare([np.asarray(wav, np.float32)],
+                                  self.transfer_dtype, self.device)
+        audio = dequantize_transfer(audio)
+        if self.model.decode_method == "beam_host":
+            out = self.model.alignment_from_encoded(
+                *self._encoded(audio, lengths, 1))
+        else:
+            out = self.model.get_alignment(audio, lengths)
+        host = fetch_outputs({k: out[k] for k in (
+            "frame_lengths", "phn_seq_lengths", "alignment")})
+        n = int(host["frame_lengths"][0])
+        s = int(host["phn_seq_lengths"][0])
+        return {"alignment": host["alignment"][0, :n, :s].T}

@@ -6,12 +6,18 @@ and returns this package's ``APTAI`` state_dict: HF ``Wav2Vec2Model`` names
 under ``wav2vec2.``, plus ``tv_linear`` and ``phn_linear``.
 :func:`w2v2_pr_state_dict_from_jax` does the same for ``W2V2PR``
 (``{"encoder", "pr_head"}`` → ``wav2vec2.*`` and ``pr_head``, the layout of
-the JAX package's ``export_w2v2_pr``). Layouts:
+the JAX package's ``export_w2v2_pr``), and
+:func:`force_aptai_state_dict_from_jax` for ``ForceAPTAI`` (the tower under
+``w2v2_pr.``, then the head). Layouts:
 
 * conv kernel (k, Cin, Cout) → (Cout, Cin, k)
 * Dense kernel (in, out) → (out, in); LayerNorm ``scale`` → ``weight``
 * weight-norm ``weight_v`` (k, in/g, C) → (C, in/g, k) and
   ``weight_g`` (k, 1, 1) → (1, 1, k)
+* LSTM ``w_ih_fwd``, ``w_hh_fwd``, ``b_ih_fwd``, ``b_hh_fwd`` (torch layout
+  already) → ``weight_ih_l0``, ``weight_hh_l0``, ``bias_ih_l0``,
+  ``bias_hh_l0``; the ``_bwd`` ones → the same names with ``_reverse``
+* ``Embed`` ``embedding`` (V, D) → ``weight``
 
 A gradient tree has the parameter tree's structure, so ``jax.grad`` of the
 JAX model crosses the same bridge into gradients named like this package's
@@ -103,3 +109,33 @@ def w2v2_pr_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX ``W2V2PR`` parameter tree → this package's ``W2V2PR``
     state_dict (float32 CPU tensors)."""
     return _model_state_dict(params, ("pr_head",))
+
+
+def force_aptai_state_dict_from_jax(params: Mapping
+                                    ) -> Dict[str, torch.Tensor]:
+    """The JAX ``ForceAPTAI`` parameter tree → this package's
+    ``ForceAPTAI`` state_dict (float32 CPU tensors)."""
+    sd = {f"w2v2_pr.{k}": v for k, v in
+          w2v2_pr_state_dict_from_jax(params["w2v2_pr"]).items()}
+
+    def dense(base, leaf):
+        sd[f"{base}.weight"] = _t(leaf["kernel"]).T.contiguous()
+        sd[f"{base}.bias"] = _t(leaf["bias"])
+
+    dense("frame_lin", params["frame_lin"])
+    xatt = params["xatt"]
+    dense("xatt.q", xatt["q"])
+    dense("xatt.k", xatt["k"])
+    sd["xatt.layer_norm.weight"] = _t(xatt["layer_norm"]["scale"])
+    sd["xatt.layer_norm.bias"] = _t(xatt["layer_norm"]["bias"])
+    sd["phn_encoder.embed.weight"] = _t(
+        params["phn_encoder"]["embed"]["embedding"])
+    rnn = params["rnn"]
+    for jax_dir, suffix in (("fwd", ""), ("bwd", "_reverse")):
+        for jax_name, name in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
+                               ("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
+            sd[f"rnn.lstm.{name}_l0{suffix}"] = _t(rnn[f"{jax_name}_"
+                                                       f"{jax_dir}"])
+    dense("rnn.linear_0", rnn["linear_0"])
+    dense("rnn.linear_1", rnn["linear_1"])
+    return sd

@@ -522,8 +522,9 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
     """Random weights from ``generator``, in the JAX package's
     distributions: LeCun-normal Linear/Conv1d weights (std 1/√fan_in),
     zero biases, unit LayerNorm scales, weight-norm ``v`` normal with std
-    4/√(k·C) and ``g`` ones. Draws in float32 on the generator's device,
-    then casts into each parameter."""
+    4/√(k·C) and ``g`` ones, LSTM tensors uniform in ±1/√H, embeddings
+    normal with std 1/√dim (the padding row zero). Draws in float32 on the
+    generator's device, then casts into each parameter."""
     dev = generator.device
 
     def normal_(p, std):
@@ -543,6 +544,15 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
             normal_(m.weight_v, 4.0 / np.sqrt(k * c))
             m.weight_g.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, nn.LSTM):
+            bound = 1.0 / np.sqrt(m.hidden_size)
+            for p in m.parameters():
+                p.copy_(torch.rand(p.shape, generator=generator, device=dev)
+                        * (2 * bound) - bound)
+        elif isinstance(m, nn.Embedding):
+            normal_(m.weight, 1.0 / np.sqrt(m.embedding_dim))
+            if m.padding_idx is not None:
+                m.weight[m.padding_idx].zero_()
         elif isinstance(m, Wav2Vec2Model) and hasattr(m, "masked_spec_embed"):
             m.masked_spec_embed.copy_(torch.rand(
                 m.masked_spec_embed.shape, generator=generator, device=dev))

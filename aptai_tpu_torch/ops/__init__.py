@@ -5,13 +5,17 @@ from aptai_tpu_torch.ops.attention import (flash_attention_bhtd_bwd_plain,
                                            multi_head_attention_bhtd)
 from aptai_tpu_torch.ops.ctc import ctc_forward_score, ctc_loss, greedy_decode
 from aptai_tpu_torch.ops.fir import fir_lowpass, lowpass_fir_taps
+from aptai_tpu_torch.ops.forward_sum import (forward_sum_loss,
+                                             off_diag_prior_logprobs)
 from aptai_tpu_torch.ops.fused_conv import (fused_conv_ln_gelu,
                                             fused_conv_ln_gelu_cuda,
                                             fused_conv_ln_gelu_plain)
+from aptai_tpu_torch.ops.lstm import LSTMParams, bilstm, lstm
 
-__all__ = ["ctc_forward_score", "ctc_loss", "fir_lowpass",
-           "flash_attention_bhtd_bwd_plain", "flash_attention_bhtd_cuda",
-           "flash_attention_bhtd_plain", "flash_attention_bwd_cuda",
+__all__ = ["LSTMParams", "bilstm", "ctc_forward_score", "ctc_loss",
+           "fir_lowpass", "flash_attention_bhtd_bwd_plain",
+           "flash_attention_bhtd_cuda", "flash_attention_bhtd_plain",
+           "flash_attention_bwd_cuda", "forward_sum_loss",
            "fused_conv_ln_gelu", "fused_conv_ln_gelu_cuda",
            "fused_conv_ln_gelu_plain", "greedy_decode", "lowpass_fir_taps",
-           "multi_head_attention_bhtd"]
+           "lstm", "multi_head_attention_bhtd", "off_diag_prior_logprobs"]

@@ -1,7 +1,10 @@
+from aptai_tpu_torch.train.frozen_cache import collate_encoded, encode_items
 from aptai_tpu_torch.train.harness import TrainStep, torch_adam
 from aptai_tpu_torch.train.schedule import epoch_learning_rate, lr_lambda
 from aptai_tpu_torch.train.train_aptai import aptai_loss_fn
+from aptai_tpu_torch.train.train_force_aptai import force_loss_fn
 from aptai_tpu_torch.train.train_pr import pr_loss_fn
 
-__all__ = ["TrainStep", "aptai_loss_fn", "epoch_learning_rate", "lr_lambda",
-           "pr_loss_fn", "torch_adam"]
+__all__ = ["TrainStep", "aptai_loss_fn", "collate_encoded", "encode_items",
+           "epoch_learning_rate", "force_loss_fn", "lr_lambda", "pr_loss_fn",
+           "torch_adam"]

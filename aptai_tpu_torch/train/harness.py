@@ -10,8 +10,10 @@
 
 A loss adapter is the counterpart of the JAX engine's ``loss_fn``:
 ``loss_fn(model, batch, generator) -> (loss, aux)``, with the batch keys it
-reads in its ``batch_keys`` attribute (``train_pr.pr_loss_fn``,
-``train_aptai.aptai_loss_fn``, the default).
+reads in its ``batch_keys`` attribute and those it reads when present in an
+``optional_keys`` one (``train_pr.pr_loss_fn``,
+``train_force_aptai.force_loss_fn``, ``train_aptai.aptai_loss_fn``, the
+default).
 
 Frozen parameters (a frozen feature encoder, which the model runs without a
 gradient) carry no optimizer state and stay bit-identical.
@@ -53,14 +55,16 @@ class TrainStep:
     ``train()`` mode; build ``optimizer`` over its parameters
     (:func:`torch_adam`). ``loss_fn`` is the family's adapter (APTAI's,
     ``aptai_loss_fn()``, when None). ``step(batch, lr)`` takes a dict
-    holding the adapter's ``batch_keys`` (tensors or arrays, the batch on
-    the leading axis; other keys are ignored) and returns the step's
-    ``loss`` and the adapter's aux values, each averaged over the
-    microbatches, as device tensors (no synchronisation). Each
-    microbatch's dropout draws from the default generator seeded with
-    ``s = seed + step * grad_accum + microbatch`` and its SpecAugment from
-    a generator of its own seeded with ``s + SPEC_AUGMENT_SEED_OFFSET``;
-    the process's default generators are left as they were.
+    holding the adapter's ``batch_keys`` and any of its ``optional_keys``
+    (tensors or arrays, the batch on the leading axis; other keys are
+    ignored) and returns the step's ``loss`` and the adapter's aux values,
+    each averaged over the microbatches, as device tensors (no
+    synchronisation). Each microbatch's encoder dropout draws from the
+    default generator seeded with ``s = seed + step * grad_accum +
+    microbatch``, and the generator passed to the adapter (SpecAugment's;
+    the FORCE head's dropout) is one of its own seeded with ``s +
+    SPEC_AUGMENT_SEED_OFFSET``; the process's default generators are left
+    as they were.
     """
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -83,6 +87,9 @@ class TrainStep:
         missing = set(keys) - set(batch)
         if missing:
             raise KeyError(f"batch lacks {sorted(missing)}")
+        keys = tuple(keys) + tuple(
+            k for k in getattr(self.loss_fn, "optional_keys", ())
+            if k in batch)
         out = {k: torch.as_tensor(batch[k]).to(self.device) for k in keys}
         sizes = [x.shape[0] for x in out.values()]
         if len(set(sizes)) != 1:

@@ -73,14 +73,37 @@ Phases (any failure ends the run with a non-zero exit code):
    bit-identical), then a step from that encoder's output
    (``train_from_features``) against one from the audio.
 
+6. FORCE-APTAI serving: a small float32 ForceAPTAI on the card against the
+   CPU (``predict`` and ``get_alignment``); full-width FORCE-APTAI (bf16
+   wav2vec2-large W2V2PR tower, float32 head, seed 0) behind the
+   ``MicroBatcher``, 8 requests of 1-10 s, greedy, 24 flash-forward and no
+   other launches per batch; the same batch's tower through plain
+   attention with the same decoded sequences (per-TV Pearson, alignment
+   argmax) and its sequences held to the noise floor; ``beam_host``
+   through the split path on 6 requests in a batch of 8 (the C++ beam for
+   the 6 real rows only); one batch with the fused feature extractor (6
+   fused + 24 forward); ``predict_batch`` at 32 x 10 s (audio-s/s, MFU of
+   the tower's FLOPs, a profile).
+6b. The FORCE head train step at 8 x 5 s (frozen tower, head dropout on):
+   a small float32 model's two Adam steps on the card against the CPU;
+   then full width, one step from audio (24 flash-forward launches, no
+   backward ones, Adam state for the head only), steps from audio and from
+   the frozen-tower cache (``encode_items`` → ``collate_encoded`` →
+   ``force_loss_fn(from_encoded=True)``), each with step ms, device idle
+   and peak memory; ForwardSum alone timed; the tower bit-identical and
+   every head tensor moved; ``make_eval_forward`` with ``ctc_seq_per`` and
+   ``validate_tv`` over two batches.
+
 Output: the phases' lines, then one JSON line of kernel records, the card
 line, and last ``{"ok": true, "device": {...}}``. A flash kernel record's
 ``launches`` is its count over one train step of phase 5, the fused conv's
 its count over the W2V2PR batches of phase 3b; ``launches_by_path`` holds
 each path's own count (APTAI serving, W2V2PR serving, the APTAI train step,
 the APTAI train step with the fused feature extractor, the W2V2PR train
-step, and the W2V2PR train step with a frozen fused feature extractor),
-each read with the counts set to 0 just before it.
+step, the W2V2PR train step with a frozen fused feature extractor, FORCE
+serving, FORCE serving with the fused feature extractor, and the FORCE
+train step from audio), each read with the counts set to 0 just before
+it.
 """
 
 from __future__ import annotations
@@ -96,15 +119,22 @@ import numpy as np
 import torch
 
 from aptai_tpu_torch.decode import native
-from aptai_tpu_torch.infer import APTAIPredictor, MicroBatcher, W2V2PRPredictor
-from aptai_tpu_torch.models import (APTAI, W2V2PR, Wav2Vec2Config,
-                                    random_aptai, random_w2v2_pr, tiny_config)
+from aptai_tpu_torch.infer import (APTAIPredictor, ForceAPTAIPredictor,
+                                   MicroBatcher, W2V2PRPredictor)
+from aptai_tpu_torch.models import (APTAI, W2V2PR, ForceAPTAI, Wav2Vec2Config,
+                                    random_aptai, random_force_aptai,
+                                    random_w2v2_pr, tiny_config)
 from aptai_tpu_torch.models import w2v2_pr
 from aptai_tpu_torch.models import wav2vec2 as w2v
 from aptai_tpu_torch.ops import attention, fused_conv, kernels
 from aptai_tpu_torch.ops.ctc import ctc_loss, greedy_decode
-from aptai_tpu_torch.train import TrainStep, pr_loss_fn, torch_adam
-from aptai_tpu_torch.train.evaluate import validate_pr
+from aptai_tpu_torch.ops.forward_sum import forward_sum_loss
+from aptai_tpu_torch.train import (TrainStep, collate_encoded, encode_items,
+                                   force_loss_fn, pr_loss_fn, torch_adam)
+from aptai_tpu_torch.train.evaluate import validate_pr, validate_tv
+from aptai_tpu_torch.train.train_force_aptai import ctc_seq_per
+from aptai_tpu_torch.train.train_force_aptai import \
+    make_eval_forward as force_eval_forward
 from aptai_tpu_torch.train.train_pr import make_eval_forward
 from aptai_tpu_torch.utils.flops import (aptai_forward_flops,
                                          device_peak_tflops, mfu,
@@ -1765,6 +1795,473 @@ def phase_pr_train(card):
             {name: counts_fused[name] for name in COUNTED}, validation)
 
 
+# -- phase 6 ------------------------------------------------------------------
+
+FORCE_INTS = ("pred_frame_phns", "pred_ctc_phn_seq", "phn_seq_lengths",
+              "phn_seq_truncated", "frame_lengths")
+
+
+def small_force_config():
+    """A small float32 tower (head dim 64, the 7-layer conv stack) for the
+    full-width FORCE head."""
+    return tiny_config(hidden_size=128, num_attention_heads=2,
+                       intermediate_size=256, conv_dim=(128,) * 7,
+                       conv_kernel=(10, 3, 3, 3, 3, 2, 2),
+                       conv_stride=(5, 2, 2, 2, 2, 2, 2), vocab_size=46,
+                       final_dropout=0.0, mask_time_prob=0.0, **NO_DROP)
+
+
+def _force_rel_err(got, want, lens=None):
+    """Largest |got − want| over the largest |want|; with ``lens``, over
+    each item's first ``lens[b]`` columns of the last axis only (the
+    alignment's valid phonemes)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if lens is not None:
+        keep = (torch.arange(got.shape[-1])[None, :]
+                < torch.as_tensor(lens).cpu()[:, None])[:, None, :]
+        got, want = got * keep, want * keep
+    return ((got - want).abs().max() / want.abs().max().clamp(
+        min=1e-30)).item()
+
+
+def check_small_force_reference(device: str = "cuda"):
+    """A small float32 ForceAPTAI on the card against the same weights on
+    the CPU: ``predict`` and ``get_alignment``, TVs, hidden states and the
+    alignment log-probs (valid phonemes) within 1e-4 of their largest
+    magnitude, the integer outputs equal."""
+    model = random_force_aptai(small_force_config(), seed=1).eval()
+    rng = np.random.default_rng(7)
+    audio = (rng.standard_normal((3, 32_000)) * 0.1).astype(np.float32)
+    lens = np.array([32_000, 21_000, 9_000], np.int32)
+    for i, n in enumerate(lens):
+        audio[i, n:] = 0.0
+    runs = []
+    for dev in ("cpu", device):
+        m = copy.deepcopy(model).to(dev)
+        args = [torch.from_numpy(a).to(dev) for a in (audio, lens)]
+        with torch.no_grad():
+            runs.append((m.predict(*args), m.get_alignment(*args)))
+    (pc, ac), (pg, ag) = runs
+    errs = {k: _force_rel_err(pg[k], pc[k]) for k in (
+        "tvs_pred", "hidden_alignment", "hidden_tvs")}
+    errs["alignment"] = _force_rel_err(ag["alignment"], ac["alignment"],
+                                       ac["phn_seq_lengths"])
+    same = {k: torch.equal(pg[k].cpu(), pc[k]) for k in FORCE_INTS}
+    log(f"  small f32 ForceAPTAI, card vs CPU: relative errors "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} }; integer outputs "
+        f"equal {same}; sequences of {pc['phn_seq_lengths'].tolist()} "
+        f"tokens")
+    # float32 in both: summation order, exp/tanh ulps, cuDNN's LSTM
+    if not (all(v <= 1e-4 for v in errs.values()) and all(same.values())):
+        raise AssertionError("the card's ForceAPTAI disagrees with the CPU's")
+
+
+def check_force_result(res, n_samples, cfg):
+    n = int(cfg.feat_extract_output_lengths(n_samples))
+    s = int(res["phn_seq_lengths"])
+    ok = (int(res["frame_lengths"]) == n and res["tvs_pred"].shape == (n, 9)
+          and res["pred_frame_phns"].shape == (n,)
+          and res["hidden_alignment"].shape == (n, 256)
+          and res["hidden_tvs"].shape == (n, 512) and 0 <= s <= 60
+          and all(np.isfinite(res[k]).all() for k in (
+              "tvs_pred", "hidden_alignment", "hidden_tvs")))
+    if not ok:
+        raise AssertionError(f"bad FORCE result for a {n_samples}-sample "
+                             f"request: frames {res['frame_lengths']}, tvs "
+                             f"{res['tvs_pred'].shape}, tokens {s}")
+
+
+def serve_requests(predict_batch, wavs, max_batch_size=8):
+    """The requests through a ``MicroBatcher`` on its background thread
+    (after one warm-up batch), with the kernel counts set to 0 just
+    before: (results, batch sizes, counts, C++ beam calls, seconds)."""
+    batches = []
+
+    def serve(wavs, fields=None, real_rows=None):
+        batches.append(len(wavs))
+        return predict_batch(wavs, fields=fields, real_rows=real_rows)
+
+    mb = MicroBatcher(serve, max_batch_size=max_batch_size, max_wait_ms=20.0)
+    mb.warmup(seconds=10.0, cycles=1)
+    batches.clear()
+    reset_counts()
+    calls = native.beam_search_native.calls
+    mb.start()
+    try:
+        t0 = time.perf_counter()
+        futs = [mb.submit(w) for w in wavs]
+        results = [f.result(timeout=600) for f in futs]
+        sec = time.perf_counter() - t0
+    finally:
+        mb.stop()
+    return (results, batches, read_counts(),
+            native.beam_search_native.calls - calls, sec)
+
+
+def force_kernel_vs_plain(pred, wavs):
+    """The served batch's tower through the kernels and through plain
+    attention, both heads fed the kernel run's decoded sequences: per-TV
+    Pearson and alignment argmax agreement over the valid frames; and the
+    decoded sequences of both (and of the plain tower on the waveforms
+    scaled by 1 + 2^-9, the noise floor) for the sequence check."""
+    from aptai_tpu_torch.infer.api import _prepare
+
+    model = pred.model
+
+    def run(scale=1.0, seqs=None):
+        audio, lengths = _prepare([w * np.float32(scale) for w in wavs],
+                                  "float32", pred.device)
+        with torch.inference_mode():
+            enc = model.encode_frozen(audio, lengths)
+            decoded = model.decode(enc)
+            head_in = (enc["frame_embs"], enc["frame_lengths"]) + tuple(
+                decoded if seqs is None else seqs)
+            out = model.predict_from_encoded(*head_in)
+            out["alignment"] = model.alignment_from_encoded(
+                *head_in)["alignment"]
+        return decoded, out
+
+    seq_k, out_k = run()
+    w2v.multi_head_attention_bhtd = attention.flash_attention_bhtd_plain
+    try:
+        reset_counts()
+        seq_p, out_p = run(seqs=seq_k)
+        plain_counts = read_counts()
+        seq_n, _ = run(scale=1 + 2 ** -9)
+    finally:
+        w2v.multi_head_attention_bhtd = attention.multi_head_attention_bhtd
+    n = out_k["frame_lengths"].cpu()[:len(wavs)]
+    valid = lambda x: torch.cat([x[b, :n[b]] for b in range(len(wavs))])
+    tv_k = valid(out_k["tvs_pred"].cpu()).numpy()
+    tv_p = valid(out_p["tvs_pred"].cpu()).numpy()
+    rs = [pearson(tv_k[:, i], tv_p[:, i]) for i in range(9)]
+    agree = (valid(out_k["alignment"].argmax(-1).cpu())
+             == valid(out_p["alignment"].argmax(-1).cpu())).float().mean()
+
+    def seqs(decoded):
+        toks, lens = decoded[0].cpu(), decoded[1].cpu()
+        return [toks[b, :lens[b]].tolist() for b in range(len(wavs))]
+
+    return (rs, float(agree), seqs(seq_k), seqs(seq_p), seqs(seq_n),
+            plain_counts)
+
+
+def phase_force_serving(card):
+    log("== phase 6: FORCE-APTAI serving")
+    check_small_force_reference()
+    cfg = Wav2Vec2Config(dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = random_force_aptai(cfg, seed=0)
+    pred = ForceAPTAIPredictor(model)
+    log(f"  full-width FORCE-APTAI (bf16 tower, float32 head, seed 0) on "
+        f"the card in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(8)
+    seconds = (1.0, 10.0, 2.3, 4.7, 6.1, 7.9, 3.3, 8.6)
+    wavs = [(rng.standard_normal(int(s * SAMPLE_RATE)) * 0.1).astype(
+        np.float32) for s in seconds]
+    layers = cfg.num_hidden_layers
+
+    results, batches, counts, _, sec = serve_requests(pred.predict_batch,
+                                                      wavs)
+    for res, w in zip(results, wavs):
+        check_force_result(res, len(w), cfg)
+    log(f"  greedy: served {len(wavs)} requests ({sum(seconds):.1f} "
+        f"audio-s) in {len(batches)} batch(es) of {batches} in {sec:.3f} s;"
+        f" launches {counts}; tokens "
+        f"{[int(r['phn_seq_lengths']) for r in results]}")
+    nb = len(batches)
+    if not (nb and counts["flash_attn_fwd"] == layers * nb
+            and not counts["flash_attn_bwd_dq"]
+            and not counts["flash_attn_bwd_dkv"]
+            and not counts["fused_conv_ln_gelu"]):
+        raise AssertionError(f"expected {layers} forward launches per "
+                             f"batch and nothing else, got {counts} over "
+                             f"{nb} batch(es)")
+    serving = (counts, nb)
+
+    rs, agree, seq_k, seq_p, seq_n, plain_counts = force_kernel_vs_plain(
+        pred, wavs)
+    ter, ter_n = compare_seqs(seq_k, seq_p), compare_seqs(seq_n, seq_p)
+    log(f"  kernel vs plain attention, same batch and sequences: per-TV "
+        f"Pearson min {min(rs):.6f}, alignment argmax agreement "
+        f"{agree:.4%}; greedy sequences identical on "
+        f"{sum(a == b for a, b in zip(seq_k, seq_p))} of {len(wavs)}, token"
+        f" error rate {ter:.4%} (noise floor, plain on the waveforms x (1 + "
+        f"2^-9): {sum(a == b for a, b in zip(seq_n, seq_p))} identical, "
+        f"{ter_n:.4%})")
+    # the TVs and the alignment held as phase 3 holds APTAI's; the decoded
+    # sequences moved no more than the nudge moves them (one point slack)
+    if (min(rs) < 0.999 or agree < 0.99 or any(plain_counts.values())
+            or ter > ter_n + 0.01):
+        raise AssertionError("FORCE through the kernel disagrees with the "
+                             "plain attention beyond the noise floor")
+
+    # beam_host through the split path: 6 requests in a batch of 8, so
+    # the C++ beam runs for the real rows only
+    beam_model = ForceAPTAI(cfg, decode_method="beam_host")
+    beam_model.load_state_dict(model.state_dict())
+    beam_pred = ForceAPTAIPredictor(beam_model)
+    del beam_model
+    if not native.native_available():
+        raise AssertionError(f"the C++ beam did not build or load: "
+                             f"{native.build_error()}")
+    results_b, batches_b, counts_b, n_native, sec_b = serve_requests(
+        beam_pred.predict_batch, wavs[:6])
+    for res, w in zip(results_b, wavs[:6]):
+        check_force_result(res, len(w), cfg)
+    greedy_seqs = [r["pred_ctc_phn_seq"][:int(r["phn_seq_lengths"])].tolist()
+                   for r in results[:6]]
+    beam_seqs = [r["pred_ctc_phn_seq"][:int(r["phn_seq_lengths"])].tolist()
+                 for r in results_b]
+    log(f"  beam_host (split): served 6 requests in batch(es) of "
+        f"{batches_b} (8 rows each) in {sec_b:.3f} s, native beam calls "
+        f"{n_native}, launches {counts_b}; beam vs greedy token error rate "
+        f"{compare_seqs(beam_seqs, greedy_seqs):.4%}")
+    if not (n_native == 6
+            and counts_b["flash_attn_fwd"] == layers * len(batches_b)):
+        raise AssertionError(f"the beam_host predictor decoded "
+                             f"{n_native} rows for 6 requests")
+    del beam_pred
+
+    cfg_fused = dataclasses.replace(cfg, fused_feature_extractor=True)
+    fused_model = ForceAPTAI(cfg_fused)
+    fused_model.load_state_dict(model.state_dict())
+    fused_pred = ForceAPTAIPredictor(fused_model)
+    del fused_model
+    results_f, batches_f, counts_f, _, _ = serve_requests(
+        fused_pred.predict_batch, wavs)
+    for res, w in zip(results_f, wavs):
+        check_force_result(res, len(w), cfg)
+    nf = len(batches_f)
+    log(f"  fused_feature_extractor=True: {nf} batch(es), launches "
+        f"{counts_f}")
+    if not (nf and counts_f["fused_conv_ln_gelu"] == 6 * nf
+            and counts_f["flash_attn_fwd"] == layers * nf
+            and not counts_f["flash_attn_bwd_dq"]
+            and not counts_f["flash_attn_bwd_dkv"]):
+        raise AssertionError(f"expected 6 fused and {layers} forward "
+                             f"launches per batch, got {counts_f}")
+    del fused_pred
+    torch.cuda.empty_cache()
+
+    log("  predict_batch at 32 x 10 s, greedy")
+    rng = np.random.default_rng(9)
+    big = [(rng.standard_normal(10 * SAMPLE_RATE) * 0.1).astype(np.float32)
+           for _ in range(32)]
+    times = timed_batches(lambda: pred.predict_batch(big))
+    sec = float(np.median(times))
+    flops = 32 * pr_forward_flops(cfg, 10 * SAMPLE_RATE)
+    util = mfu(flops, sec, device_peak_tflops())
+    log(f"  batch times (s): {[round(x, 5) for x in times]}")
+    log(f"  {32 * 10 / sec:.1f} audio-s/s, {sec * 1e3:.2f} ms per batch, "
+        f"MFU {'not known for this card' if util is None else f'{util:.4f}'}"
+        f" ({flops / 1e12:.2f} TFLOP per batch, the tower's; the head is "
+        f"not counted) on {card}")
+    profile_breakdown(lambda: pred.predict_batch(big), "one FORCE batch")
+    del pred, model
+    torch.cuda.empty_cache()
+    return serving, (counts_f, nf)
+
+
+def compare_seqs(a, b):
+    """Token error rate of sequences ``a`` against ``b``."""
+    return (sum(edit_distance(x, y) for x, y in zip(a, b))
+            / max(sum(len(y) for y in b), 1))
+
+
+# -- phase 6b -----------------------------------------------------------------
+
+def force_train_batch(cfg, b: int = 8, seconds: int = 5, seed: int = 0,
+                      lengths=None):
+    """The train batch's audio (``train_batch``; ``lengths`` in samples
+    silences each item past its length) with TV targets padded past each
+    item's frames, frame phonemes and 40-70 phoneme labels: the keys of
+    the FORCE adapter and of ``validate_tv`` / ``ctc_seq_per``."""
+    batch = pr_train_batch(cfg, b, seconds, seed, lengths)
+    base = train_batch(cfg, b, seconds, seed)
+    frames = cfg.feat_extract_output_lengths(batch["audio_lengths"])
+    tv, phn = base["tv_targets"], base["phn_frames"]
+    for i, n in enumerate(frames):
+        tv[i, n:] = -100.0
+        phn[i, n:] = 0
+    batch.update(tv_targets=tv, phn_frames=phn,
+                 frame_lengths=frames.astype(np.int32))
+    return batch
+
+
+def check_small_force_train_reference(device: str = "cuda"):
+    """Two Adam steps (lr 1e-5) of a small float32 ForceAPTAI from audio
+    (head dropout off) on the card against the CPU: each step's loss and
+    head gradients, and every parameter after the second step within
+    1e-4; the tower untouched on both."""
+    cfg = small_force_config()
+    batch = force_train_batch(cfg, b=3, seconds=2, seed=5,
+                              lengths=[32_000, 21_000, 9_000])
+    lr, runs = 1e-5, []
+    for dev in ("cpu", device):
+        model = random_force_aptai(cfg, seed=1, hidden_drop=0.0,
+                                   rnn_drop=0.0)
+        step = TrainStep(model, torch_adam(model), force_loss_fn(),
+                         device=dev)
+        steps = []
+        for _ in range(2):
+            loss = step(batch, lr)["loss"].item()
+            steps.append((loss,) + flat_grads(model))
+        runs.append((steps, {n: p.detach().cpu()
+                             for n, p in model.named_parameters()}))
+    (steps_c, pc), (steps_g, pg) = runs
+    worst = max(pc, key=lambda n: (pg[n] - pc[n]).abs().max().item())
+    err = (pg[worst] - pc[worst]).abs().max().item()
+    log(f"  small f32 ForceAPTAI train steps, card vs CPU: losses "
+        f"{[round(s[0], 6) for s in steps_g]} vs "
+        f"{[round(s[0], 6) for s in steps_c]}; after two Adam steps (lr "
+        f"{lr}) parameters max_abs_err {err:.2e} ({worst})")
+    for i, ((lg, gg, fg), (lc, gc, fc)) in enumerate(zip(steps_g, steps_c)):
+        if not (np.isfinite(lg) and abs(lg - lc) <= 1e-4 * abs(lc)):
+            raise AssertionError(f"step {i + 1}: the card's FORCE loss "
+                                 "disagrees with the CPU's")
+        if any(n.startswith("w2v2_pr.") for n in gg):
+            raise AssertionError("a gradient reached the frozen tower")
+        compare_grads(f"small f32 FORCE step {i + 1} head gradients, card "
+                      f"vs CPU", gg, fg, gc, fc, max_rel=1e-4,
+                      min_cos=0.99999999)
+    if err > 1e-4:
+        raise AssertionError("the card's FORCE parameters disagree with "
+                             "the CPU's after two steps")
+
+
+def time_forward_sum(log_probs_shape, text_lengths, mel_lengths):
+    """ForwardSum alone (forward and backward) on the step's shapes: wall
+    ms (median of 5, synchronised), device ms and its kernel launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(0)
+    att = torch.randn(log_probs_shape, generator=gen).cuda()
+    att = att.log_softmax(-1).requires_grad_()
+    text, mel = text_lengths.cuda(), mel_lengths.cuda()
+
+    def run():
+        att.grad = None
+        forward_sum_loss(att, text, mel).backward()
+
+    times = timed_batches(run, n=5)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels_ = device_kernels(prof)
+    dev = sum(e.self_device_time_total for e in kernels_) / 1e3
+    return (float(np.median(times)) * 1e3, dev,
+            sum(e.count for e in kernels_))
+
+
+def force_steps(step, batch, what, card, n=3):
+    """``n`` timed steps after one warm-up step, then one profiled step:
+    step ms, device idle and peak memory (reset before the warm-up)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed_steps(step, batch, 1)
+    times, m = timed_steps(step, batch, n)
+    sec = float(np.median(times))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy, wall, _ = profile_breakdown(lambda: step(batch, 1e-5),
+                                      f"one FORCE step {what}", top=10)
+    log(f"  {what}: step times (s) {[round(x, 5) for x in times]}, "
+        f"median {sec * 1e3:.2f} ms; last loss {m['loss'].item():.5f}; "
+        f"peak memory {peak:.2f} GiB; profiled step {busy:.2f} ms of "
+        f"kernels in {wall:.2f} ms (device idle {1 - busy / wall:.1%}) on "
+        f"{card}")
+    return sec * 1e3, peak
+
+
+def phase_force_train(card):
+    log("== phase 6b: the FORCE head train step at 8 x 5 s, frozen tower")
+    check_small_force_train_reference()
+
+    cfg = Wav2Vec2Config(dtype="bfloat16")
+    batch = force_train_batch(cfg)
+    model = random_force_aptai(cfg, seed=0)
+    tower = {n: p.detach().clone() for n, p in
+             model.w2v2_pr.named_parameters()}
+    head = {n: p.detach().clone() for n, p in model.named_parameters()
+            if not n.startswith("w2v2_pr.")}
+    opt = torch_adam(model)
+    step = TrainStep(model, opt, force_loss_fn())
+    layers = cfg.num_hidden_layers
+    torch.cuda.synchronize()
+    reset_counts()
+    loss0 = step(batch, 1e-5)["loss"].item()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"  first step from audio (dropout on): loss {loss0:.5f}, launches "
+        f"{counts}")
+    if not (np.isfinite(loss0) and counts["flash_attn_fwd"] == layers
+            and not counts["flash_attn_bwd_dq"]
+            and not counts["flash_attn_bwd_dkv"]
+            and not counts["fused_conv_ln_gelu"]):
+        raise AssertionError(f"expected {layers} forward launches and no "
+                             f"backward ones a step, got {counts}")
+    names = {id(p): n for n, p in model.named_parameters()}
+    state = sorted(names[id(p)] for p in opt.state)
+    if state != sorted(head):
+        raise AssertionError(f"Adam holds state for {len(state)} tensors, "
+                             f"not the head's {len(head)}")
+    audio_ms, audio_peak = force_steps(step, batch, "from audio", card)
+
+    t0 = time.perf_counter()
+    cached = collate_encoded(encode_items([batch], model))
+    log(f"  the tower once over the batch (encode_items + collate_encoded):"
+        f" {(time.perf_counter() - t0) * 1e3:.1f} ms; frame_embs "
+        f"{cached['frame_embs'].shape}, tokens "
+        f"{cached['phn_seq_lengths'].tolist()}")
+    step_c = TrainStep(model, opt, force_loss_fn(from_encoded=True))
+    reset_counts()
+    cache_ms, cache_peak = force_steps(step_c, cached, "from the cache",
+                                       card)
+    if any(read_counts().values()):
+        raise AssertionError("a step from the cache launched a tower kernel")
+
+    b, t = len(batch["audio"]), int(cached["enc_frame_lengths"].max())
+    fs_wall, fs_dev, fs_n = time_forward_sum(
+        (b, t, 60), torch.as_tensor(cached["phn_seq_lengths"]),
+        torch.as_tensor(cached["enc_frame_lengths"]))
+    log(f"  ForwardSum alone at ({b}, {t}, 60), forward + backward: "
+        f"{fs_wall:.2f} ms wall ({fs_wall / cache_ms:.1%} of the cached "
+        f"step's median, {fs_wall / audio_ms:.1%} of the audio step's), "
+        f"{fs_dev:.2f} ms of kernels, {fs_n} kernel launches")
+
+    same = all(torch.equal(p.cpu(), tower[n])
+               for n, p in model.w2v2_pr.named_parameters())
+    unchanged = [n for n, p in model.named_parameters()
+                 if n in head and torch.equal(p.detach().cpu(), head[n])]
+    log(f"  after {step.step_count + step_c.step_count} steps: tower "
+        f"bit-identical {same}; head tensors unchanged {unchanged} (of "
+        f"{len(head)}); peak memory from audio {audio_peak:.2f} GiB, from "
+        f"the cache {cache_peak:.2f} GiB")
+    if not same or unchanged:
+        raise AssertionError("the tower moved or a head tensor did not")
+
+    batches = [force_train_batch(cfg, seed=11),
+               force_train_batch(cfg, seed=12, lengths=[
+                   80_000, 32_000, 48_000, 64_000, 40_000, 56_000, 72_000,
+                   36_000])]
+    forward = force_eval_forward(model)
+    t0 = time.perf_counter()
+    per = ctc_seq_per(forward, batches)
+    tv = validate_tv(forward, batches)
+    sec = time.perf_counter() - t0
+    log(f"  make_eval_forward over 2 batches: ctc_seq_per {per:.4f}, "
+        f"validate_tv loss {tv['val_mean_loss']:.4f}, pcc "
+        f"{tv['val_mean_pcc']:.4f}, FER {tv['val_mean_FER']:.4f} in "
+        f"{sec:.3f} s")
+    if not (np.isfinite(per) and all(np.isfinite(v) for v in tv.values())
+            and model.training):
+        raise AssertionError("the FORCE evaluation failed")
+    del step, step_c, opt, model
+    torch.cuda.empty_cache()
+    return {name: counts[name] for name in COUNTED}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1810,6 +2307,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     training, training_fused = phase_train(card)
     pr_training, pr_training_fused, _ = phase_pr_train(card)
+    (force_serving, force_batches), (force_fused, force_fused_batches) = \
+        phase_force_serving(card)
+    force_training = phase_force_train(card)
     for rec in records:
         name = rec["name"]
         rec["launches"] = (pr_serving if name == "fused_conv_ln_gelu"
@@ -1824,7 +2324,13 @@ def main() -> int:
             "w2v2_pr_train_step": {"steps": 1,
                                    "launches": pr_training[name]},
             "w2v2_pr_train_step_frozen_fused_fe": {
-                "steps": 1, "launches": pr_training_fused[name]}}
+                "steps": 1, "launches": pr_training_fused[name]},
+            "force_serving": {"batches": force_batches,
+                              "launches": force_serving[name]},
+            "force_serving_fused_fe": {"batches": force_fused_batches,
+                                       "launches": force_fused[name]},
+            "force_train_step": {"steps": 1,
+                                 "launches": force_training[name]}}
 
     print(json.dumps({"kernels": records}))
     print(card)

@@ -8,6 +8,7 @@ avoids tracing a JAX ``init``. The port then loads the JAX tree back through
 its bridge (``state_dict_from_jax``), which is what the tests hold it to.
 """
 
+import jax
 import numpy as np
 import torch
 
@@ -67,3 +68,55 @@ def port_w2v2_pr_from_jax(cfg_t, params, **kwargs) -> W2V2PR:
     model = W2V2PR(cfg_t, **kwargs)
     model.load_state_dict(w2v2_pr_state_dict_from_jax(params), strict=True)
     return model.eval()
+
+
+def dense_sd(params, names):
+    """Flax Dense leaves of ``params`` → torch Linear weights (transposed
+    kernels) under the same names."""
+    sd = {}
+    for n in names:
+        sd[f"{n}.weight"] = torch.from_numpy(
+            np.asarray(params[n]["kernel"]).T.copy())
+        sd[f"{n}.bias"] = torch.from_numpy(np.asarray(params[n]["bias"]))
+    return sd
+
+
+def module_params(params, layer_norms):
+    """Flax LayerNorm leaves (``scale``, ``bias``) → torch names, as
+    ``{flax name: torch name}``."""
+    sd = {}
+    for jn, tn in layer_norms.items():
+        sd[f"{tn}.weight"] = torch.from_numpy(
+            np.asarray(params[jn]["scale"]))
+        sd[f"{tn}.bias"] = torch.from_numpy(np.asarray(params[jn]["bias"]))
+    return sd
+
+
+def torch_grads(tree):
+    """The ``.grad`` of every tensor in a pytree of leaf tensors, as
+    numpy, in the same structure."""
+    return jax.tree.map(lambda t: t.grad.numpy(), tree)
+
+
+def jax_lstm_one_step_a_loop(monkeypatch):
+    """The JAX LSTM scan one step a loop iteration (its default unrolls 8):
+    the same arithmetic in a loop body an eighth the size, which XLA
+    compiles in half the time on the CPU."""
+    import importlib
+
+    monkeypatch.setattr(importlib.import_module("aptai_tpu.ops.lstm"),
+                        "SCAN_UNROLL", 1)
+
+
+def one_torch_thread():
+    """A generator for a module fixture: torch on one intra-op thread while
+    the module runs, restored after. The tiny configs' ops are too small
+    to share out, and under the test workers several processes' thread
+    pools would wait on one another at every op of the LSTM and CTC
+    loops."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)

@@ -13,9 +13,12 @@ import torch
 
 from aptai_tpu.models import configs as jcfg
 from aptai_tpu.utils import flops as jflops
-from aptai_tpu_torch.infer import APTAIPredictor, W2V2PRPredictor
+from aptai_tpu_torch.infer import (APTAIPredictor, ForceAPTAIPredictor,
+                                   W2V2PRPredictor)
 from aptai_tpu_torch.models import configs as tcfg
-from aptai_tpu_torch.models import random_aptai, random_w2v2_pr
+from aptai_tpu_torch.models import (random_aptai, random_force_aptai,
+                                    random_w2v2_pr)
+from aptai_tpu_torch.train import TrainStep, force_loss_fn, torch_adam
 from aptai_tpu_torch.ops import attention as tatt
 from aptai_tpu_torch.utils import flops as tflops
 
@@ -42,6 +45,12 @@ print("PR_TRAIN", all(m in sys.modules for m in (
     "aptai_tpu_torch.train.train_pr", "aptai_tpu_torch.train.train_aptai",
     "aptai_tpu_torch.train.evaluate", "aptai_tpu_torch.train.metrics",
     "aptai_tpu_torch.decode.native")))
+print("FORCE", all(m in sys.modules for m in (
+    "aptai_tpu_torch.models.force_aptai", "aptai_tpu_torch.models.modules",
+    "aptai_tpu_torch.ops.lstm", "aptai_tpu_torch.ops.forward_sum",
+    "aptai_tpu_torch.train.frozen_cache",
+    "aptai_tpu_torch.train.train_force_aptai",
+    "aptai_tpu_torch.data.batching")))
 # importing builds and loads nothing
 print("NATIVE_LOADED", sys.modules["aptai_tpu_torch.decode.native"]._lib
       is not None)
@@ -60,18 +69,25 @@ def test_port_imports_no_jax_or_reference_package():
     assert "TRAIN True" in res.stdout, res.stdout
     assert "PR True" in res.stdout, res.stdout
     assert "PR_TRAIN True" in res.stdout, res.stdout
+    assert "FORCE True" in res.stdout, res.stdout
     assert "NATIVE_LOADED False" in res.stdout, res.stdout
 
 
-@pytest.mark.parametrize("family", ["aptai", "w2v2_pr"])
+@pytest.mark.parametrize("family", ["aptai", "w2v2_pr", "force_aptai"])
 def test_predictor_without_cuda_raises(monkeypatch, family):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     if family == "aptai":
         model = random_aptai(tcfg.tiny_config(), seed=0, num_phonemes=11)
         predictor = APTAIPredictor
-    else:
+    elif family == "w2v2_pr":
         model = random_w2v2_pr(tcfg.tiny_config(), seed=0)
         predictor = W2V2PRPredictor
+    else:
+        model = random_force_aptai(tcfg.tiny_config(), seed=0, vocab_size=11)
+        predictor = ForceAPTAIPredictor
+        # and the train step: no silent CPU fallback either
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TrainStep(model, torch_adam(model), force_loss_fn())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         predictor(model)
     with pytest.raises(RuntimeError, match="device='cpu'"):
