@@ -27,14 +27,13 @@ import numpy as np
 import torch
 
 from aptai_tpu_torch import SAMPLE_RATE, TV_ORDER
+from aptai_tpu_torch.data.batching import AUDIO_BUCKET
 from aptai_tpu_torch.data.vocab import ids_to_phonemes
 from aptai_tpu_torch.decode.beam import decode_best, decode_with_times
 from aptai_tpu_torch.models import force_aptai
 from aptai_tpu_torch.models.aptai import PREDICT_FIELDS
 from aptai_tpu_torch.models.w2v2_pr import ENCODE_FIELDS
 from aptai_tpu_torch.models.wav2vec2 import cast_matmul_weights, compute_dtype
-
-AUDIO_BUCKET = 16_000
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:

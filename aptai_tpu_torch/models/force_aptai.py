@@ -26,8 +26,9 @@ runs under ``torch.no_grad()``.
   trainer adapters run it. The full forward refuses it unless
   ``allow_host_callback_decode=True``, as the JAX package does, and then
   decodes on the calling thread;
-* ``"beam_device"`` — the batched device beam, not ported yet (ROADMAP
-  Queue 1 item 4): raises ``NotImplementedError``.
+* ``"beam_device"`` — the batched beam search on the tower's device
+  (:func:`aptai_tpu_torch.decode.device.beam_decode_device`), every row,
+  inside the forward as greedy is.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from torch import nn
 
 from aptai_tpu_torch import FRAME_RATE_HZ, TV_PAD_VALUE
 from aptai_tpu_torch.decode.beam import beam_decode_padded
+from aptai_tpu_torch.decode.device import beam_decode_device
 from aptai_tpu_torch.models.aptai import NUM_TVS, _pad_or_trim
 from aptai_tpu_torch.models.configs import Wav2Vec2Config
 from aptai_tpu_torch.models.modules import (CrossAttention, PhonemeEncoder,
@@ -146,20 +148,19 @@ class ForceAPTAI(nn.Module):
     def decode(self, enc: Dict[str, torch.Tensor],
                n_real: Optional[int] = None):
         """The decode of ``encode_frozen``'s outputs: ``(seqs (B, 60)
-        int32, lengths (B,), truncated (B,))`` on their device. Greedy
-        decodes every row on the device; ``beam_host`` beam-searches the
-        first ``n_real`` rows (all by default) on the calling thread and
-        gives the others zero-length sequences."""
+        int32, lengths (B,), truncated (B,))`` on their device. Greedy and
+        ``beam_device`` decode every row on the device (the beam from the
+        float32 log-probs); ``beam_host`` beam-searches the first
+        ``n_real`` rows (all by default) on the calling thread and gives
+        the others zero-length sequences."""
         fl = enc["frame_lengths"]
-        if self.decode_method == "beam_device":
-            raise NotImplementedError(
-                "decode_method='beam_device' needs the batched device beam "
-                "(decode/device.py), which is not ported yet (ROADMAP Queue "
-                "1 item 4); use 'greedy' or 'beam_host'")
         if self.decode_method == "greedy":
             return greedy_decode(enc["logits"], fl, blank=0,
                                  max_output_length=self.max_phn_seq_len,
                                  return_truncated=True)
+        if self.decode_method == "beam_device":
+            return beam_decode_device(enc["ctc_log_probs"], fl,
+                                      max_output_length=self.max_phn_seq_len)
         n = fl.shape[0] if n_real is None else n_real
         return tuple(torch.from_numpy(x).to(fl.device) for x in
                      beam_decode_padded(enc["ctc_log_probs"][:n], fl[:n],

@@ -13,7 +13,9 @@ boundary times taken from frame runs (×20 ms).
 
 ``forward_fn(batch)`` returns tensors (on the card) or arrays; each pass
 fetches a batch's outputs to the host once, then decodes and scores on the
-host.
+host, except PR validation with ``decode="beam_device"``, which decodes on
+the device first and fetches only the sequences, their lengths and the
+loss.
 """
 
 from __future__ import annotations
@@ -23,7 +25,10 @@ from typing import Callable, Dict, Iterable
 import numpy as np
 
 from aptai_tpu_torch import TV_ORDER
+import torch
+
 from aptai_tpu_torch.decode.beam import decode_best
+from aptai_tpu_torch.decode.device import beam_decode_device
 from aptai_tpu_torch.decode.native import edit_distance
 from aptai_tpu_torch.infer.api import fetch_outputs
 from aptai_tpu_torch.train.metrics import (PERAccumulator,
@@ -35,7 +40,7 @@ from aptai_tpu_torch.train.metrics import (PERAccumulator,
 __all__ = ["decode_best", "decode_greedy", "test_tv", "validate_pr",
            "validate_tv"]
 
-DECODES = ("beam", "greedy")
+DECODES = ("beam", "beam_device", "greedy")
 
 
 def decode_greedy(log_probs: np.ndarray, blank: int = 0):
@@ -53,15 +58,12 @@ def validate_pr(forward_fn: Callable,
                 max_batches: int | None = None,
                 decode: str = "beam") -> Dict[str, float]:
     """PR validation: mean CTC loss and corpus PER, decoded by the host
-    beam (``"beam"``: the C++ one first) or greedily (``"greedy"``).
+    beam (``"beam"``: the C++ one first), by the batched beam on the
+    log-probs' device (``"beam_device"``: the (B, T, V) log-probs stay
+    there) or greedily on the host (``"greedy"``).
 
     ``forward_fn(batch) -> {loss, log_probs, frame_lengths}``
     (``train_pr.make_eval_forward``)."""
-    if decode == "beam_device":
-        raise NotImplementedError(
-            "decode='beam_device' needs the batched device beam "
-            "(decode/device.py), which is not ported yet (ROADMAP Queue 1 "
-            "item 4); use 'beam' or 'greedy'")
     if decode not in DECODES:
         raise ValueError(f"decode must be one of {DECODES}, got {decode!r}")
     per = PERAccumulator()
@@ -69,19 +71,27 @@ def validate_pr(forward_fn: Callable,
     for i, batch in enumerate(batches):
         if max_batches is not None and i >= max_batches:
             break
-        out = fetch_outputs(forward_fn(batch))
+        out = forward_fn(batch)
+        if decode == "beam_device":
+            seqs, seq_lens, _ = beam_decode_device(
+                torch.as_tensor(out["log_probs"]),
+                torch.as_tensor(out["frame_lengths"]))
+            out = fetch_outputs({"loss": out["loss"], "seqs": seqs,
+                                 "seq_lens": seq_lens})
+            n_rows = len(out["seqs"])
+            pred = lambda b: out["seqs"][b, :out["seq_lens"][b]].tolist()
+        else:
+            out = fetch_outputs(out)
+            n_rows = len(out["log_probs"])
+            dec = decode_greedy if decode == "greedy" else decode_best
+            pred = lambda b: dec(out["log_probs"][b, :out["frame_lengths"][b]])
         losses.append(float(out["loss"]))
-        log_probs, frame_lengths = out["log_probs"], out["frame_lengths"]
-        mask = batch.get("batch_pad_mask", np.ones(len(log_probs), bool))
-        for b in range(len(log_probs)):
+        mask = batch.get("batch_pad_mask", np.ones(n_rows, bool))
+        for b in range(n_rows):
             if not mask[b]:
                 continue
             labels = np.asarray(batch["phoneme_labels"][b])
-            gt = labels[labels >= 0].tolist()
-            lp = log_probs[b, :frame_lengths[b]]
-            pred = (decode_greedy(lp) if decode == "greedy"
-                    else decode_best(lp))
-            per.update(gt, pred)
+            per.update(labels[labels >= 0].tolist(), pred(b))
     return {
         "mean_val_per": per.per,
         "mean_val_loss": float(np.mean(losses)) if losses else float("nan"),

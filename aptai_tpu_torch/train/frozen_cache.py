@@ -1,5 +1,5 @@
 """The frozen-tower encoding cache of FORCE-APTAI training (the JAX
-package's ``train/frozen_cache.py``, the parts that need no data layer).
+package's ``train/frozen_cache.py``).
 
 FORCE-APTAI's tower is frozen and runs deterministically, so a trainer
 runs it (and the in-step decode) once per utterance and then trains the
@@ -11,11 +11,13 @@ head alone from the cached outputs (``ForceAPTAI.train_from_encoded``):
   per-utterance items with the tower's per-frame CTC argmax
   (``tower_frame_labels``, for the aux frame CE);
 * :func:`collate_encoded` — a batch of items padded to ``FRAME_BUCKET``
-  multiples.
-
-The loaders over the items (``EncodedItemsLoader``, ``FrozenEncodedLoader``,
-``FrozenEncodedCorpus``) subclass the data layer's ``BucketedLoader`` and
-wait for it (ROADMAP Queue 1 item 5).
+  multiples;
+* :class:`EncodedItemsLoader` — shuffled, frame-bucketed batches over
+  items; :class:`FrozenEncodedLoader` — one fold: the pass over a loader,
+  then its batches; :class:`FrozenEncodedCorpus` — one leave-one-
+  speaker-out run: the whole manifest encoded once, and each fold's
+  loaders drawn from it by ``path_wav`` (valid while the tower is the same
+  in every fold).
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import torch
 from aptai_tpu_torch import (CTC_LABEL_PAD_ID, PHONEME_FRAME_PAD_ID,
                              TV_PAD_VALUE)
 from aptai_tpu_torch.data.batching import (FRAME_BUCKET, LABEL_BUCKET,
-                                           _pad_to, _round_up)
+                                           BucketedLoader, _pad_to,
+                                           _round_up)
 from aptai_tpu_torch.infer.api import fetch_outputs
 
 
@@ -120,3 +123,84 @@ def collate_encoded(items: Sequence[Dict], bucket: bool = True) -> Dict:
         "phn_frames": frames("phn_frames", np.int32, PHONEME_FRAME_PAD_ID),
         "frame_lengths": per_item("frame_length_raw"),
     }
+
+
+class _CachedItems:
+    """A list of items as a map-style dataset."""
+
+    def __init__(self, items: List[Dict]):
+        self.items = items
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+class EncodedItemsLoader(BucketedLoader):
+    """Shuffled, frame-bucketed batches (:func:`collate_encoded`) over
+    cached items, the inputs of ``force_loss_fn(from_encoded=True)``."""
+
+    def __init__(self, items: List[Dict], batch_size: int,
+                 shuffle: bool = True, seed: int = 0):
+        super().__init__(_CachedItems(items), batch_size=batch_size,
+                         collate_fn=collate_encoded, shuffle=shuffle,
+                         seed=seed)
+
+    def _item_width(self, item) -> int:
+        return _round_up(item["frame_length"], FRAME_BUCKET)
+
+    @property
+    def cache_bytes(self) -> int:
+        return sum(x["frame_embs"].nbytes for x in self.dataset.items)
+
+
+class FrozenEncodedLoader(EncodedItemsLoader):
+    """One fold's cache: ``loader`` (``collate_tv`` batches) read once at
+    construction through :func:`encode_items`, then batches as an
+    :class:`EncodedItemsLoader`."""
+
+    def __init__(self, loader, model, shuffle: bool = True, seed: int = 0):
+        super().__init__(encode_items(loader, model),
+                         batch_size=loader.batch_size, shuffle=shuffle,
+                         seed=seed)
+
+
+class FrozenEncodedCorpus:
+    """One run's cache: every row of an HPRC manifest encoded once
+    (:func:`encode_items` over unshuffled ``collate_tv`` batches of
+    ``batch_size``), keyed by ``path_wav``; :meth:`loader_for` serves a
+    fold's rows from it."""
+
+    def __init__(self, rows: Sequence[Dict], vocab: Dict[str, int], model,
+                 batch_size: int):
+        from aptai_tpu_torch.data import HPRCDataset, collate_tv
+
+        def collate_with_keys(items):
+            out = collate_tv(items)
+            out["utt_keys"] = [x["utt_key"] for x in items]
+            return out
+
+        loader = BucketedLoader(HPRCDataset(rows, vocab, rate="both"),
+                                batch_size=batch_size,
+                                collate_fn=collate_with_keys, shuffle=False)
+        items = encode_items(loader, model)
+        self.by_key: Dict[str, Dict] = {it["utt_key"]: it for it in items}
+        if len(self.by_key) != len(items):
+            raise ValueError("the manifest lists a path_wav twice")
+
+    @property
+    def cache_bytes(self) -> int:
+        return sum(x["frame_embs"].nbytes for x in self.by_key.values())
+
+    def __len__(self):
+        return len(self.by_key)
+
+    def loader_for(self, fold_rows: Sequence[Dict], batch_size: int,
+                   shuffle: bool = True,
+                   seed: int = 0) -> EncodedItemsLoader:
+        """Batches over the cached items of ``fold_rows``."""
+        items = [self.by_key[str(r["path_wav"])] for r in fold_rows]
+        return EncodedItemsLoader(items, batch_size, shuffle=shuffle,
+                                  seed=seed)

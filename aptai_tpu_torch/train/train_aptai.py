@@ -1,7 +1,8 @@
 """APTAI's loss adapter and evaluation forward for :class:`TrainStep` and
 the validation passes (the JAX package's ``train/train_aptai.py:41-80``).
 
-The LOSO training loop, its loaders and its CLI wait for the data layer.
+The LOSO training loop and its CLI are not ported; its loaders are the
+data layer's and ``train/fe_cache.py``'s.
 """
 
 from __future__ import annotations

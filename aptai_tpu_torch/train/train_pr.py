@@ -1,7 +1,8 @@
 """W2V2PR's loss adapter and evaluation forward for :class:`TrainStep` and
 ``validate_pr`` (the JAX package's ``train/train_pr.py:61-101``).
 
-The trainer's loop, loaders and CLI wait for the data layer.
+The trainer's loop and CLI are not ported; its loaders are the data
+layer's and ``train/fe_cache.py``'s.
 """
 
 from __future__ import annotations

@@ -93,6 +93,26 @@ Phases (any failure ends the run with a non-zero exit code):
    and peak memory; ForwardSum alone timed; the tower bit-identical and
    every head tensor moved; ``make_eval_forward`` with ``ctc_seq_per`` and
    ``validate_tv`` over two batches.
+7. The data layer and the device beam, in a temporary directory: the
+   device beam (with times; CTC-like, uniform and pairwise-tied
+   posteriors), ``viterbi_align`` and the signal ops on the card against
+   the CPU (the beam and the alignment exact, and the beam against the
+   C++ beam on the CTC-like case; the signal ops within 1e-4); a
+   synthetic HPRC corpus made on the card (4 speakers x 2 texts x 2
+   rates) → ``HPRCDataset`` → ``loso_split`` → ``BucketedLoader(
+   collate_tv)`` read through ``PrefetchLoader``; full-width bf16 APTAI
+   with a frozen fused feature extractor through ``FECachedLoader`` (6
+   fused launches a batch, its bytes and ms), three steps from the cache
+   (24 launches of each flash kernel a step, finite losses) and one
+   batch's step from the cache against its step from audio; full-width
+   FORCE-APTAI with ``decode_method="beam_device"`` through
+   ``FrozenEncodedLoader`` and ``FrozenEncodedCorpus.loader_for`` (24
+   forward launches a batch), two head steps; ``predict_batch`` at 32 x
+   10 s with the device beam beside greedy, the beam alone (wall ms,
+   kernel launches) against the C++ beam over the same rows, their
+   sequences equal or within the noise floor of a (1 + 2^-9) nudge;
+   ``validate_pr`` with ``"beam_device"`` beside ``"beam"`` on the FORCE
+   tower (full-width W2V2PR). The phase's seconds are printed.
 
 Output: the phases' lines, then one JSON line of kernel records, the card
 line, and last ``{"ok": true, "device": {...}}``. A flash kernel record's
@@ -101,9 +121,10 @@ its count over the W2V2PR batches of phase 3b; ``launches_by_path`` holds
 each path's own count (APTAI serving, W2V2PR serving, the APTAI train step,
 the APTAI train step with the fused feature extractor, the W2V2PR train
 step, the W2V2PR train step with a frozen fused feature extractor, FORCE
-serving, FORCE serving with the fused feature extractor, and the FORCE
-train step from audio), each read with the counts set to 0 just before
-it.
+serving, FORCE serving with the fused feature extractor, the FORCE train
+step from audio, the FE cache pass, the APTAI step from the FE cache, and
+the FORCE cache pass with the device beam), each read with the counts set
+to 0 just before it.
 """
 
 from __future__ import annotations
@@ -113,24 +134,37 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from aptai_tpu_torch.data import (BucketedLoader, HPRCDataset, PrefetchLoader,
+                                  build_vocab, collate_tv, make_synthetic_hprc)
+from aptai_tpu_torch.data.hprc import HPRC_SPEAKERS, loso_split
+from aptai_tpu_torch.data.manifest import read_rows
 from aptai_tpu_torch.decode import native
+from aptai_tpu_torch.decode.beam import beam_decode_padded
+from aptai_tpu_torch.decode.device import beam_decode_device
 from aptai_tpu_torch.infer import (APTAIPredictor, ForceAPTAIPredictor,
                                    MicroBatcher, W2V2PRPredictor)
+from aptai_tpu_torch.infer.api import _prepare
 from aptai_tpu_torch.models import (APTAI, W2V2PR, ForceAPTAI, Wav2Vec2Config,
                                     random_aptai, random_force_aptai,
                                     random_w2v2_pr, tiny_config)
 from aptai_tpu_torch.models import w2v2_pr
 from aptai_tpu_torch.models import wav2vec2 as w2v
-from aptai_tpu_torch.ops import attention, fused_conv, kernels
+from aptai_tpu_torch.ops import attention, fused_conv, kernels, signal
+from aptai_tpu_torch.ops.align import viterbi_align
 from aptai_tpu_torch.ops.ctc import ctc_loss, greedy_decode
 from aptai_tpu_torch.ops.forward_sum import forward_sum_loss
-from aptai_tpu_torch.train import (TrainStep, collate_encoded, encode_items,
-                                   force_loss_fn, pr_loss_fn, torch_adam)
+from aptai_tpu_torch.train import (FECachedLoader, FrozenEncodedCorpus,
+                                   FrozenEncodedLoader, TrainStep,
+                                   aptai_loss_fn, collate_encoded,
+                                   encode_items, force_loss_fn, pr_loss_fn,
+                                   torch_adam)
+from aptai_tpu_torch.train.fe_cache import collate_fe
 from aptai_tpu_torch.train.evaluate import validate_pr, validate_tv
 from aptai_tpu_torch.train.train_force_aptai import ctc_seq_per
 from aptai_tpu_torch.train.train_force_aptai import \
@@ -2262,6 +2296,366 @@ def phase_force_train(card):
     return {name: counts[name] for name in COUNTED}
 
 
+# -- phase 7 ------------------------------------------------------------------
+
+def _lp(logits):
+    return torch.log_softmax(torch.as_tensor(logits, dtype=torch.float32),
+                             dim=-1)
+
+
+def small_beam_cases():
+    """(name, log-probs (B, T, V), lengths, cap): CTC-like posteriors
+    (blank-dominated, bursts of emissions) at V 46 and FORCE's cap 60;
+    uniform rows, where every live candidate of a parent ties; and rows
+    with two tokens tied on every frame."""
+    rng = np.random.default_rng(30)
+    b, t = 8, 200
+    logits = rng.standard_normal((b, t, 46)).astype(np.float32)
+    logits[..., 0] += 6.0
+    for i in range(b):
+        n = rng.integers(20, 45)
+        logits[i, np.sort(rng.choice(t, n, replace=False)),
+               rng.integers(1, 46, n)] += 10.0
+    lens = torch.from_numpy(rng.integers(t // 4, t + 1, b).astype(np.int32))
+    paired = rng.standard_normal((4, 60, 9)).astype(np.float32)
+    top = rng.integers(1, 8, (4, 60))
+    for i in range(4):
+        paired[i, np.arange(60), top[i]] = 4.0
+        paired[i, np.arange(60), top[i] + 1] = 4.0
+    tied_lens = torch.tensor([60, 41, 0, 23], dtype=torch.int32)
+    return [("CTC-like", _lp(logits), lens, 60),
+            ("uniform", _lp(np.zeros((4, 60, 9))), tied_lens, None),
+            ("two tied tokens", _lp(paired), tied_lens, None)]
+
+
+def check_small_data_ops():
+    """Float32 on the card against the CPU: the device beam exact on
+    peaked and tied posteriors (with times), and against the C++ beam on
+    the peaked ones; ``viterbi_align`` exact; the signal ops within 1e-4
+    of the CPU's largest magnitude (cuFFT and cuBLAS against the CPU's
+    summation orders)."""
+    for name, lp, lens, cap in small_beam_cases():
+        runs = [beam_decode_device(x, n, max_output_length=cap,
+                                   return_times=True)
+                for x, n in ((lp, lens), (lp.cuda(), lens.cuda()))]
+        same = all(torch.equal(c, g.cpu()) for c, g in zip(*runs))
+        native_same = None
+        if cap is not None:
+            host = beam_decode_padded(lp, lens, cap)
+            native_same = all(np.array_equal(h, c.numpy())
+                              for h, c in zip(host, runs[0][:3]))
+        log(f"  device beam, {name} {tuple(lp.shape)}: card equal to CPU "
+            f"{same}, to the C++ beam {native_same}; tokens "
+            f"{runs[1][1].tolist()}")
+        if not same or native_same is False:
+            raise AssertionError(f"the device beam disagrees ({name})")
+
+    rng = np.random.default_rng(31)
+    scores = torch.from_numpy(rng.standard_normal((4, 120, 30)).astype(
+        np.float32))
+    text = torch.tensor([30, 17, 1, 24])
+    frames = torch.tensor([120, 64, 9, 24])
+    paths = [viterbi_align(scores, text, frames),
+             viterbi_align(scores.cuda(), text.cuda(), frames.cuda())]
+    same = torch.equal(paths[0], paths[1].cpu())
+    log(f"  viterbi_align (4, 120, 30): card equal to CPU {same}")
+    if not same:
+        raise AssertionError("viterbi_align disagrees on the card")
+
+    wav = torch.from_numpy((rng.standard_normal((2, 44_100)) * 0.1).astype(
+        np.float32))
+    ops = {"stft_magnitude": signal.stft_magnitude,
+           "melspectrogram": signal.melspectrogram, "mfcc": signal.mfcc,
+           "resample 44.1 -> 16 kHz": lambda x: signal.resample(
+               x, 44_100, 16_000)}
+    errs = {}
+    for name, op in ops.items():
+        want, got = op(wav), op(wav.cuda()).cpu()
+        errs[name] = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"  signal ops, card vs CPU, relative errors "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} }")
+    if max(errs.values()) > 1e-4:
+        raise AssertionError("a signal op disagrees on the card")
+
+
+def synthetic_corpus(root):
+    """``make_synthetic_hprc`` on the card (2 utterances a speaker, 4
+    speakers, both rates) → ``loso_split`` (test speaker M04, both rates)
+    → the training fold's ``BucketedLoader(collate_tv)`` of 4, read once
+    through ``PrefetchLoader``: (rows, vocab, train rows, the loader)."""
+    t0 = time.perf_counter()
+    rows = read_rows(make_synthetic_hprc(root, 2, HPRC_SPEAKERS[:4]))
+    made = time.perf_counter() - t0
+    vocab = build_vocab(r["phoneme_labels"] for r in rows)
+    train, valid, test_n, test_f = loso_split(rows, "M04", "both")
+    loader = BucketedLoader(HPRCDataset(train, vocab, "both"), 4, collate_tv)
+    t0 = time.perf_counter()
+    batches = list(PrefetchLoader(loader))
+    read = time.perf_counter() - t0
+    cfg = Wav2Vec2Config()
+    ok = bool(batches)
+    for b in batches:
+        frames = cfg.feat_extract_output_lengths(b["audio_lengths"])
+        ok &= (b["audio"].shape[0] == 4 and b["audio"].shape[1] % 16_000 == 0
+               and b["batch_pad_mask"][0]
+               and np.array_equal(b["frame_lengths"], frames)
+               and b["tv_targets"].shape[1] % 64 == 0)
+    log(f"  synthetic HPRC corpus: {len(rows)} utterances in {made:.2f} s "
+        f"(mspec and MFCC on the card); LOSO M04: train {len(train)}, "
+        f"valid {len(valid)}, test N {len(test_n)} / F {len(test_f)}; "
+        f"{len(batches)} train batches of 4 (real rows "
+        f"{[int(b['batch_pad_mask'].sum()) for b in batches]}, audio widths "
+        f"{[b['audio'].shape[1] for b in batches]}) read in {read:.3f} s")
+    if not (ok and len(train) and len(valid) and len(test_n) == 2):
+        raise AssertionError("the synthetic corpus or its loader is wrong")
+    return rows, vocab, train, loader
+
+
+def phase_fe_cache(loader, card):
+    """Full-width bf16 APTAI (seed 0, FE frozen and fused) through
+    ``FECachedLoader``, then three steps from the cache and one batch's
+    step from the cache against its step from audio."""
+    cfg = dataclasses.replace(Wav2Vec2Config(dtype="bfloat16"),
+                              fused_feature_extractor=True)
+    model = random_aptai(cfg, seed=0).cuda()
+    layers = cfg.num_hidden_layers
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    cache = FECachedLoader(loader, model, seed=0)
+    torch.cuda.synchronize()
+    pass_ms = (time.perf_counter() - t0) * 1e3
+    pass_counts = read_counts()
+    n = len(loader)
+    log(f"  FECachedLoader over {n} batches: {len(cache.dataset)} "
+        f"utterances, {cache.cache_bytes / 2**20:.2f} MiB in "
+        f"{pass_ms:.1f} ms; launches {pass_counts}")
+    if not (pass_counts["fused_conv_ln_gelu"] == 6 * n
+            and not any(pass_counts[k] for k in FLASH)):
+        raise AssertionError("expected 6 fused launches a batch and no "
+                             "other in the cache pass")
+
+    trained = copy.deepcopy(model)
+    step = TrainStep(trained, torch_adam(trained), aptai_loss_fn(True))
+    batches = list(PrefetchLoader(cache))
+    losses, step_counts = [], None
+    for i in range(3):
+        torch.cuda.synchronize()
+        reset_counts()
+        losses.append(step(batches[i % len(batches)], 1e-5)["loss"].item())
+        torch.cuda.synchronize()
+        step_counts = step_counts or read_counts()
+    log(f"  three steps from the cache (fe_features "
+        f"{[b['fe_features'].shape for b in batches][:3]}): losses "
+        f"{[round(x, 5) for x in losses]}; first step's launches "
+        f"{step_counts}")
+    if not (all(np.isfinite(losses)) and not step_counts["fused_conv_ln_gelu"]
+            and all(step_counts[k] == layers for k in FLASH)):
+        raise AssertionError(f"expected {layers} launches of each flash "
+                             f"kernel and finite losses, got {step_counts}")
+
+    # one batch, unbucketed on both sides so the frame widths agree
+    items = [loader.dataset[i] for i in range(4)]
+    audio_batch = collate_tv(items, bucket=False)
+
+    class OneBatch(list):
+        batch_size = 4
+
+    fe_batch = collate_fe(FECachedLoader(OneBatch([audio_batch]), model,
+                                         shuffle=False).dataset.items,
+                          bucket=False)
+    pair = []
+    for from_fe, b in ((False, audio_batch), (True, fe_batch)):
+        m = copy.deepcopy(model)
+        pair.append(TrainStep(m, torch_adam(m), aptai_loss_fn(from_fe))(
+            b, 1e-5)["loss"].item())
+        del m
+    rel = abs(pair[1] - pair[0]) / abs(pair[0])
+    log(f"  one batch's step from audio vs from the cache (same weights, "
+        f"seed, pad width): loss {pair[0]:.6f} vs {pair[1]:.6f} (relative "
+        f"difference {rel:.2e}) on {card}")
+    # the same operations after the extractor; 1e-5 leaves room for
+    # cuBLAS choosing another algorithm
+    if not rel <= 1e-5:
+        raise AssertionError("the step from the cache disagrees with the "
+                             "step from audio")
+    del step, trained, model, cache
+    torch.cuda.empty_cache()
+    return (pass_counts, n), step_counts
+
+
+def phase_force_cache(rows, vocab, train, loader):
+    """Full-width FORCE-APTAI (bf16 tower, float32 head, seed 0) with
+    ``decode_method="beam_device"``: ``FrozenEncodedLoader`` over the
+    training fold, ``FrozenEncodedCorpus`` over the manifest and its
+    ``loader_for`` the fold, two head steps from the fold's cache. Returns
+    the pass's launch counts and batch count, and the model."""
+    cfg = Wav2Vec2Config(dtype="bfloat16")
+    model = random_force_aptai(cfg, seed=0,
+                               decode_method="beam_device").cuda()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    fold = FrozenEncodedLoader(loader, model, seed=0)
+    torch.cuda.synchronize()
+    pass_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    n = len(loader)
+    t0 = time.perf_counter()
+    corpus = FrozenEncodedCorpus(rows, vocab, model, batch_size=4)
+    corpus_ms = (time.perf_counter() - t0) * 1e3
+    fold_c = corpus.loader_for(train, 4, seed=0)
+    tokens = [it["phn_seq_length"] for it in fold.dataset.items]
+    log(f"  FrozenEncodedLoader (beam_device) over {n} batches: "
+        f"{len(fold.dataset)} utterances, {fold.cache_bytes / 2**20:.2f} "
+        f"MiB in {pass_ms:.1f} ms, tokens {tokens}; launches {counts}; "
+        f"FrozenEncodedCorpus over {len(corpus)} utterances in "
+        f"{corpus_ms:.1f} ms ({corpus.cache_bytes / 2**20:.2f} MiB), "
+        f"loader_for the fold: {len(fold_c.dataset)} items")
+    layers = cfg.num_hidden_layers
+    if not (counts["flash_attn_fwd"] == layers * n
+            and not counts["fused_conv_ln_gelu"]
+            and not counts["flash_attn_bwd_dq"]
+            and len(fold_c.dataset) == len(fold.dataset) == len(train)
+            and len(corpus) == len(rows) and max(tokens) > 0):
+        raise AssertionError("the FORCE cache pass is wrong")
+
+    step = TrainStep(model, torch_adam(model),
+                     force_loss_fn(from_encoded=True))
+    reset_counts()
+    losses = [step(b, 1e-5)["loss"].item() for b, _ in zip(fold_c, range(2))]
+    torch.cuda.synchronize()
+    log(f"  two head steps from loader_for's batches: losses "
+        f"{[round(x, 5) for x in losses]}, launches {read_counts()}")
+    if not all(np.isfinite(losses)) or any(read_counts().values()):
+        raise AssertionError("a head step from the cache failed")
+    model.eval()
+    return (counts, n), model
+
+
+def phase_beam_serving(model, card):
+    """FORCE ``predict_batch`` at 32 x 10 s with ``beam_device`` beside
+    greedy (the same predictor, the decode switched); the beam alone at
+    FORCE's cap of 60 (wall ms, kernel launches) and the C++ beam over the
+    same 32 rows. The sequences are compared uncapped: past the cap the
+    device beam's scores are exact no longer (the JAX package's capacity
+    semantics), and random weights emit far more than 60 tokens in 10 s."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pred = ForceAPTAIPredictor(model)
+    rng = np.random.default_rng(9)
+    big = [(rng.standard_normal(10 * SAMPLE_RATE) * 0.1).astype(np.float32)
+           for _ in range(32)]
+    rates = {}
+    for method, n in (("greedy", 5), ("beam_device", 3), ("greedy", 5)):
+        pred.model.decode_method = method
+        times = timed_batches(lambda: pred.predict_batch(big), n=n,
+                              warmup=1)
+        rates.setdefault(method, []).append(320 / float(np.median(times)))
+    log(f"  predict_batch at 32 x 10 s: greedy "
+        f"{[round(r, 1) for r in rates['greedy']]} audio-s/s (before, "
+        f"after), beam_device {rates['beam_device'][0]:.1f} audio-s/s on "
+        f"{card}")
+
+    def log_probs(scale=1.0):
+        audio, lengths = _prepare([w * np.float32(scale) for w in big],
+                                  "float32", pred.device)
+        with torch.inference_mode():
+            enc = pred.model.encode_frozen(audio, lengths)
+        return enc["ctc_log_probs"], enc["frame_lengths"]
+
+    lp, fl = log_probs()
+    t_max = lp.shape[1]
+
+    def beam():
+        return beam_decode_device(lp, fl, max_output_length=60)
+
+    times = timed_batches(beam, n=3, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        capped = beam()
+        torch.cuda.synchronize()
+    kernels_ = device_kernels(prof)
+    launches = sum(e.count for e in kernels_)
+    dev_ms = sum(e.self_device_time_total for e in kernels_) / 1e3
+    t0 = time.perf_counter()
+    host = beam_decode_padded(lp, fl, t_max)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    beam_ms = float(np.median(times)) * 1e3
+    log(f"  the device beam alone over {tuple(lp.shape)}, cap 60: "
+        f"{beam_ms:.1f} ms wall (median of 3), {launches} kernel launches "
+        f"({launches / t_max:.1f} a frame), {dev_ms:.2f} ms of kernels; "
+        f"the C++ beam over the same 32 rows {host_ms:.1f} ms")
+
+    def seqs(out):
+        return [out[0][b, :out[1][b]].tolist() for b in range(32)]
+
+    want = seqs(host)
+    got = seqs(beam_decode_device(lp, fl))
+    same = sum(a == b for a, b in zip(got, want))
+    capped_same = sum(a == b[:60] for a, b in zip(seqs(capped), want))
+    log(f"  uncapped, device beam vs C++ beam on the same log-probs: {same} "
+        f"of 32 identical ({sum(map(len, want))} tokens); at cap 60 "
+        f"{capped_same} of 32 equal the C++ beam's first 60 tokens")
+    if got != want:
+        # float32 against float64 scores may split a near-tie: hold the
+        # split to the noise floor of a (1 + 2^-9) nudge of the waveforms,
+        # as phase 6 holds the greedy sequences
+        floor = seqs(beam_decode_padded(*log_probs(1 + 2 ** -9), t_max))
+        ter, ter_n = compare_seqs(got, want), compare_seqs(floor, want)
+        log(f"  token error rate {ter:.4%} (noise floor {ter_n:.4%}, "
+            f"{sum(a == b for a, b in zip(floor, want))} of 32 identical)")
+        if ter > ter_n + 0.01:
+            raise AssertionError("the device beam disagrees with the C++ "
+                                 "beam beyond the noise floor")
+    del pred
+    torch.cuda.empty_cache()
+
+
+def check_validate_pr_beam_device(model, card):
+    """``validate_pr`` on the FORCE tower (full-width W2V2PR) over two
+    batches (8 x 5 s, ragged 2-5 s), ``"beam"`` beside ``"beam_device"``."""
+    cfg = model.cfg
+    batches = [pr_train_batch(cfg, seed=11),
+               pr_train_batch(cfg, seed=12, lengths=[
+                   80_000, 32_000, 48_000, 64_000, 40_000, 56_000, 72_000,
+                   36_000])]
+    forward = make_eval_forward(model.w2v2_pr)
+    res = {}
+    for decode in ("beam", "beam_device"):
+        t0 = time.perf_counter()
+        res[decode] = validate_pr(forward, batches, decode=decode)
+        log(f"  validate_pr decode={decode!r} on the FORCE tower (full-width"
+            f" W2V2PR): PER {res[decode]['mean_val_per']:.4f}, loss "
+            f"{res[decode]['mean_val_loss']:.4f} in "
+            f"{time.perf_counter() - t0:.3f} s on {card}")
+    # the same forward, so the same loss (1e-5: cuBLAS may pick another
+    # algorithm); the PER within one point (float32 against float64 beam
+    # scores)
+    a, b = res["beam"], res["beam_device"]
+    if not (abs(a["mean_val_loss"] - b["mean_val_loss"])
+            <= 1e-5 * abs(a["mean_val_loss"])
+            and np.isfinite(b["mean_val_per"])
+            and abs(a["mean_val_per"] - b["mean_val_per"]) <= 0.01):
+        raise AssertionError("validate_pr with the device beam disagrees")
+
+
+def phase_data(card):
+    log("== phase 7: the data layer and the device beam")
+    t_phase = time.perf_counter()
+    check_small_data_ops()
+    with tempfile.TemporaryDirectory() as tmp:
+        rows, vocab, train, loader = synthetic_corpus(tmp)
+        fe_pass, fe_step = phase_fe_cache(loader, card)
+        force_pass, model = phase_force_cache(rows, vocab, train, loader)
+    phase_beam_serving(model, card)
+    check_validate_pr_beam_device(model, card)
+    del model
+    torch.cuda.empty_cache()
+    log(f"  phase 7 took {time.perf_counter() - t_phase:.1f} s")
+    return fe_pass, fe_step, force_pass
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2310,6 +2704,8 @@ def main() -> int:
     (force_serving, force_batches), (force_fused, force_fused_batches) = \
         phase_force_serving(card)
     force_training = phase_force_train(card)
+    (fe_pass, fe_batches), fe_step, (force_pass, force_pass_batches) = \
+        phase_data(card)
     for rec in records:
         name = rec["name"]
         rec["launches"] = (pr_serving if name == "fused_conv_ln_gelu"
@@ -2330,7 +2726,14 @@ def main() -> int:
             "force_serving_fused_fe": {"batches": force_fused_batches,
                                        "launches": force_fused[name]},
             "force_train_step": {"steps": 1,
-                                 "launches": force_training[name]}}
+                                 "launches": force_training[name]},
+            "fe_cache_pass": {"batches": fe_batches,
+                              "launches": fe_pass[name]},
+            "aptai_step_from_fe_cache": {"steps": 1,
+                                         "launches": fe_step[name]},
+            "force_cache_pass_beam_device": {
+                "batches": force_pass_batches,
+                "launches": force_pass[name]}}
 
     print(json.dumps({"kernels": records}))
     print(card)

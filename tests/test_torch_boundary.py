@@ -1,6 +1,7 @@
-"""aptai_tpu_torch boundaries: no JAX at import, no silent CPU fallback, the
-attention dispatch by device, the kernel libraries, and the FLOP counts
-against the JAX package."""
+"""aptai_tpu_torch boundaries: no JAX at import (nor pandas: the port reads
+its manifests without it), no silent CPU fallback, the attention dispatch
+by device, the kernel libraries, and the FLOP counts against the JAX
+package."""
 
 import os
 import subprocess
@@ -31,8 +32,8 @@ for m in pkgutil.walk_packages(aptai_tpu_torch.__path__, "aptai_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 import compare_kernels
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "aptai_tpu"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "aptai_tpu", "pandas"))
 print("LOADED", len([m for m in sys.modules if m.startswith("aptai_tpu_torch")]))
 print("BAD", bad)
 print("TRAIN", all(m in sys.modules for m in (
@@ -51,6 +52,13 @@ print("FORCE", all(m in sys.modules for m in (
     "aptai_tpu_torch.train.frozen_cache",
     "aptai_tpu_torch.train.train_force_aptai",
     "aptai_tpu_torch.data.batching")))
+print("DATA", all(m in sys.modules for m in (
+    "aptai_tpu_torch.decode.device", "aptai_tpu_torch.ops.align",
+    "aptai_tpu_torch.ops.signal", "aptai_tpu_torch.data.manifest",
+    "aptai_tpu_torch.data.textgrid", "aptai_tpu_torch.data.audio_io",
+    "aptai_tpu_torch.data.hprc", "aptai_tpu_torch.data.hprc_prep",
+    "aptai_tpu_torch.data.commonphone", "aptai_tpu_torch.data.synthetic",
+    "aptai_tpu_torch.train.fe_cache")))
 # importing builds and loads nothing
 print("NATIVE_LOADED", sys.modules["aptai_tpu_torch.decode.native"]._lib
       is not None)
@@ -70,6 +78,7 @@ def test_port_imports_no_jax_or_reference_package():
     assert "PR True" in res.stdout, res.stdout
     assert "PR_TRAIN True" in res.stdout, res.stdout
     assert "FORCE True" in res.stdout, res.stdout
+    assert "DATA True" in res.stdout, res.stdout
     assert "NATIVE_LOADED False" in res.stdout, res.stdout
 
 

@@ -1,7 +1,7 @@
 """aptai_tpu_torch's validation passes and metrics against the JAX
-package's: ``validate_pr`` (beam and greedy), ``validate_tv`` and
-``test_tv`` fed the same forward outputs (tensors to the port, arrays to
-JAX), and every metric function against its twin. No model runs here.
+package's: ``validate_pr`` (beam, device beam and greedy), ``validate_tv``
+and ``test_tv`` fed the same forward outputs (tensors to the port, arrays
+to JAX), and every metric function against its twin. No model runs here.
 
 The JAX side runs with its native library switched off (its pure-Python
 beam and edit distance), so nothing builds inside the JAX tree."""
@@ -64,7 +64,7 @@ def _same_dict(got, want):
         assert got[k] == pytest.approx(want[k], rel=1e-12, abs=1e-15), k
 
 
-@pytest.mark.parametrize("decode", ["beam", "greedy"])
+@pytest.mark.parametrize("decode", ["beam", "beam_device", "greedy"])
 def test_validate_pr_matches_jax(decode):
     pairs = _pr_batches()
     jfwd, tfwd = _forward_fns(pairs)
@@ -83,9 +83,13 @@ def test_validate_pr_matches_jax(decode):
 
 
 def test_validate_pr_refuses_the_device_beam_and_unknown_decodes():
+    """An unknown decode raises; every known one, the device beam too (no
+    longer refused: ``test_validate_pr_matches_jax`` holds it to JAX's),
+    takes an empty pass."""
     jfwd, tfwd = _forward_fns(_pr_batches())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        teval.validate_pr(tfwd, [], decode="beam_device")
+    for decode in teval.DECODES:
+        got = teval.validate_pr(tfwd, [], decode=decode)
+        assert got["mean_val_per"] == 0.0 and np.isnan(got["mean_val_loss"])
     with pytest.raises(ValueError, match="decode"):
         teval.validate_pr(tfwd, [], decode="viterbi")
     got = teval.validate_pr(tfwd, [])

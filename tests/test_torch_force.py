@@ -6,7 +6,7 @@ added to every leaf) crossed through ``force_aptai_state_dict_from_jax``:
   ``frame_hidden_layer=1``;
 * the head alone over the knob matrix (``train_from_encoded`` with its
   gradients, ``predict_from_encoded``, ``alignment_from_encoded``);
-* ``beam_host`` through the split path, its gate, and ``beam_device``;
+* ``beam_host`` through the split path and its gate;
 * ``ForceAPTAIPredictor`` behind the ``MicroBatcher`` against the JAX
   predictor, and the ``beam_host`` predictor's real-rows-only decode;
 * one ``TrainStep`` from audio and one from the frozen-tower cache;
@@ -349,8 +349,7 @@ def test_beam_host_split_path_matches_jax(jax_force):
     """``beam_host``: encode → the host beam → the head gives JAX's split
     path (sequences equal); the full forward refuses it without
     ``allow_host_callback_decode`` and with it equals the split path, as
-    ``BeamDecodedBatches`` through the adapter does; ``beam_device`` names
-    the queue item it waits for."""
+    ``BeamDecodedBatches`` through the adapter does."""
     params, batch, beam, want = jax_force
     model = _port(params, decode_method="beam_host")
     args = [torch.from_numpy(batch[k]) for k in ("audio", "audio_lengths")]
@@ -383,9 +382,6 @@ def test_beam_host_split_path_matches_jax(jax_force):
                               adapter.batch_keys + adapter.optional_keys},
                       None)
     assert loss.item() == pytest.approx(train["loss"].item(), rel=1e-6)
-    device = _port(params, decode_method="beam_device")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        device.predict(*args)
 
 
 def _wavs():
