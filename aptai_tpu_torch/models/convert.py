@@ -33,6 +33,10 @@ import torch
 
 
 def _t(x) -> torch.Tensor:
+    """A float32 CPU tensor of an array leaf (a tensor leaf too: the flax
+    reader gives bfloat16 leaves as tensors, numpy having no bfloat16)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float32, copy=True)
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 

@@ -6,7 +6,8 @@
   * :class:`TrainStep` — ``step(batch, lr)``: sets the LR, runs the loss
     adapter's training forward (dropout and SpecAugment from a per-step
     seed), the backward and the optimizer update; ``grad_accum=k`` averages
-    the gradients of ``k`` equal microbatches before the one update.
+    the gradients of ``k`` equal microbatches before the one update;
+  * :func:`make_engine` — the trainers' ``TrainStep`` from a run's config.
 
 A loss adapter is the counterpart of the JAX engine's ``loss_fn``:
 ``loss_fn(model, batch, generator) -> (loss, aux)``, with the batch keys it
@@ -27,7 +28,6 @@ import torch
 from torch import nn
 
 from aptai_tpu_torch.infer.api import resolve_device
-from aptai_tpu_torch.train.train_aptai import aptai_loss_fn
 
 # SpecAugment's generator is seeded this far from dropout's, so the two draw
 # from separate Philox streams instead of repeating each other's uniforms
@@ -46,6 +46,17 @@ def torch_adam(model: nn.Module, b1: float = 0.9, b2: float = 0.999,
                   frozen_prefixes))]
     return torch.optim.Adam(params, lr=0.0, betas=(b1, b2), eps=eps,
                             weight_decay=weight_decay)
+
+
+def _upload(x, device: torch.device) -> torch.Tensor:
+    """``x`` on ``device``. A host array bound for the card goes through
+    pinned memory without blocking, so the upload does not wait for the
+    steps already queued on the card (a copy from pageable memory
+    synchronises the stream)."""
+    t = torch.as_tensor(x)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 class TrainStep:
@@ -76,7 +87,11 @@ class TrainStep:
         self.device = resolve_device(device)
         self.model = model.to(self.device).train()
         self.optimizer = optimizer
-        self.loss_fn = aptai_loss_fn() if loss_fn is None else loss_fn
+        if loss_fn is None:
+            from aptai_tpu_torch.train.train_aptai import aptai_loss_fn
+
+            loss_fn = aptai_loss_fn()
+        self.loss_fn = loss_fn
         self.grad_accum = grad_accum
         self.seed = seed
         self.step_count = 0
@@ -90,7 +105,7 @@ class TrainStep:
         keys = tuple(keys) + tuple(
             k for k in getattr(self.loss_fn, "optional_keys", ())
             if k in batch)
-        out = {k: torch.as_tensor(batch[k]).to(self.device) for k in keys}
+        out = {k: _upload(batch[k], self.device) for k in keys}
         sizes = [x.shape[0] for x in out.values()]
         if len(set(sizes)) != 1:
             raise ValueError(f"batch keys {list(keys)} disagree on the "
@@ -125,3 +140,20 @@ class TrainStep:
         self.optimizer.step()
         self.step_count += 1
         return totals
+
+
+def make_engine(cfg, loss_fn: Callable, model: nn.Module,
+                frozen_prefixes: Sequence[str] = ()) -> TrainStep:
+    """The trainers' step for ``model``: :func:`torch_adam` with the
+    config's betas, eps and weight decay, ``cfg.grad_accum``, seeded with
+    ``cfg.seed``, on the config's device (``train/config.py::run_device``).
+    """
+    from aptai_tpu_torch.train.config import run_device
+
+    optimizer = torch_adam(model, b1=cfg.adam_beta1, b2=cfg.adam_beta2,
+                           eps=cfg.adam_epsilon,
+                           weight_decay=cfg.adam_weight_decay,
+                           frozen_prefixes=frozen_prefixes)
+    return TrainStep(model, optimizer, loss_fn,
+                     grad_accum=getattr(cfg, "grad_accum", 1),
+                     device=run_device(cfg), seed=cfg.seed)

@@ -1,0 +1,257 @@
+"""The shared ``fit`` loop: one epoch / validate / checkpoint loop for the
+three trainers (the JAX package's ``train/loop.py``).
+
+On the card:
+
+  * the step loop never synchronises: each step's loss stays a device
+    tensor, and the epoch's losses are stacked and fetched once, at its
+    end (``detect_anomaly`` opts into a per-step fetch, its documented
+    cost);
+  * validation runs on the live model;
+  * the checkpoint manager copies parameters and Adam moments to the host
+    only on epochs that write (``--ckpt_every`` sets the last-checkpoint
+    cadence; improving epochs always write).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import signal
+import threading
+import time
+from typing import Callable, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from aptai_tpu_torch.train.checkpoints import CheckpointManager
+from aptai_tpu_torch.train.harness import TrainStep, make_engine
+from aptai_tpu_torch.train.schedule import epoch_learning_rate
+
+
+class Preempted(SystemExit):
+    """Graceful-preemption exit (code 0): the resume checkpoint is on disk.
+
+    A ``SystemExit`` so it unwinds LOSO fold loops and trainer CLIs without
+    a handler in each; catchable by name by callers that tell preemption
+    from completion."""
+
+    def __init__(self):
+        super().__init__(0)
+
+
+class _PreemptionGuard:
+    """Scoped SIGTERM/SIGUSR1 (and a graceful first SIGINT) handling for
+    ``fit``.
+
+    The first signal only sets a flag: ``fit`` checks it at step and epoch
+    boundaries, finishes the in-flight step, writes a resumable last
+    checkpoint and raises :class:`Preempted`. A second SIGINT raises
+    ``KeyboardInterrupt``. Handlers install only on the main thread
+    (``signal.signal``'s own constraint) and are restored on exit."""
+
+    SIGNALS = ("SIGTERM", "SIGUSR1", "SIGINT")
+
+    def __init__(self, log_fn, enabled: bool = True):
+        self.log_fn = log_fn
+        self.enabled = enabled
+        self.triggered: Optional[int] = None
+        self._prev = {}
+
+    def _handler(self, signum, frame):
+        if signum == signal.SIGINT and self.triggered is not None:
+            raise KeyboardInterrupt
+        self.triggered = signum
+        # only a raw write here: a buffered print from a signal handler can
+        # land inside the main thread's own print and raise "reentrant
+        # call", unwinding fit before the resume checkpoint is written
+        msg = (f"received {signal.Signals(signum).name}: finishing the "
+               "in-flight step, writing a resume checkpoint, then exiting"
+               + (" (second Ctrl-C kills immediately)"
+                  if signum == signal.SIGINT else "") + "\n")
+        try:
+            os.write(2, msg.encode())
+        except OSError:
+            pass
+
+    def __enter__(self):
+        if self.enabled and (
+            threading.current_thread() is threading.main_thread()
+        ):
+            for name in self.SIGNALS:
+                sig = getattr(signal, name, None)
+                if sig is not None:
+                    self._prev[sig] = signal.signal(sig, self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        for sig, prev in self._prev.items():
+            signal.signal(sig, prev)
+        return False
+
+
+def fit(cfg, loss_fn: Callable, model: nn.Module, train_loader,
+        validate_fn: Callable[[int], Dict[str, float]],
+        ckpt: CheckpointManager, model_cfg: Optional[Dict] = None,
+        samples_per_epoch: Optional[int] = None,
+        log_fn: Callable[[str], None] = print, logger=None,
+        engine: Optional[TrainStep] = None,
+        frozen_prefixes: Sequence[str] = ()):
+    """Train ``model`` in place; returns ``(model, history)``.
+
+    * the step: :func:`~aptai_tpu_torch.train.harness.make_engine` (Adam
+      with the config's betas, eps and decay; ``grad_accum``), unless a
+      prebuilt ``engine`` over ``model`` is given; ``frozen_prefixes``
+      names parameters the optimizer leaves out;
+    * the LR of each epoch: ``epoch_learning_rate`` (the 3-phase schedule);
+    * ``samples_per_epoch``: each epoch trains on a random subset of
+      ``samples_per_epoch // batch_size`` batches, drawn by
+      ``np.random.default_rng(cfg.seed)``;
+    * ``validate_fn(epoch)`` (on the live model) and best/last checkpoints
+      each epoch; laptop mode trains one batch an epoch;
+    * with ``cfg.train_from_ckpt`` and a last checkpoint: parameters, Adam
+      state, the best watermark and the step counter (which seeds dropout
+      and SpecAugment) are restored and training resumes after the saved
+      epoch.
+    """
+    step = engine if engine is not None else make_engine(
+        cfg, loss_fn, model, frozen_prefixes=frozen_prefixes)
+    model, optimizer = step.model, step.optimizer
+    start_epoch = 0
+    if getattr(cfg, "train_from_ckpt", False) and ckpt.has_last():
+        params, opt_state, meta = ckpt.restore_last(map_location=step.device)
+        model.load_state_dict(params)
+        if opt_state is not None:
+            # after the model is on its device: the moments land there
+            optimizer.load_state_dict(opt_state)
+        step.step_count = int(meta["step"])
+        start_epoch = int(meta["epoch"]) + 1
+        log_fn(f"resumed from epoch {meta['epoch']} "
+               f"(best {ckpt.target_metric}={ckpt.best_value})")
+    subset_rng = np.random.default_rng(cfg.seed)
+    history = []
+
+    def save_interrupt(resume_epoch):
+        ckpt.save_interrupt(resume_epoch, model.state_dict(),
+                            opt_state=optimizer.state_dict(),
+                            step=step.step_count, model_cfg=model_cfg)
+
+    guard = _PreemptionGuard(
+        log_fn, enabled=getattr(cfg, "graceful_preemption", True))
+    with guard, (torch.autograd.detect_anomaly()
+                 if getattr(cfg, "debug_nans", False)
+                 else contextlib.nullcontext()):
+        for epoch in range(start_epoch, cfg.num_epochs):
+            lr = epoch_learning_rate(
+                cfg.learning_rate, epoch, cfg.num_warmup_epochs,
+                cfg.num_static_epochs, cfg.lr_decay,
+            )
+            n_batches = len(train_loader)
+            if samples_per_epoch is not None:
+                epoch_steps = max(samples_per_epoch // cfg.batch_size, 1)
+                chosen = set(
+                    subset_rng.choice(n_batches,
+                                      size=min(epoch_steps, n_batches),
+                                      replace=False).tolist()
+                )
+            else:
+                chosen = None
+
+            t0 = time.perf_counter()
+            step_losses = []  # device scalars: no per-step host sync
+            for bi, batch in enumerate(train_loader):
+                if chosen is not None and bi not in chosen:
+                    continue
+                metrics = step(batch, lr)
+                if getattr(cfg, "detect_anomaly", False):
+                    loss_val = float(metrics["loss"])
+                    if not np.isfinite(loss_val):
+                        raise FloatingPointError(
+                            f"non-finite loss {loss_val} at epoch {epoch} "
+                            f"batch {bi}: "
+                            + str({k: float(v) for k, v in metrics.items()})
+                        )
+                step_losses.append(metrics["loss"])
+                if guard.triggered is not None or (
+                    cfg.laptop and len(step_losses) >= 1
+                ):
+                    break
+            # the epoch's one fetch
+            losses = (torch.stack(step_losses).float().cpu().numpy()
+                      if step_losses else np.zeros((0,), np.float32))
+            train_time = time.perf_counter() - t0
+            if losses.size and not np.all(np.isfinite(losses)):
+                bad = int(np.flatnonzero(~np.isfinite(losses))[0])
+                raise FloatingPointError(
+                    f"non-finite loss at epoch {epoch}, step {bad} of "
+                    f"{losses.size} (re-run with --detect_anomaly to sync "
+                    "per step, --debug_nans to trace the origin)"
+                )
+
+            if guard.triggered is not None:
+                # mid-epoch preemption: skip validation, persist params,
+                # moments and step; resume repeats this epoch
+                save_interrupt(epoch)
+                log_fn(f"preempted during epoch {epoch + 1} after "
+                       f"{losses.size} steps: resume checkpoint written; "
+                       f"rerun with --exp_dir {ckpt.exp_dir} to continue")
+                raise Preempted()
+
+            t_val = time.perf_counter()
+            val_logs = validate_fn(epoch)
+            val_time = time.perf_counter() - t_val
+            t_ckpt = time.perf_counter()
+            ckpt_every = int(getattr(cfg, "ckpt_every", 1))
+            final_epoch = epoch == cfg.num_epochs - 1
+            want_last = (final_epoch
+                         or ckpt_every > 0
+                         and epoch % ckpt_every == ckpt_every - 1
+                         or guard.triggered is not None)
+            if ckpt_every == 0 and not final_epoch:
+                # 0 → checkpoint only at the end; a preemption in this mode
+                # writes only the resume checkpoint, never best
+                improved = False
+                want_last = False
+            else:
+                improved = ckpt.update(
+                    epoch, val_logs, model.state_dict(),
+                    opt_state=optimizer.state_dict(),
+                    step=step.step_count, model_cfg=model_cfg,
+                    save_last=want_last,
+                )
+            ckpt_time = time.perf_counter() - t_ckpt
+            entry = {
+                "epoch": epoch,
+                "lr": lr,
+                "mean_train_loss": float(np.mean(losses)) if losses.size
+                else None,
+                "train_seconds": train_time,
+                "val_seconds": val_time,
+                "ckpt_seconds": ckpt_time,
+                "train_steps": int(losses.size),
+                "improved": improved,
+                **val_logs,
+            }
+            history.append(entry)
+            if logger is not None:
+                logger.log(entry, step=step.step_count)
+            log_fn(
+                f"epoch {epoch + 1}/{cfg.num_epochs} lr={lr:.2e} "
+                f"train_loss={entry['mean_train_loss']} "
+                + " ".join(f"{k}={v:.4f}" for k, v in val_logs.items()
+                           if isinstance(v, float))
+                + (" *best*" if improved else "")
+            )
+            if guard.triggered is not None and not final_epoch:
+                # the signal came during validation or checkpointing: the
+                # epoch is complete, resume at the next one
+                if not (improved or want_last):
+                    save_interrupt(epoch + 1)
+                log_fn(f"preempted after epoch {epoch + 1}: resume "
+                       f"checkpoint written; rerun with --exp_dir "
+                       f"{ckpt.exp_dir} to continue")
+                raise Preempted()
+
+    return model, history

@@ -113,6 +113,27 @@ Phases (any failure ends the run with a non-zero exit code):
    sequences equal or within the noise floor of a (1 + 2^-9) nudge;
    ``validate_pr`` with ``"beam_device"`` beside ``"beam"`` on the FORCE
    tower (full-width W2V2PR). The phase's seconds are printed.
+8. The trainers at full width (bf16 compute, float32 masters, seed 0) on a
+   synthetic CommonPhone and HPRC corpus in a temporary directory: (8a)
+   ``train_pr.main`` through its argv (laptop, batch 4, 8 samples an
+   epoch, the FE trainable, ``beam_device`` validation), its artifacts, 24
+   launches of each flash kernel and no fused one in the epoch's step, and
+   ``load_predictor(best)`` serving the logits of the model in memory bit
+   for bit; (8b) ``train_force_aptai.run`` over 8a's run on two folds from
+   the corpus cache (``pr_spliced``, the cache built once, head-only saves
+   beside one ``frozen_tower.pt``, whole-model best and last after each
+   fold, ``load_predictor(best)`` serving 8a's tower bit for bit), then one
+   fold that the collapse guard (threshold 0, patience 1) switches to
+   ``beam_host``; (8c) ``train_aptai.run`` on one fold over 2 epochs from
+   the FE cache, preempted by SIGTERM during epoch 2 (``Preempted``, the
+   resume checkpoint's meta), then resumed over the same directory (epoch 2
+   again, the step counter, Adam state and parameters equal to the saved
+   ones bit for bit), the epoch's launches and step ms beside
+   ``TrainStep`` alone on the same batches; (8d) ``eval_cli.main`` on 8c's
+   best checkpoint for the held-out speaker against the fold's test dict
+   (1e-4 relative). Checkpoint seconds and GB per run, peak memory per fold
+   and the phase's seconds are printed; each run's directory is deleted
+   once checked.
 
 Output: the phases' lines, then one JSON line of kernel records, the card
 line, and last ``{"ok": true, "device": {...}}``. A flash kernel record's
@@ -122,26 +143,34 @@ each path's own count (APTAI serving, W2V2PR serving, the APTAI train step,
 the APTAI train step with the fused feature extractor, the W2V2PR train
 step, the W2V2PR train step with a frozen fused feature extractor, FORCE
 serving, FORCE serving with the fused feature extractor, the FORCE train
-step from audio, the FE cache pass, the APTAI step from the FE cache, and
-the FORCE cache pass with the device beam), each read with the counts set
-to 0 just before it.
+step from audio, the FE cache pass, the APTAI step from the FE cache, the
+FORCE cache pass with the device beam, and the APTAI trainer's epoch from
+the FE cache), each read with the counts set to 0 just before it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import io
 import json
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
+from signal import SIGTERM
 
 import numpy as np
 import torch
 
 from aptai_tpu_torch.data import (BucketedLoader, HPRCDataset, PrefetchLoader,
-                                  build_vocab, collate_tv, make_synthetic_hprc)
+                                  build_vocab, collate_tv,
+                                  make_synthetic_commonphone,
+                                  make_synthetic_hprc)
 from aptai_tpu_torch.data.hprc import HPRC_SPEAKERS, loso_split
 from aptai_tpu_torch.data.manifest import read_rows
 from aptai_tpu_torch.decode import native
@@ -149,7 +178,8 @@ from aptai_tpu_torch.decode.beam import beam_decode_padded
 from aptai_tpu_torch.decode.device import beam_decode_device
 from aptai_tpu_torch.infer import (APTAIPredictor, ForceAPTAIPredictor,
                                    MicroBatcher, W2V2PRPredictor)
-from aptai_tpu_torch.infer.api import _prepare
+from aptai_tpu_torch.infer.api import _prepare, fetch_outputs
+from aptai_tpu_torch.infer.loader import load_model, load_predictor
 from aptai_tpu_torch.models import (APTAI, W2V2PR, ForceAPTAI, Wav2Vec2Config,
                                     random_aptai, random_force_aptai,
                                     random_w2v2_pr, tiny_config)
@@ -159,11 +189,15 @@ from aptai_tpu_torch.ops import attention, fused_conv, kernels, signal
 from aptai_tpu_torch.ops.align import viterbi_align
 from aptai_tpu_torch.ops.ctc import ctc_loss, greedy_decode
 from aptai_tpu_torch.ops.forward_sum import forward_sum_loss
-from aptai_tpu_torch.train import (FECachedLoader, FrozenEncodedCorpus,
-                                   FrozenEncodedLoader, TrainStep,
-                                   aptai_loss_fn, collate_encoded,
-                                   encode_items, force_loss_fn, pr_loss_fn,
+from aptai_tpu_torch.train import (APTAIConfig, FECachedLoader,
+                                   ForceAPTAIConfig, FrozenEncodedCorpus,
+                                   FrozenEncodedLoader, Preempted, TrainStep,
+                                   aptai_loss_fn, build_aptai_model,
+                                   collate_encoded, encode_items,
+                                   force_loss_fn, make_engine, pr_loss_fn,
                                    torch_adam)
+from aptai_tpu_torch.train import (eval_cli, train_aptai, train_force_aptai,
+                                   train_pr)
 from aptai_tpu_torch.train.fe_cache import collate_fe
 from aptai_tpu_torch.train.evaluate import validate_pr, validate_tv
 from aptai_tpu_torch.train.train_force_aptai import ctc_seq_per
@@ -2655,6 +2689,416 @@ def phase_data(card):
     log(f"  phase 7 took {time.perf_counter() - t_phase:.1f} s")
     return fe_pass, fe_step, force_pass
 
+# -- phase 8 ------------------------------------------------------------------
+
+# the trainers' device (their --platform); "auto" is the card
+PLATFORM = "auto"
+
+
+class _Epochs:
+    """A trainer's training loader as ``fit`` reads it: per epoch the launch
+    counts around its steps (set to 0 when the epoch's first batch is asked
+    for, read when the last one is done with), the first epoch's batches,
+    and a SIGTERM to this process from the main thread before batch ``i``
+    of epoch ``e`` when ``sigterm_at=(e, i)``."""
+
+    def __init__(self, loader, rec, sigterm_at=None):
+        self.loader, self.rec, self.sigterm_at = loader, rec, sigterm_at
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        epoch = len(self.rec["epochs"])
+        reset_counts()
+        try:
+            for i, batch in enumerate(self.loader):
+                if self.sigterm_at == (epoch, i):
+                    os.kill(os.getpid(), SIGTERM)
+                if epoch == 0:
+                    self.rec["batches"].append(batch)
+                yield batch
+        finally:
+            self.rec["epochs"].append(read_counts())
+
+
+class FitProbe:
+    """Within ``with FitProbe(module)``, the trainer module's ``fit`` runs
+    with its engine built here (``make_engine``, as ``fit`` builds it) and
+    its loader read through :class:`_Epochs`; each call leaves a record:
+    the model, checkpoint manager, engine, per-epoch launch counts, the
+    first epoch's batches, the history (when it returned), the decode
+    method, and on a resume the restored state against the files."""
+
+    def __init__(self, module, sigterm_at=None):
+        self.module, self.sigterm_at = module, sigterm_at
+        self.calls = []
+
+    def __enter__(self):
+        self.real = self.module.fit
+        self.module.fit = self._fit
+        return self
+
+    def __exit__(self, *exc):
+        self.module.fit = self.real
+        return False
+
+    def _fit(self, cfg, loss_fn, model, train_loader, validate_fn, ckpt,
+             frozen_prefixes=(), **kw):
+        engine = make_engine(cfg, loss_fn, model, frozen_prefixes)
+        rec = {"model": model, "ckpt": ckpt, "engine": engine, "epochs": [],
+               "batches": [], "decode_method": getattr(
+                   model, "decode_method", None)}
+        self.calls.append(rec)
+
+        def log_fn(msg):
+            log(f"    fit: {msg}")
+            if msg.startswith("resumed from epoch"):
+                rec["resume"] = restored_state_check(engine, ckpt.last_dir)
+
+        loader = _Epochs(train_loader, rec, self.sigterm_at)
+        _, rec["history"] = self.real(cfg, loss_fn, model, loader,
+                                      validate_fn, ckpt, engine=engine,
+                                      log_fn=log_fn, **kw)
+        best = ckpt.best_dir / "params.pt"
+        rec["best_has_tower"] = best.exists() and any(
+            k.startswith("w2v2_pr.")
+            for k in torch.load(best, mmap=True, weights_only=True))
+        return model, rec["history"]
+
+
+def restored_state_check(engine, last_dir):
+    """The engine's step counter, Adam state and parameters right after a
+    resume against ``last_dir``'s files: ``(meta step, step equal, Adam
+    state equal bit for bit, parameters equal bit for bit)``."""
+    meta = json.loads((last_dir / "train_meta.json").read_text())
+    dev = engine.device
+    saved_opt = torch.load(last_dir / "opt_state.pt", map_location=dev,
+                           weights_only=True)
+    live = engine.optimizer.state_dict()["state"]
+    opt_same = (live.keys() == saved_opt["state"].keys() and all(
+        torch.equal(live[i][k].to(dev), v.to(dev))
+        for i, s in saved_opt["state"].items() for k, v in s.items()))
+    saved = torch.load(last_dir / "params.pt", map_location=dev,
+                       weights_only=True)
+    params_same = all(torch.equal(v, saved[k])
+                      for k, v in engine.model.state_dict().items())
+    return {"meta_step": meta["step"],
+            "step_same": engine.step_count == meta["step"],
+            "adam_same": opt_same, "params_same": params_same}
+
+
+def dir_gb(path) -> float:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file()) / 1e9
+
+
+def ckpt_seconds(recs) -> float:
+    return sum(e["ckpt_seconds"] for r in recs for e in r.get("history", []))
+
+
+def per_step(counts, steps):
+    return {k: v / max(steps, 1) for k, v in counts.items()}
+
+
+def phase_pr_trainer(root, cp_csv, hprc_csv, card):
+    """8a: ``train_pr.main`` through its argv (full width, bf16, the FE
+    trainable, laptop, ``beam_device`` validation): its artifacts, the
+    step's launches, and ``load_predictor(best)`` against the model in
+    memory, bit for bit."""
+    exp = Path(root) / "pr"
+    argv = ["--exp_dir", str(exp), "--cp_csv_path", str(cp_csv),
+            "--hprc_csv_path", str(hprc_csv), "--laptop", "--batch_size",
+            "4", "--samples_per_epoch", "8", "--val_decode", "beam_device",
+            "--platform", PLATFORM]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with FitProbe(train_pr) as probe:
+        history, results = train_pr.main(argv)
+    run_s = time.perf_counter() - t0
+    rec = probe.calls[0]
+    steps = history[0]["train_steps"]
+    counts = rec["epochs"][0]
+    want = ["vocab.json", "train.csv", "valid.csv", "test.csv",
+            "test_results.json", "metrics.jsonl", "experiment_args.json",
+            "best-model-ckpt/params.pt", "best-model-ckpt/model_cfg.json",
+            "last-model-ckpt/params.pt", "last-model-ckpt/opt_state.pt",
+            "last-model-ckpt/train_meta.json"]
+    missing = [f for f in want if not (exp / f).exists()]
+    layers = rec["model"].cfg.num_hidden_layers
+    log(f"  8a train_pr.main {' '.join(argv[6:])}: {run_s:.1f} s, "
+        f"{steps} step(s), launches a step {per_step(counts, steps)}, "
+        f"history {history}, test {results}; checkpoints "
+        f"{ckpt_seconds([rec]):.2f} s, run directory {dir_gb(exp):.2f} GB; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"on {card}")
+    if missing or steps != 1 or not (
+            all(counts[k] == layers for k in FLASH)
+            and counts["fused_conv_ln_gelu"] == 0):
+        raise AssertionError(f"8a: missing {missing} or launches {counts}")
+    if not (np.isfinite(history[0]["mean_train_loss"])
+            and all(np.isfinite(v) for v in results.values())
+            and set(results) == {"mean_cp_test_per", "mean_hprcN_per",
+                                 "mean_hprcF_per"}):
+        raise AssertionError("8a: a non-finite loss or a missing result")
+
+    rng = np.random.default_rng(8)
+    wavs = [(rng.standard_normal(n) * 0.1).astype(np.float32)
+            for n in (16_000, 40_000, 23_456)]
+    live = W2V2PRPredictor(rec["model"]).encode_batch(wavs)
+    loaded = load_predictor(exp).encode_batch(wavs)
+    same = torch.equal(live["phoneme_logits"], loaded["phoneme_logits"])
+    log(f"  8a load_predictor(best).encode_batch vs the model in memory: "
+        f"logits {tuple(live['phoneme_logits'].shape)} bit-identical {same}")
+    if not same:
+        raise AssertionError("8a: the loaded checkpoint serves other logits")
+    del live, loaded, rec, probe
+    torch.cuda.empty_cache()
+    shutil.rmtree(exp / "last-model-ckpt")  # 8b reads the best only
+    return exp
+
+
+class _CountedCorpus(FrozenEncodedCorpus):
+    built = 0
+
+    def __init__(self, *args, **kwargs):
+        _CountedCorpus.built += 1
+        super().__init__(*args, **kwargs)
+
+
+class _CountedFoldCache(FrozenEncodedLoader):
+    built = 0
+
+    def __init__(self, *args, **kwargs):
+        _CountedFoldCache.built += 1
+        super().__init__(*args, **kwargs)
+
+
+def phase_force_trainer(root, hprc_csv, pr_exp, speakers, card):
+    """8b: ``train_force_aptai.run`` over 8a's run (2 folds, the corpus
+    cache): ``pr_spliced``, one corpus pass, head-only saves beside one
+    ``frozen_tower.pt``, whole-model best and last after the fold,
+    ``load_predictor(best)`` serving with 8a's tower bit for bit; then one
+    fold whose collapse guard falls back to ``beam_host``."""
+    def config(name, **kw):
+        return ForceAPTAIConfig(
+            exp_dir=str(Path(root) / name), hprc_csv_path=str(hprc_csv),
+            pr_model_path=str(pr_exp), vocab_path=str(pr_exp / "vocab.json"),
+            laptop=True, batch_size=4, platform=PLATFORM,
+            **kw).finalize("FORCE_APTAI")
+
+    cfg = config("force")
+    real = (train_force_aptai.FrozenEncodedCorpus,
+            train_force_aptai.FrozenEncodedLoader)
+    train_force_aptai.FrozenEncodedCorpus = _CountedCorpus
+    train_force_aptai.FrozenEncodedLoader = _CountedFoldCache
+    _CountedCorpus.built = _CountedFoldCache.built = 0
+    try:
+        t0 = time.perf_counter()
+        with FitProbe(train_force_aptai) as probe:
+            mean, _, per = train_force_aptai.run(cfg, speakers=speakers)
+        run_s = time.perf_counter() - t0
+        corpus_passes, fold_passes = (_CountedCorpus.built,
+                                      _CountedFoldCache.built)
+
+        fold_dirs = [Path(cfg.exp_dir) / f"best-model-ckpt-{s}"
+                     for s in speakers]
+        model_cfg = json.loads((fold_dirs[0] / "best-model-ckpt"
+                                / "model_cfg.json").read_text())
+        whole = [any(k.startswith("w2v2_pr.") for k in torch.load(
+            d / sub / "params.pt", mmap=True, weights_only=True))
+            for d in fold_dirs for sub in ("best-model-ckpt",
+                                           "last-model-ckpt")]
+        towers = [(d / "frozen_tower.pt").exists() for d in fold_dirs]
+        head_only = [not r["best_has_tower"] for r in probe.calls]
+        counts = [per_step(r["epochs"][0], r["history"][0]["train_steps"])
+                  for r in probe.calls]
+        log(f"  8b train_force_aptai.run, folds {speakers}: {run_s:.1f} s; "
+            f"pr_spliced {model_cfg['pr_spliced']}; corpus cache built "
+            f"{corpus_passes} time(s), fold caches {fold_passes}; saves "
+            f"head-only during fit {head_only}, frozen_tower.pt {towers}, "
+            f"best/last whole after the fold {whole}; head-step launches "
+            f"{counts}; checkpoints {ckpt_seconds(probe.calls):.2f} s, run "
+            f"directory {dir_gb(cfg.exp_dir):.2f} GB; LOSO mean "
+            f"test_N_mean_rmse {mean['test_N_mean_rmse']:.4f}")
+        if not (model_cfg["pr_spliced"] and corpus_passes == 1
+                and fold_passes == 0 and all(head_only) and all(towers)
+                and all(whole) and len(per) == len(speakers)
+                and all(np.isfinite(v) for r in per for v in r.values())
+                and not any(any(c.values()) for c in counts)):
+            raise AssertionError("8b: the FORCE trainer's run is wrong")
+
+        pred = load_predictor(fold_dirs[0])
+        tower_8a = torch.load(pr_exp / "best-model-ckpt" / "params.pt",
+                              weights_only=True)
+        served = pred.model.w2v2_pr.state_dict()
+        rng = np.random.default_rng(9)
+        out = fetch_outputs(pred.predict_batch(
+            [(rng.standard_normal(n) * 0.1).astype(np.float32)
+             for n in (16_000, 30_000)]))
+        # the served copy casts the encoder's matmul weights to bf16: hold
+        # the loaded model's tower, before that cast, to 8a's
+        _, loaded, _ = load_model(fold_dirs[0])
+        tower_same = all(torch.equal(v, tower_8a[k]) for k, v in
+                         loaded.w2v2_pr.state_dict().items())
+        log(f"  8b load_predictor(best) serves: tvs_pred "
+            f"{out['tvs_pred'].shape} finite "
+            f"{bool(np.isfinite(out['tvs_pred']).all())}; tower bit-identical "
+            f"to 8a's best {tower_same} ({len(served)} tensors)")
+        if not (tower_same and np.isfinite(out["tvs_pred"]).all()):
+            raise AssertionError("8b: the FORCE checkpoint does not serve "
+                                 "8a's tower")
+        del pred, loaded, tower_8a, served, probe
+        shutil.rmtree(cfg.exp_dir)
+
+        cfg = config("force_fallback", collapse_per_threshold=0.0,
+                     collapse_patience=1, collapse_fallback=True)
+        t0 = time.perf_counter()
+        with FitProbe(train_force_aptai) as probe:
+            _, _, per = train_force_aptai.run(cfg, speakers=speakers[:1])
+        methods = [r["decode_method"] for r in probe.calls]
+        log(f"  8b collapse fallback, fold {speakers[0]}: "
+            f"{time.perf_counter() - t0:.1f} s, decode_fallback "
+            f"{per[0]['decode_fallback']}, fits under {methods}, "
+            f"test_N_ctc_seq_per {per[0]['test_N_ctc_seq_per']:.4f}")
+        if not (per[0]["decode_fallback"] == 1
+                and methods == ["greedy", "beam_host"]
+                and all(np.isfinite(v) for v in per[0].values())):
+            raise AssertionError("8b: the collapse fallback did not run")
+        shutil.rmtree(cfg.exp_dir)
+    finally:
+        (train_force_aptai.FrozenEncodedCorpus,
+         train_force_aptai.FrozenEncodedLoader) = real
+    torch.cuda.empty_cache()
+
+
+def phase_aptai_trainer(root, hprc_csv, spk, card):
+    """8c: ``train_aptai.run`` on one fold over 2 epochs from the FE cache,
+    preempted by SIGTERM during epoch 2, then resumed; the epoch's launches
+    and step ms beside ``TrainStep`` alone on the same batches. Returns
+    the run's directory, the fold's test dict and the epoch's launches."""
+    def config():
+        return APTAIConfig(exp_dir=str(Path(root) / "aptai"),
+                           hprc_csv_path=str(hprc_csv), batch_size=4,
+                           num_epochs=2, platform=PLATFORM,
+                           ).finalize("APTAI")
+
+    cfg = config()
+    t0 = time.perf_counter()
+    preempted = False
+    with FitProbe(train_aptai, sigterm_at=(1, 1)) as probe:
+        try:
+            train_aptai.run(cfg, speakers=[spk])
+        except Preempted:
+            preempted = True
+    first_s = time.perf_counter() - t0
+    rec = probe.calls[0]
+    last = Path(cfg.exp_dir) / f"best-model-ckpt-{spk}" / "last-model-ckpt"
+    meta = json.loads((last / "train_meta.json").read_text())
+    epoch1 = rec["epochs"][0]
+    steps1 = len(rec["batches"])
+    layers = rec["model"].cfg.num_hidden_layers
+    log(f"  8c train_aptai.run, fold {spk}, 2 epochs from the FE cache: "
+        f"SIGTERM during epoch 2 -> Preempted {preempted} after "
+        f"{first_s:.1f} s; resume checkpoint {meta}; epoch 1: {steps1} "
+        f"steps, launches {epoch1} ({per_step(epoch1, steps1)} a step)")
+    if not (preempted and meta.get("preempted") and meta["epoch"] == 0
+            and meta["step"] == rec["engine"].step_count > steps1):
+        raise AssertionError("8c: the preemption did not write the resume "
+                             "checkpoint")
+    if not (epoch1["fused_conv_ln_gelu"] == 0
+            and all(epoch1[k] == layers * steps1 for k in FLASH)):
+        raise AssertionError(f"8c: launches of the epoch {epoch1}")
+    batches = rec["batches"]
+    del rec, probe
+    torch.cuda.empty_cache()
+
+    cfg = config()
+    t0 = time.perf_counter()
+    with FitProbe(train_aptai) as probe:
+        _, _, per = train_aptai.run(cfg, speakers=[spk])
+    rec = probe.calls[0]
+    hist = rec["history"]
+    log(f"  8c resumed run: {time.perf_counter() - t0:.1f} s; restored "
+        f"{rec.get('resume')}; epochs run {[e['epoch'] for e in hist]}; "
+        f"checkpoints {ckpt_seconds([rec]):.2f} s, run directory "
+        f"{dir_gb(cfg.exp_dir):.2f} GB")
+    resume = rec.get("resume", {})
+    if not ([e["epoch"] for e in hist] == [1] and resume.get("step_same")
+            and resume.get("adam_same") and resume.get("params_same")):
+        raise AssertionError("8c: the resumed run did not restore the step, "
+                             "Adam state and parameters bit for bit")
+    fit_ms = hist[0]["train_seconds"] / hist[0]["train_steps"] * 1e3
+    epoch2 = rec["epochs"][0]
+
+    # TrainStep alone on the same batches, from a fresh model, built as fit
+    # builds it
+    del rec, probe
+    torch.cuda.empty_cache()
+    model, _ = build_aptai_model(cfg, train_aptai.read_hprc(cfg)[1])
+    step = make_engine(cfg, aptai_loss_fn(from_features=True), model)
+
+    def pass_ms():
+        t0 = time.perf_counter()
+        for b in batches:
+            step(b, 1e-5)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / len(batches) * 1e3
+
+    # the first pass is cold, as the resumed run's epoch is (fresh model,
+    # its activations allocated anew); the second is warm
+    cold_ms, warm_ms = pass_ms(), pass_ms()
+    log(f"  8c step ms: fit's epoch 2 {fit_ms:.2f} (train_seconds / "
+        f"train_steps over {hist[0]['train_steps']} steps) vs TrainStep "
+        f"alone on epoch 1's {len(batches)} batches {cold_ms:.2f} cold, "
+        f"{warm_ms:.2f} warm on {card}; epoch 2 launches {epoch2}")
+    del step, model
+    torch.cuda.empty_cache()
+    return Path(cfg.exp_dir), per[0], (epoch2, hist[0]["train_steps"])
+
+
+def phase_eval_cli(aptai_exp, spk, fold_results, hprc_csv, card):
+    """8d: ``eval_cli.main`` on 8c's best checkpoint, the held-out speaker,
+    both rates, at the trainer's batch size: its JSON against the fold's
+    test dict within 1e-4 relative."""
+    ckpt = aptai_exp / f"best-model-ckpt-{spk}"
+    argv = [str(ckpt), str(hprc_csv), "--speaker", spk, "--rate", "N,F",
+            "--batch_size", "4"] + (["--cpu"] if PLATFORM == "cpu" else [])
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = eval_cli.main(argv)
+    got = json.loads(out.getvalue()) if rc == 0 else {}
+    worst = max((abs(got[k] - v) / max(abs(v), 1e-12)
+                 for k, v in fold_results.items() if k in got),
+                default=float("inf"))
+    missing = sorted(set(fold_results) - set(got))
+    log(f"  8d eval_cli {' '.join(argv[2:])}: rc {rc} in "
+        f"{time.perf_counter() - t0:.1f} s, {len(got)} keys, largest "
+        f"relative difference to the fold's test dict {worst:.2e}, missing "
+        f"{missing} on {card}")
+    if rc != 0 or missing or not worst <= 1e-4:
+        raise AssertionError("8d: eval_cli disagrees with the trainer's test")
+
+
+def phase_trainers(card):
+    log("== phase 8: the trainers at full width")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        cp_csv = make_synthetic_commonphone(root / "cp", 8, 2, 2)
+        hprc_csv = make_synthetic_hprc(root / "hprc", 3, HPRC_SPEAKERS[:4])
+        speakers = [r["speaker"] for r in read_rows(hprc_csv)]
+        speakers = list(dict.fromkeys(speakers))
+        pr_exp = phase_pr_trainer(root, cp_csv, hprc_csv, card)
+        phase_force_trainer(root, hprc_csv, pr_exp, speakers[:2], card)
+        shutil.rmtree(pr_exp)
+        aptai_exp, fold_results, epoch = phase_aptai_trainer(
+            root, hprc_csv, speakers[-1], card)
+        phase_eval_cli(aptai_exp, speakers[-1], fold_results, hprc_csv, card)
+    log(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return epoch
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2706,6 +3150,7 @@ def main() -> int:
     force_training = phase_force_train(card)
     (fe_pass, fe_batches), fe_step, (force_pass, force_pass_batches) = \
         phase_data(card)
+    trainer_epoch, trainer_steps = phase_trainers(card)
     for rec in records:
         name = rec["name"]
         rec["launches"] = (pr_serving if name == "fused_conv_ln_gelu"
@@ -2733,7 +3178,9 @@ def main() -> int:
                                          "launches": fe_step[name]},
             "force_cache_pass_beam_device": {
                 "batches": force_pass_batches,
-                "launches": force_pass[name]}}
+                "launches": force_pass[name]},
+            "aptai_trainer_epoch_from_fe_cache": {
+                "steps": trainer_steps, "launches": trainer_epoch[name]}}
 
     print(json.dumps({"kernels": records}))
     print(card)

@@ -61,6 +61,34 @@ def random_jax_w2v2_pr_params(cfg_t, seed: int):
     return convert_w2v2_pr(sd, cfg_t.num_hidden_layers)
 
 
+def random_jax_force_params(cfg_j, vocab_size: int, seed: int):
+    """A JAX ``ForceAPTAI`` parameter tree of numpy arrays for the JAX
+    config ``cfg_j``: head leaves of ``init``'s shapes (traced, not run)
+    drawn from ``seed``, and the tower of :func:`random_jax_w2v2_pr_params`
+    for the matching port config."""
+    import dataclasses
+    import functools
+
+    from aptai_tpu.models import ForceAPTAI as JaxForceAPTAI
+    from aptai_tpu_torch.models.configs import Wav2Vec2Config
+
+    model = JaxForceAPTAI(cfg_j, vocab_size=vocab_size)
+    one = np.ones((1,), np.int32)
+    shapes = jax.eval_shape(
+        functools.partial(model.init, method="train_from_encoded"),
+        jax.random.PRNGKey(0), np.zeros((1, 20, cfg_j.hidden_size),
+                                        np.float32),
+        one * 20, np.zeros((1, 60), np.int32), one, one * 0,
+        np.zeros((1, 20, 9), np.float32))["params"]
+    rng = np.random.default_rng(seed)
+    head = jax.tree.map(lambda a: (0.3 * rng.standard_normal(a.shape))
+                        .astype(np.float32), shapes)
+    cfg_t = Wav2Vec2Config(**{
+        k: tuple(v) if isinstance(v, list) else v
+        for k, v in dataclasses.asdict(cfg_j).items()})
+    return dict(head, w2v2_pr=random_jax_w2v2_pr_params(cfg_t, seed + 1))
+
+
 def port_w2v2_pr_from_jax(cfg_t, params, **kwargs) -> W2V2PR:
     """The port's W2V2PR holding the JAX tree ``params`` (through the
     bridge under test), in eval mode on the CPU; ``kwargs`` go to

@@ -33,7 +33,7 @@ for m in pkgutil.walk_packages(aptai_tpu_torch.__path__, "aptai_tpu_torch."):
 import chip_smoke
 import compare_kernels
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
-    "jax", "jaxlib", "flax", "aptai_tpu", "pandas"))
+    "jax", "jaxlib", "flax", "aptai_tpu", "pandas", "msgpack", "wandb"))
 print("LOADED", len([m for m in sys.modules if m.startswith("aptai_tpu_torch")]))
 print("BAD", bad)
 print("TRAIN", all(m in sys.modules for m in (
@@ -59,6 +59,11 @@ print("DATA", all(m in sys.modules for m in (
     "aptai_tpu_torch.data.hprc", "aptai_tpu_torch.data.hprc_prep",
     "aptai_tpu_torch.data.commonphone", "aptai_tpu_torch.data.synthetic",
     "aptai_tpu_torch.train.fe_cache")))
+print("TRAINERS", all(m in sys.modules for m in (
+    "aptai_tpu_torch.utils.logging", "aptai_tpu_torch.train.config",
+    "aptai_tpu_torch.train.checkpoints", "aptai_tpu_torch.train.builders",
+    "aptai_tpu_torch.train.loop", "aptai_tpu_torch.train.eval_cli",
+    "aptai_tpu_torch.infer.loader")))
 # importing builds and loads nothing
 print("NATIVE_LOADED", sys.modules["aptai_tpu_torch.decode.native"]._lib
       is not None)
@@ -79,7 +84,40 @@ def test_port_imports_no_jax_or_reference_package():
     assert "PR_TRAIN True" in res.stdout, res.stdout
     assert "FORCE True" in res.stdout, res.stdout
     assert "DATA True" in res.stdout, res.stdout
+    assert "TRAINERS True" in res.stdout, res.stdout
     assert "NATIVE_LOADED False" in res.stdout, res.stdout
+
+
+_RUN_CLIS = """
+import runpy, sys
+for name in ("train_pr", "train_aptai", "train_force_aptai", "eval_cli"):
+    sys.argv = [name, "--help"]
+    try:
+        runpy.run_module("aptai_tpu_torch.train." + name, run_name="__main__",
+                         alter_sys=True)
+    except SystemExit as e:
+        assert e.code == 0, (name, e.code)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "aptai_tpu", "pandas", "msgpack", "wandb"))
+print("BAD", bad)
+"""
+
+
+def test_cli_entry_points_import_no_jax_msgpack_or_wandb():
+    """``python -m aptai_tpu_torch.train.<cli> --help`` for the three
+    trainers and the eval CLI: each parses its flags, and none loads JAX,
+    the JAX package, pandas, msgpack or wandb (wandb loads only inside
+    ``RunLogger`` under ``--logging``)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+    res = subprocess.run([sys.executable, "-c", _RUN_CLIS], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+    for flag in ("--cp_csv_path", "--hprc_csv_path", "--pr_model_path",
+                 "--collapse_fallback", "--speaker"):
+        assert flag in res.stdout, flag
 
 
 @pytest.mark.parametrize("family", ["aptai", "w2v2_pr", "force_aptai"])

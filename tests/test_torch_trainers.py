@@ -1,0 +1,552 @@
+"""aptai_tpu_torch's trainers against the JAX package's, on the CPU:
+
+* ``parse_config`` of each config class on the same argv gives the same
+  field values in both packages; the multi-device fields and unknown
+  platforms raise; the run logger keeps its JSONL without wandb;
+* the builders' pretrained encoder and FORCE tower from each checkpoint
+  format (this package's run, the JAX package's, an HF-named torch file,
+  the reference's ``pytorch_model.bin``);
+* ``fit`` against the JAX ``fit``: one tiny float32 APTAI with the same
+  weights through the bridge (dropout, SpecAugment and the heads' dropout
+  off), the same synthetic HPRC fold and loaders, 2 epochs of
+  ``samples_per_epoch`` batches: the same batches chosen, per-epoch
+  ``mean_train_loss`` and validation metrics within 1e-4 relative, the
+  same ``improved`` flags;
+* preemption and resume on the port alone: mid-epoch (the epoch repeats;
+  parameters, Adam state and the step counter restored bit for bit), at an
+  epoch boundary with ``ckpt_every=0`` (no best written), a second SIGINT
+  raising ``KeyboardInterrupt``, the handlers restored after each;
+* the trainers: ``train_pr.main(argv)``, ``train_aptai.run`` over two folds
+  and ``train_force_aptai.run`` over the W2V2PR run (the corpus cache built
+  once, a fold forced into the ``beam_host`` fallback), laptop mode, with
+  their artifacts.
+"""
+
+import dataclasses
+import functools
+import json
+import os
+import signal
+
+import jax
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+from aptai_tpu.data import BucketedLoader as JaxLoader
+from aptai_tpu.data import HPRCDataset as JaxHPRC
+from aptai_tpu.data import collate_tv as jax_collate_tv
+from aptai_tpu.data.hprc import loso_split as jax_loso_split
+from aptai_tpu.models.hf_convert import convert_w2v2_pr
+from aptai_tpu.models import APTAI as JaxAPTAI
+from aptai_tpu.models import configs as jcfg
+from aptai_tpu.train import checkpoints as jckpt
+from aptai_tpu.train import config as jconfig
+from aptai_tpu.train import evaluate as jeval
+from aptai_tpu.train import harness as jharness
+from aptai_tpu.train import loop as jloop
+from aptai_tpu.train import train_aptai as jtrain_aptai
+from aptai_tpu_torch.data import (BucketedLoader, HPRCDataset, build_vocab,
+                                  collate_tv, make_synthetic_commonphone,
+                                  make_synthetic_hprc)
+from aptai_tpu_torch.data.hprc import loso_split
+from aptai_tpu_torch.data.manifest import read_rows
+from aptai_tpu_torch.models import configs as tcfg
+from aptai_tpu_torch.models import random_aptai, random_w2v2_pr
+from aptai_tpu_torch.train import builders, make_engine
+from aptai_tpu_torch.train import config as tconfig
+from aptai_tpu_torch.train import (train_aptai, train_force_aptai,
+                                   train_pr)
+from aptai_tpu_torch.train.checkpoints import CheckpointManager, load_state
+from aptai_tpu_torch.train.evaluate import validate_tv
+from aptai_tpu_torch.train.loop import Preempted, fit
+
+from _torch_port import (NO_DROP, one_torch_thread, port_aptai_from_jax,
+                         random_jax_aptai_params)
+
+# the 7-layer conv stack (49 frames a second, as the manifests), tiny widths
+STACK = dict(conv_dim=(16,) * 7, conv_kernel=(10, 3, 3, 3, 3, 2, 2),
+             conv_stride=(5, 2, 2, 2, 2, 2, 2))
+QUIET = dict(NO_DROP, apply_spec_augment=False)
+REL = 1e-4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    yield from one_torch_thread()
+
+
+@pytest.fixture(scope="module")
+def hprc(tmp_path_factory):
+    """3 speakers × 2 texts × 2 rates, written by the port."""
+    path = make_synthetic_hprc(tmp_path_factory.mktemp("hprc"), 2,
+                               ("M01", "F02", "M03"), device="cpu")
+    rows = read_rows(path)
+    return path, rows, build_vocab(r["phoneme_labels"] for r in rows)
+
+
+# -- config -------------------------------------------------------------------
+
+ARGV = {
+    "PRConfig": ["--laptop", "--batch_size", "3", "--val_decode", "greedy",
+                 "--no-cache_frozen_fe", "--learning_rate", "2e-4"],
+    "APTAIConfig": ["--train_val_rate", "N", "--tv_drop", "0.2",
+                    "--ckpt_every", "0", "--save_all_epochs"],
+    "ForceAPTAIConfig": ["--decode_method", "beam_device",
+                         "--collapse_fallback", "--prior_g", "0.3",
+                         "--no-cache_frozen_encodings", "--grad_accum", "2"],
+}
+
+
+@pytest.mark.parametrize("name", list(ARGV))
+def test_parse_config_matches_jax(tmp_path, name):
+    argv = ARGV[name] + ["--exp_dir", str(tmp_path / "run"), "--rng_impl",
+                         "threefry", "--platform", "cpu", "--mesh_data", "1"]
+    got = tconfig.parse_config(getattr(tconfig, name), "task", argv)
+    want = jconfig.parse_config(getattr(jconfig, name), "task", argv)
+    g, w = dataclasses.asdict(got), dataclasses.asdict(want)
+    assert g.pop("date_time") and w.pop("date_time")
+    assert g == w
+    # the defaults too, with exp_dir derived from the task
+    got = dataclasses.asdict(getattr(tconfig, name)())
+    assert got == dataclasses.asdict(getattr(jconfig, name)())
+
+
+@pytest.mark.parametrize("field,value,error", [
+    ("mesh_data", 2, NotImplementedError),
+    ("mesh_model", 2, NotImplementedError),
+    ("fsdp", True, NotImplementedError),
+    ("coordinator_address", "localhost:1234", NotImplementedError),
+    ("num_processes", 2, NotImplementedError),
+    ("process_id", 1, NotImplementedError),
+    ("platform", "tpu", ValueError),
+    ("rng_impl", "philox", ValueError)])
+def test_config_fields_that_raise(tmp_path, field, value, error):
+    cfg = tconfig.TrainConfig(exp_dir=str(tmp_path), **{field: value})
+    with pytest.raises(error, match=field if error is ValueError
+                       else "Queue 1 item 8"):
+        cfg.finalize("task")
+    for impl in ("rbg", "threefry"):  # both mean the same here
+        assert tconfig.TrainConfig(rng_impl=impl, platform="cpu").finalize(
+            "task").rng_impl == impl
+
+
+def test_run_device_never_falls_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tconfig.run_device(tconfig.TrainConfig(platform="cpu")).type \
+        == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tconfig.run_device(tconfig.TrainConfig())
+    assert builders.resolve_dtype("auto", "cuda") == "bfloat16"
+    assert builders.resolve_dtype("auto", "cpu") == "float32"
+    assert builders.resolve_dtype("float32", "cuda") == "float32"
+
+
+def test_run_logger_without_wandb_keeps_jsonl(tmp_path, monkeypatch, capsys):
+    import sys
+
+    from aptai_tpu_torch.utils.logging import RunLogger, init_logger
+
+    monkeypatch.setitem(sys.modules, "wandb", None)  # not installed
+    cfg = tconfig.APTAIConfig(exp_dir=str(tmp_path), logging=True,
+                              platform="cpu").finalize("APTAI")
+    logger = init_logger(cfg, "APTAI")
+    assert "JSONL only" in capsys.readouterr().out
+    logger.log({"loss": np.float32(1.5), "epoch": 0}, step=3)
+    logger.finish()
+    event = json.loads((tmp_path / "metrics.jsonl").read_text())
+    assert event["step"] == 3 and event["loss"] == 1.5 and "ts" in event
+    assert RunLogger(tmp_path, "x")._wandb is None
+
+
+# -- builders -----------------------------------------------------------------
+
+def _pr_sources(tmp_path):
+    """One tiny W2V2PR's weights as each builder input: a port run, a JAX
+    run (msgpack through the bridge), an HF-named torch file (torch ≥ 2.1
+    weight-norm names) and the reference's ``pytorch_model.bin``."""
+    cfg_t = tcfg.tiny_config(**STACK)
+    pr = random_w2v2_pr(cfg_t, seed=7)
+    sd = pr.state_dict()
+    model_cfg = {"backbone": dataclasses.asdict(cfg_t), "vocab": {},
+                 "kind": "w2v2_pr"}
+    CheckpointManager(tmp_path / "port_run", "m").update(
+        0, {"m": 1.0}, sd, model_cfg=model_cfg)
+    jckpt.CheckpointManager(tmp_path / "jax_run", "m").update(
+        0, {"m": 1.0}, convert_w2v2_pr(
+            {k: v.numpy() for k, v in sd.items()}, cfg_t.num_hidden_layers),
+        model_cfg=model_cfg)
+    pc = "wav2vec2.encoder.pos_conv_embed.conv."
+    hf = {k.replace(f"{pc}weight_g", f"{pc}parametrizations.weight.original0")
+          .replace(f"{pc}weight_v", f"{pc}parametrizations.weight.original1"):
+          v for k, v in sd.items()}
+    torch.save(hf, tmp_path / "hf.pt")
+    ref = tmp_path / "ref_run" / "best-model-ckpt"
+    ref.mkdir(parents=True)
+    torch.save(hf, ref / "pytorch_model.bin")
+    (ref / "model_cfg.json").write_text(json.dumps(model_cfg))
+    return cfg_t, sd
+
+
+@pytest.mark.parametrize("source", ["port_run", "jax_run", "hf.pt"])
+def test_pretrained_encoder_from_each_format(tmp_path, source, capsys):
+    cfg_t, sd = _pr_sources(tmp_path)
+    cfg = tconfig.APTAIConfig(platform="cpu",
+                              pretrained_checkpoint=str(tmp_path / source))
+    model, _ = builders.build_aptai_model(cfg, {f"p{i}": i for i in range(5)},
+                                          tiny=cfg_t, seed=1)
+    got = model.wav2vec2.state_dict()
+    assert all(torch.equal(v, sd[f"wav2vec2.{k}"]) for k, v in got.items())
+    if source != "hf.pt":  # a graft reports what it spliced
+        assert f"{len(got)} leaves spliced" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("source", ["port_run", "jax_run", "ref_run"])
+def test_force_tower_from_each_format(tmp_path, source):
+    cfg_t, sd = _pr_sources(tmp_path)
+    cfg = tconfig.ForceAPTAIConfig(platform="cpu", dtype="float32")
+    vocab = {f"p{i}": i for i in range(cfg_t.vocab_size)}
+    model, model_cfg = builders.build_force_model(cfg, vocab,
+                                                  str(tmp_path / source))
+    assert model_cfg["pr_spliced"] and model.cfg == cfg_t
+    got = model.w2v2_pr.state_dict()
+    assert set(got) == set(sd)
+    assert all(torch.equal(v, sd[k]) for k, v in got.items())
+    _, unspliced = builders.build_force_model(
+        cfg, vocab, str(tmp_path / "nowhere"), tiny=cfg_t)
+    assert not unspliced["pr_spliced"]
+
+
+# -- fit against the JAX fit --------------------------------------------------
+
+class _Tagged(dict):
+    """A batch that records its index in ``chosen`` when the JAX ``fit``
+    takes it (it pops ``batch_pad_mask`` from the batches it steps on)."""
+
+    chosen = []
+
+    def pop(self, key, *default):
+        if key == "batch_pad_mask":
+            _Tagged.chosen.append(int(self["bi"][0]))
+        return super().pop(key, *default)
+
+
+# a pytree node, so the JAX fit stages it as the dict it is
+jax.tree_util.register_pytree_node(
+    _Tagged, lambda d: (list(d.values()), list(d)),
+    lambda keys, values: dict(zip(keys, values)))
+
+
+class _TaggedLoader:
+    def __init__(self, loader):
+        self.loader = loader
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for i, b in enumerate(self.loader):
+            yield _Tagged(b, bi=np.array([i], np.int32))
+
+
+class _RecordingStep:
+    """Wraps a port engine: the index of every batch it steps on."""
+
+    def __init__(self, step):
+        self.step, self.chosen = step, []
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+    def __call__(self, batch, lr):
+        self.chosen.append(int(batch["bi"][0]))
+        return self.step(batch, lr)
+
+
+def _close(got, want, what):
+    assert abs(got - want) <= REL * max(abs(want), 1e-6), (what, got, want)
+
+
+def test_fit_matches_jax_fit(hprc, tmp_path):
+    path, rows, vocab = hprc
+    v = len(vocab)
+    cfg_t = tcfg.tiny_config(**STACK, **QUIET)
+    params = random_jax_aptai_params(cfg_t, v, seed=3)
+    common = dict(num_epochs=2, batch_size=1, learning_rate=1e-3, seed=0,
+                  lr_decay=0.5, target_metric="val_mean_rmse")
+    samples = 2
+
+    # JAX
+    df = pd.read_csv(path)
+    j_train, j_valid, _, _ = jax_loso_split(df, "M03", "both", seed=0)
+    jmodel = JaxAPTAI(jcfg.tiny_config(**STACK, **QUIET), tv_drop=0.0,
+                      phn_drop=0.0, num_phonemes=v)
+    jcfg_run = jconfig.APTAIConfig(exp_dir=str(tmp_path / "jax"),
+                                   mesh_data=1, **common)
+    j_eval = jtrain_aptai.make_eval_forward(jmodel)
+    j_valid_dl = JaxLoader(JaxHPRC(j_valid, vocab, "both"), 1,
+                           jax_collate_tv, shuffle=False)
+    _Tagged.chosen = []
+    _, j_hist = jloop.fit(
+        jcfg_run, None, params,
+        _TaggedLoader(JaxLoader(JaxHPRC(j_train, vocab, "both"), 1,
+                                jax_collate_tv, shuffle=True, seed=0)),
+        lambda p, e: jeval.validate_tv(functools.partial(j_eval, p),
+                                       j_valid_dl),
+        jckpt.CheckpointManager(tmp_path / "jax", "val_mean_rmse"),
+        samples_per_epoch=samples, log_fn=lambda m: None,
+        engine=jharness.make_engine(
+            jcfg_run, jtrain_aptai.aptai_loss_fn(jmodel)))
+
+    # the port
+    train, valid, _, _ = loso_split(rows, "M03", "both", seed=0)
+    model = port_aptai_from_jax(cfg_t, params, v, tv_drop=0.0, phn_drop=0.0)
+    tcfg_run = tconfig.APTAIConfig(exp_dir=str(tmp_path / "port"),
+                                   platform="cpu", **common)
+    step = _RecordingStep(make_engine(tcfg_run,
+                                      train_aptai.aptai_loss_fn(), model))
+    eval_fwd = train_aptai.make_eval_forward(model)
+    valid_dl = BucketedLoader(HPRCDataset(valid, vocab, "both"), 1,
+                              collate_tv, shuffle=False)
+    _, t_hist = fit(
+        tcfg_run, None, model,
+        _TaggedLoader(BucketedLoader(HPRCDataset(train, vocab, "both"), 1,
+                                     collate_tv, shuffle=True, seed=0)),
+        lambda e: validate_tv(eval_fwd, valid_dl),
+        CheckpointManager(tmp_path / "port", "val_mean_rmse"),
+        samples_per_epoch=samples, log_fn=lambda m: None, engine=step)
+
+    assert len(train) == 4 and step.chosen == _Tagged.chosen
+    assert len(step.chosen) == 2 * samples
+    assert len(t_hist) == len(j_hist) == 2
+    for t, j in zip(t_hist, j_hist):
+        assert set(t) == set(j)
+        assert (t["epoch"], t["lr"], t["train_steps"], t["improved"]) == (
+            j["epoch"], j["lr"], j["train_steps"], j["improved"])
+        for k, val in j.items():
+            if k.startswith(("mean_train_loss", "val_mean")):
+                _close(t[k], val, k)
+    # training moved the weights, so the epochs' losses differ
+    assert t_hist[0]["mean_train_loss"] != t_hist[1]["mean_train_loss"]
+
+
+# -- preemption and resume ----------------------------------------------------
+
+def _toy_batches(n=3):
+    """APTAI batches of 2 random 0.4 s items (20 frames)."""
+    rng = np.random.default_rng(6)
+    out = []
+    for _ in range(n):
+        out.append({"audio": (rng.standard_normal((2, 6400)) * 0.1).astype(
+            np.float32), "audio_lengths": np.array([6400, 5000], np.int32),
+            "phn_frames": rng.integers(1, 5, (2, 19)).astype(np.int32),
+            "tv_targets": rng.standard_normal((2, 19, 9)).astype(
+                np.float32)})
+    return out
+
+
+class _SignalLoader:
+    """Toy batches; sends ``signals`` to this process before batch ``i`` of
+    epoch ``e`` for each ``(e, i)`` in ``at``."""
+
+    def __init__(self, at=(), signals=(signal.SIGUSR1,)):
+        self.batches, self.at, self.signals = _toy_batches(), at, signals
+        self.epoch = 0
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        epoch, self.epoch = self.epoch, self.epoch + 1
+        for i, b in enumerate(self.batches):
+            if (epoch, i) in self.at:
+                for sig in self.signals:
+                    os.kill(os.getpid(), sig)
+            yield dict(b)
+
+
+def _toy_run(tmp_path, **kw):
+    cfg = tconfig.APTAIConfig(exp_dir=str(tmp_path), num_epochs=3,
+                              batch_size=2, learning_rate=1e-3,
+                              platform="cpu", **kw)
+    model = random_aptai(tcfg.tiny_config(), seed=0, num_phonemes=5)
+    return cfg, model
+
+
+def _validate(model):
+    def validate(epoch):
+        w = model.tv_linear.weight
+        return {"val_mean_rmse": w.detach().abs().mean().item() + epoch}
+    return validate
+
+
+def _handlers():
+    return {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT,
+                                             signal.SIGUSR1)}
+
+
+def test_preempted_mid_epoch_then_resumed_bit_for_bit(tmp_path):
+    before = _handlers()
+    cfg, model = _toy_run(tmp_path)
+    ckpt = CheckpointManager(tmp_path, "val_mean_rmse")
+    engine = make_engine(cfg, train_aptai.aptai_loss_fn(), model)
+    with pytest.raises(Preempted) as exc:
+        fit(cfg, None, model, _SignalLoader(at={(1, 1)}), _validate(model),
+            ckpt, log_fn=lambda m: None, engine=engine)
+    assert exc.value.code == 0 and _handlers() == before
+    last = tmp_path / "last-model-ckpt"
+    meta = json.loads((last / "train_meta.json").read_text())
+    # epoch 0's 3 steps, then epoch 1's first two (the signal lands before
+    # batch 1, whose step still runs)
+    assert meta["preempted"] and meta["epoch"] == 0 and meta["step"] == 5
+    assert engine.step_count == 5
+
+    cfg2, model2 = _toy_run(tmp_path, train_from_ckpt=True)
+    engine2 = make_engine(cfg2, train_aptai.aptai_loss_fn(), model2)
+    seen = {}
+
+    def log_fn(msg):
+        if msg.startswith("resumed"):
+            saved_opt = load_state(last / "opt_state.pt")
+            live = engine2.optimizer.state_dict()["state"]
+            seen["step"] = engine2.step_count
+            seen["adam"] = all(torch.equal(live[i][k], x)
+                               for i, s in saved_opt["state"].items()
+                               for k, x in s.items())
+            saved = load_state(last / "params.pt")
+            seen["params"] = all(torch.equal(x, saved[k]) for k, x in
+                                 model2.state_dict().items())
+
+    _, hist = fit(cfg2, None, model2, _SignalLoader(), _validate(model2),
+                  CheckpointManager(tmp_path, "val_mean_rmse"),
+                  log_fn=log_fn, engine=engine2)
+    assert seen == {"step": meta["step"], "adam": True, "params": True}
+    assert [e["epoch"] for e in hist] == [1, 2]
+    assert engine2.step_count == 5 + 2 * 3 and _handlers() == before
+
+
+def test_preempted_at_epoch_boundary_writes_no_best(tmp_path):
+    before = _handlers()
+    cfg, model = _toy_run(tmp_path, ckpt_every=0)
+    validate = _validate(model)
+
+    def signalling(epoch):
+        os.kill(os.getpid(), signal.SIGTERM)
+        return validate(epoch)
+
+    with pytest.raises(Preempted):
+        fit(cfg, train_aptai.aptai_loss_fn(), model, _SignalLoader(),
+            signalling, CheckpointManager(tmp_path, "val_mean_rmse"),
+            log_fn=lambda m: None)
+    meta = json.loads((tmp_path / "last-model-ckpt"
+                       / "train_meta.json").read_text())
+    assert meta["preempted"] and meta["epoch"] == 0 and meta["step"] == 3
+    assert not (tmp_path / "best-model-ckpt").exists()
+    assert _handlers() == before
+
+
+def test_second_sigint_raises_keyboard_interrupt(tmp_path):
+    before = _handlers()
+    cfg, model = _toy_run(tmp_path)
+    with pytest.raises(KeyboardInterrupt):
+        fit(cfg, train_aptai.aptai_loss_fn(), model,
+            _SignalLoader(at={(0, 1)}, signals=(signal.SIGINT,
+                                                signal.SIGINT)),
+            _validate(model), CheckpointManager(tmp_path, "val_mean_rmse"),
+            log_fn=lambda m: None)
+    assert _handlers() == before
+
+
+# -- the trainers -------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def pr_run(hprc, tmp_path_factory):
+    """``train_pr.main`` through its argv, wav2vec2-large replaced by the
+    tiny config."""
+    root = tmp_path_factory.mktemp("pr")
+    cp_csv = make_synthetic_commonphone(root / "cp", 4, 2, 2)
+    exp = root / "run"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(builders, "make_backbone_config",
+                   lambda c, v: tcfg.tiny_config(**STACK, vocab_size=v))
+        history, results = train_pr.main([
+            "--exp_dir", str(exp), "--cp_csv_path", str(cp_csv),
+            "--hprc_csv_path", str(hprc[0]), "--laptop", "--batch_size", "2",
+            "--samples_per_epoch", "4", "--val_decode", "greedy",
+            "--platform", "cpu"])
+    return exp, history, results
+
+
+def test_train_pr_main(pr_run):
+    exp, history, results = pr_run
+    for f in ("vocab.json", "train.csv", "valid.csv", "test.csv",
+              "experiment_args.json", "metrics.jsonl", "test_results.json",
+              "best-model-ckpt/params.pt", "best-model-ckpt/model_cfg.json",
+              "last-model-ckpt/params.pt", "last-model-ckpt/opt_state.pt",
+              "last-model-ckpt/train_meta.json"):
+        assert (exp / f).exists(), f
+    assert history[0]["train_steps"] == 1
+    assert np.isfinite(history[0]["mean_train_loss"])
+    assert set(results) == {"mean_cp_test_per", "mean_hprcN_per",
+                            "mean_hprcF_per"}
+    assert json.loads((exp / "test_results.json").read_text()) == results
+    assert pd.read_csv(exp / "train.csv").split.eq("train").all()
+    cfg = json.loads((exp / "best-model-ckpt" / "model_cfg.json").read_text())
+    assert cfg["kind"] == "w2v2_pr" and cfg["backbone"]["dtype"] == "float32"
+
+
+def test_train_aptai_run_two_folds(hprc, tmp_path):
+    path, _, _ = hprc
+    cfg = tconfig.APTAIConfig(exp_dir=str(tmp_path), hprc_csv_path=str(path),
+                              laptop=True, batch_size=2, platform="cpu",
+                              vocab_path="").finalize("APTAI")
+    mean, std, per = train_aptai.run(cfg, tcfg.tiny_config(**STACK),
+                                     speakers=["M01", "F02"])
+    assert len(per) == 2 and set(mean) == set(per[0]) == set(std)
+    for spk in ("M01", "F02"):
+        assert (tmp_path / "test_metrics" / f"{spk}.csv").exists()
+        fold = tmp_path / f"best-model-ckpt-{spk}"
+        assert (fold / "best-model-ckpt" / "params.pt").exists()
+    got = pd.read_csv(tmp_path / "loso_mean.csv").iloc[0]
+    np.testing.assert_allclose(got["test_N_mean_rmse"],
+                               np.mean([p["test_N_mean_rmse"] for p in per]),
+                               rtol=1e-6)
+    assert (tmp_path / "loso_std.csv").exists()
+
+
+def test_train_force_aptai_over_the_pr_run(hprc, pr_run, tmp_path,
+                                           monkeypatch):
+    path, _, _ = hprc
+    exp = pr_run[0]
+    built = []
+
+    class Counted(train_force_aptai.FrozenEncodedCorpus):
+        def __init__(self, *a, **k):
+            built.append(1)
+            super().__init__(*a, **k)
+
+    monkeypatch.setattr(train_force_aptai, "FrozenEncodedCorpus", Counted)
+    cfg = tconfig.ForceAPTAIConfig(
+        exp_dir=str(tmp_path), hprc_csv_path=str(path),
+        pr_model_path=str(exp), vocab_path=str(exp / "vocab.json"),
+        laptop=True, batch_size=2, platform="cpu",
+        collapse_per_threshold=0.0, collapse_patience=1,
+        collapse_fallback=True).finalize("FORCE_APTAI")
+    mean, _, per = train_force_aptai.run(cfg, speakers=["M01", "F02"])
+    assert built == [1]
+    assert [p["decode_fallback"] for p in per] == [1, 1]
+    assert mean["decode_fallback"] == 1.0
+    assert all(np.isfinite(v) for p in per for v in p.values())
+    pr_tower = load_state(exp / "best-model-ckpt" / "params.pt")
+    for spk in ("M01", "F02"):
+        fold = tmp_path / f"best-model-ckpt-{spk}"
+        assert (fold / "frozen_tower.pt").exists()
+        for sub in ("best-model-ckpt", "last-model-ckpt"):
+            sd = load_state(fold / sub / "params.pt")
+            assert all(torch.equal(sd[f"w2v2_pr.{k}"], v)
+                       for k, v in pr_tower.items()), sub
+        cfg_json = json.loads((fold / "best-model-ckpt"
+                               / "model_cfg.json").read_text())
+        assert cfg_json["pr_spliced"] and cfg_json["kind"] == "force_aptai"
+    assert (tmp_path / "loso_mean.csv").exists()
