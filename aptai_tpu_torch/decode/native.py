@@ -3,11 +3,9 @@ the Levenshtein distance (the PER numerator) and the CTC prefix beam search
 (the JAX package's ``decode/native.py``).
 
 ``g++`` compiles ``native/aptai_native.cpp`` alone (not the HTTP server
-beside it) into ``aptai_tpu_torch/_build/`` at first use, named by a hash
-of the source and the flags; the flags leave out ``-march=native``, so a
-checkout copied to another machine never loads a library built for another
-CPU. Each build writes a file of its own and renames it into place, so
-concurrent builds (test workers) never see a partial library.
+beside it) into ``aptai_tpu_torch/_build/`` at first use, through
+:mod:`aptai_tpu_torch.utils.cxx_build` (named by a hash of the source and
+the flags, written atomically).
 
 Without a compiler the functions fall back to their pure-Python versions,
 as the JAX package's do: :func:`beam_search_native` returns None and the
@@ -17,45 +15,31 @@ callers use :mod:`aptai_tpu_torch.decode.beam`.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
 import subprocess
 import threading
-from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parents[2] / "native" / "aptai_native.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+from aptai_tpu_torch.utils import cxx_build
+
+SOURCE = cxx_build.NATIVE_DIR / "aptai_native.cpp"
+BUILD_DIR = cxx_build.BUILD_DIR
+CXX_FLAGS = cxx_build.CXX_FLAGS
 
 _lib: Optional[ctypes.CDLL] = None
 _build_error: Optional[str] = None
 _lock = threading.Lock()
 
 
-def library_path() -> Path:
+def library_path():
     """Where the built library lives: keyed by the source and the flags."""
-    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    digest.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libaptai_native-{digest.hexdigest()[:16]}.so"
+    return cxx_build.library_path(SOURCE, "libaptai_native", BUILD_DIR,
+                                  CXX_FLAGS)
 
 
-def _build(out: Path) -> None:
-    cxx = os.environ.get("CXX") or shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found on PATH")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}"
-                        ".tmp")
-    res = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True, timeout=300)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed:\n{res.stdout}{res.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or none
+def _build(out) -> None:
+    cxx_build.build(SOURCE, out, CXX_FLAGS)
 
 
 def _load() -> Optional[ctypes.CDLL]:

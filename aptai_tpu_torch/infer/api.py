@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from aptai_tpu_torch import SAMPLE_RATE, TV_ORDER
 from aptai_tpu_torch.data.batching import AUDIO_BUCKET
@@ -46,6 +47,22 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU explicitly")
     return dev
+
+
+def serving_copy(model: nn.Module, device: torch.device) -> nn.Module:
+    """The model an entry point serves on ``device``: a copy of ``model``
+    in eval mode whose encoder Linear and Conv1d weights are cast once to
+    the compute dtype; ``model`` itself when it is already such a copy on
+    ``device`` (a streamer sharing a predictor's weights)."""
+    if getattr(model, "_serving_copy", False):
+        at = next(model.parameters()).device
+        if at.type == device.type and device.index in (None, at.index):
+            return model
+    serving = copy.deepcopy(model)
+    cast_matmul_weights(serving.wav2vec2, compute_dtype(model.cfg))
+    serving = serving.to(device).eval()
+    serving._serving_copy = True
+    return serving
 
 
 def _bucket(n: int, bucket: int = AUDIO_BUCKET) -> int:
@@ -179,9 +196,7 @@ class _Predictor:
             raise ValueError(f"unknown transfer_dtype {transfer_dtype!r}; "
                              f"expected one of {list(TRANSFER_DTYPES)}")
         self.device = resolve_device(device)
-        serving = copy.deepcopy(model)
-        cast_matmul_weights(serving.wav2vec2, compute_dtype(model.cfg))
-        self.model = serving.to(self.device).eval()
+        self.model = serving_copy(model, self.device)
         self.transfer_dtype = transfer_dtype
 
 

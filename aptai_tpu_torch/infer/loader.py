@@ -25,18 +25,10 @@ from torch import nn
 
 from aptai_tpu_torch.infer.api import (APTAIPredictor, ForceAPTAIPredictor,
                                       W2V2PRPredictor)
-from aptai_tpu_torch.models import (APTAI, W2V2PR, ForceAPTAI,
-                                    Wav2Vec2Config,
-                                    force_aptai_state_dict_from_jax,
-                                    state_dict_from_jax,
-                                    w2v2_pr_state_dict_from_jax)
+from aptai_tpu_torch.models import APTAI, W2V2PR, ForceAPTAI, Wav2Vec2Config
 from aptai_tpu_torch.train.checkpoints import (FLAX_PARAMS, PARAMS,
-                                               load_flax_params, load_json,
-                                               load_state)
+                                               load_json, read_params)
 
-_JAX_BRIDGES = {"w2v2_pr": w2v2_pr_state_dict_from_jax,
-                "aptai": state_dict_from_jax,
-                "force_aptai": force_aptai_state_dict_from_jax}
 _UNPORTED = "ROADMAP Queue 1 item 8"
 
 
@@ -75,15 +67,6 @@ def backbone_from_dict(d: Dict) -> Wav2Vec2Config:
     return Wav2Vec2Config(**{
         k: tuple(v) if isinstance(v, list) else v for k, v in d.items()
     })
-
-
-def read_params(ckpt_dir, kind: str) -> Dict:
-    """The ``state_dict`` of a checkpoint directory of model ``kind``:
-    ``params.pt`` as it is, or ``params.msgpack`` through the bridge."""
-    ckpt_dir = Path(ckpt_dir)
-    if (ckpt_dir / PARAMS).exists():
-        return load_state(ckpt_dir / PARAMS)
-    return _JAX_BRIDGES[kind](load_flax_params(ckpt_dir / FLAX_PARAMS))
 
 
 def _build_model(kind: str, backbone: Wav2Vec2Config,
@@ -130,7 +113,7 @@ def load_model(path, dtype: Optional[str] = None,
         backbone = dataclasses.replace(backbone, dtype=dtype)
     kind = cfg["kind"]
     model = _build_model(kind, backbone, cfg)
-    model.load_state_dict(read_params(ckpt_dir, kind), strict=True)
+    model.load_state_dict(read_params(ckpt_dir), strict=True)
     return kind, model.eval(), cfg["vocab"]
 
 

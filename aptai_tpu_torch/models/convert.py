@@ -121,6 +121,15 @@ def force_aptai_state_dict_from_jax(params: Mapping
     ``ForceAPTAI`` state_dict (float32 CPU tensors)."""
     sd = {f"w2v2_pr.{k}": v for k, v in
           w2v2_pr_state_dict_from_jax(params["w2v2_pr"]).items()}
+    return {**sd, **force_head_state_dict_from_jax(params)}
+
+
+def force_head_state_dict_from_jax(params: Mapping
+                                   ) -> Dict[str, torch.Tensor]:
+    """The head entries (all but the ``w2v2_pr`` tower) of a JAX
+    ``ForceAPTAI`` tree → this package's names; a tree without the tower
+    (the JAX trainer's head-only checkpoints) crosses whole."""
+    sd: Dict[str, torch.Tensor] = {}
 
     def dense(base, leaf):
         sd[f"{base}.weight"] = _t(leaf["kernel"]).T.contiguous()
@@ -143,3 +152,19 @@ def force_aptai_state_dict_from_jax(params: Mapping
     dense("rnn.linear_0", rnn["linear_0"])
     dense("rnn.linear_1", rnn["linear_1"])
     return sd
+
+
+def any_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX parameter tree of any of the three families → this package's
+    state_dict, the family read from the tree's top-level keys (a FORCE
+    tree without the tower gives the head's entries only)."""
+    if "pr_head" in params:
+        return w2v2_pr_state_dict_from_jax(params)
+    if "tv_linear" in params:
+        return state_dict_from_jax(params)
+    if "frame_lin" in params:
+        if "w2v2_pr" in params:
+            return force_aptai_state_dict_from_jax(params)
+        return force_head_state_dict_from_jax(params)
+    raise ValueError(f"not a JAX APTAI, W2V2PR or ForceAPTAI parameter "
+                     f"tree: top-level keys {sorted(params)}")

@@ -24,7 +24,7 @@ from aptai_tpu_torch.models import (APTAI, W2V2PR, ForceAPTAI,
 from aptai_tpu_torch.models.convert import encoder_state_dict_from_jax
 from aptai_tpu_torch.train.checkpoints import (FLAX_PARAMS, PARAMS,
                                                load_flax_params, load_json,
-                                               load_state)
+                                               load_state, read_params)
 from aptai_tpu_torch.train.config import run_device
 
 ENCODER = "wav2vec2."
@@ -186,12 +186,9 @@ def _load_pr_tower(model: ForceAPTAI, pr_model_path) -> bool:
     ``params.msgpack`` (through the bridge) or the reference's
     ``pytorch_model.bin`` (HF names: ``wav2vec2.`` and ``pr_head``); False
     when there is none."""
-    from aptai_tpu_torch.infer.loader import read_params
-
     best = Path(pr_model_path) / "best-model-ckpt"
     if (best / PARAMS).exists() or (best / FLAX_PARAMS).exists():
-        model.w2v2_pr.load_state_dict(read_params(best, "w2v2_pr"),
-                                      strict=True)
+        model.w2v2_pr.load_state_dict(read_params(best), strict=True)
         return True
     if not (best / REFERENCE_PR_FILE).exists():
         return False

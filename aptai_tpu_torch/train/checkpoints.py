@@ -14,11 +14,14 @@ model's ``state_dict()`` on the CPU and ``opt_state.pt`` an optimizer's
 ``state_dict()`` (its tensors on the CPU), both written with ``torch.save``
 and read with ``torch.load(weights_only=True)``.
 
-The JAX package's ``params.msgpack`` (``flax.serialization.to_bytes``) is
-read by :func:`msgpack_restore`, a decoder of the msgpack subset flax
-writes, into a nested dict of numpy arrays that the bridge in
-``models/convert.py`` takes. Resuming a JAX run's optax Adam state and
-writing flax msgpack are not implemented.
+The JAX package's ``params.msgpack`` and ``opt_state.msgpack``
+(``flax.serialization.to_bytes``) are read by :func:`msgpack_restore`, a
+decoder of the msgpack subset flax writes, into nested dicts of numpy
+arrays. Parameters cross the bridge in ``models/convert.py``; so do the
+Adam moments of a JAX run's last checkpoint (:func:`jax_adam_state`), which
+have the parameters' tree structure. A manager therefore resumes a JAX
+run's directory; it writes this package's files beside the JAX ones, which
+it never rewrites. Writing flax msgpack is not implemented.
 """
 
 from __future__ import annotations
@@ -32,9 +35,12 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from aptai_tpu_torch.models.convert import any_state_dict_from_jax
+
 PARAMS = "params.pt"
 OPT_STATE = "opt_state.pt"
 FLAX_PARAMS = "params.msgpack"
+FLAX_OPT_STATE = "opt_state.msgpack"
 
 
 def to_host(tree):
@@ -99,7 +105,10 @@ class CheckpointManager:
         return self.best_value >= value
 
     def has_last(self) -> bool:
-        return (self.last_dir / PARAMS).exists()
+        """A last checkpoint of either package is there: ``params.pt`` or
+        the JAX package's ``params.msgpack``."""
+        return ((self.last_dir / PARAMS).exists()
+                or (self.last_dir / FLAX_PARAMS).exists())
 
     def update(self, epoch: int, metrics: Dict[str, float], params,
                opt_state=None, step: int = 0,
@@ -164,17 +173,142 @@ class CheckpointManager:
 
     def restore_last(self, map_location=None):
         """``(params, opt_state or None, meta)`` of the last checkpoint,
-        tensors on ``map_location``; the best watermark comes back too."""
-        params = load_state(self.last_dir / PARAMS, map_location)
+        tensors on ``map_location``; the best watermark comes back too.
+
+        Where the directory holds only the JAX package's files, the params
+        cross the bridge and ``opt_state`` is a :class:`JaxAdamState`
+        (:func:`load_optimizer_state` keys it into an optimizer by
+        parameter name). A ``params.pt`` is newer than a ``params.msgpack``
+        beside it (this package resumed the JAX run), so it wins."""
         meta = load_json(self.last_dir / "train_meta.json")
         self.best_value = meta.get("best_value")
-        opt_path = self.last_dir / OPT_STATE
-        opt_state = (load_state(opt_path, map_location)
-                     if opt_path.exists() else None)
+        params = read_params(self.last_dir, map_location)
+        opt_state = None
+        if (self.last_dir / PARAMS).exists():
+            if (self.last_dir / OPT_STATE).exists():
+                opt_state = load_state(self.last_dir / OPT_STATE,
+                                       map_location)
+        elif (self.last_dir / FLAX_OPT_STATE).exists():
+            opt_state = jax_adam_state(
+                load_flax_params(self.last_dir / FLAX_OPT_STATE),
+                load_flax_params(self.last_dir / FLAX_PARAMS))
         return params, opt_state, meta
 
     def restore_best(self, map_location=None):
-        return load_state(self.best_dir / PARAMS, map_location)
+        return read_params(self.best_dir, map_location)
+
+
+def read_params(ckpt_dir, map_location=None) -> Dict:
+    """The ``state_dict`` of a checkpoint directory: ``params.pt`` (its
+    tensors on ``map_location``), else a JAX run's ``params.msgpack``
+    through the bridge of its family (CPU tensors)."""
+    ckpt_dir = Path(ckpt_dir)
+    if (ckpt_dir / PARAMS).exists():
+        return load_state(ckpt_dir / PARAMS, map_location)
+    return any_state_dict_from_jax(load_flax_params(ckpt_dir / FLAX_PARAMS))
+
+
+# -- a JAX run's optax Adam state -----------------------------------------------
+
+@dataclasses.dataclass
+class JaxAdamState:
+    """The optax Adam state of a JAX run's last checkpoint, its moments
+    under this package's parameter names (float32 CPU tensors)."""
+
+    count: int
+    exp_avg: Dict[str, torch.Tensor]
+    exp_avg_sq: Dict[str, torch.Tensor]
+
+    def torch_state_dict(self, optimizer: torch.optim.Optimizer,
+                         model: torch.nn.Module) -> Dict:
+        """``optimizer``'s ``state_dict`` holding these moments, each keyed
+        to its parameter by the name ``model`` gives it; ``step`` is the
+        optax ``count`` (float32, as ``torch.optim.Adam`` keeps it)."""
+        names = {id(p): n for n, p in model.named_parameters()}
+        state, index = {}, 0
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                name = names[id(p)]
+                m = self.exp_avg.get(name)
+                if m is None:
+                    raise ValueError(f"the JAX Adam state has no moments "
+                                     f"for parameter {name!r}")
+                if torch.isnan(m).any():
+                    raise ValueError(f"parameter {name!r} is frozen "
+                                     "(optax.masked) in the JAX run but "
+                                     "trained by this optimizer")
+                if m.shape != p.shape:
+                    raise ValueError(f"the JAX Adam moments of {name!r} have "
+                                     f"shape {tuple(m.shape)}, the parameter "
+                                     f"{tuple(p.shape)}")
+                state[index] = {
+                    "step": torch.tensor(float(self.count), dtype=torch.float32),
+                    "exp_avg": m, "exp_avg_sq": self.exp_avg_sq[name]}
+                index += 1
+        out = optimizer.state_dict()
+        out["state"] = state
+        return out
+
+
+def _adam_stage(opt_tree) -> Mapping:
+    """The ``ScaleByAdamState`` of a flax state dict of
+    ``aptai_tpu.train.harness.torch_adam``'s optax state: ``scale_by_adam``,
+    chained after ``add_decayed_weights`` (an empty state) when weight
+    decay is on (a chain is keyed ``"0"``, ``"1"``), the whole wrapped in
+    ``optax.masked`` (``inner_state``) when there are frozen prefixes."""
+    state = opt_tree
+    if isinstance(state, Mapping) and set(state) == {"inner_state"}:
+        state = state["inner_state"]
+    if isinstance(state, Mapping) and state and all(
+            isinstance(k, str) and k.isdigit() for k in state):
+        stages = [state[str(i)] for i in range(len(state))]
+        adam = [s for s in stages
+                if isinstance(s, Mapping) and {"count", "mu", "nu"} == set(s)]
+        if len(adam) == 1 and all(s is adam[0] or s == {} for s in stages):
+            return adam[0]
+    shape = (sorted(state) if isinstance(state, Mapping)
+             else type(state).__name__)
+    raise ValueError(
+        "cannot map this optax state onto torch.optim.Adam: expected "
+        "scale_by_adam, optionally chained after add_decayed_weights and "
+        f"wrapped in optax.masked; found keys {shape}")
+
+
+def _unmask(moments, params):
+    """``moments`` with each ``optax.MaskedNode`` leaf (an empty dict in the
+    state dict: a frozen parameter) replaced by NaNs of its parameter's
+    shape, so the tree crosses the bridge whole and a frozen leaf stays
+    recognisable."""
+    if isinstance(params, Mapping):
+        if not isinstance(moments, Mapping) or set(moments) != set(params):
+            raise ValueError("the JAX Adam moments do not have the "
+                             "parameters' tree structure")
+        return {k: _unmask(moments[k], params[k]) for k in params}
+    if isinstance(moments, Mapping) and not moments:
+        return np.full(tuple(params.shape), np.nan, np.float32)
+    return moments
+
+
+def jax_adam_state(opt_tree, params_tree) -> JaxAdamState:
+    """A JAX run's ``opt_state.msgpack`` tree → :class:`JaxAdamState`, its
+    moments crossing the same bridge as ``params_tree`` (the checkpoint's
+    ``params.msgpack`` tree, whose structure they have). Raises
+    ``ValueError`` for a state it cannot map."""
+    adam = _adam_stage(opt_tree)
+    return JaxAdamState(
+        int(adam["count"]),
+        any_state_dict_from_jax(_unmask(adam["mu"], params_tree)),
+        any_state_dict_from_jax(_unmask(adam["nu"], params_tree)))
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer,
+                         model: torch.nn.Module, opt_state) -> None:
+    """Load a restored ``opt_state`` into ``optimizer`` (over ``model``'s
+    parameters): this package's ``state_dict``, or a
+    :class:`JaxAdamState`."""
+    if isinstance(opt_state, JaxAdamState):
+        opt_state = opt_state.torch_state_dict(optimizer, model)
+    optimizer.load_state_dict(opt_state)
 
 
 # -- the JAX package's params.msgpack -----------------------------------------

@@ -26,7 +26,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from aptai_tpu_torch.train.checkpoints import CheckpointManager
+from aptai_tpu_torch.train.checkpoints import (CheckpointManager,
+                                               load_optimizer_state)
 from aptai_tpu_torch.train.harness import TrainStep, make_engine
 from aptai_tpu_torch.train.schedule import epoch_learning_rate
 
@@ -111,10 +112,10 @@ def fit(cfg, loss_fn: Callable, model: nn.Module, train_loader,
       ``np.random.default_rng(cfg.seed)``;
     * ``validate_fn(epoch)`` (on the live model) and best/last checkpoints
       each epoch; laptop mode trains one batch an epoch;
-    * with ``cfg.train_from_ckpt`` and a last checkpoint: parameters, Adam
-      state, the best watermark and the step counter (which seeds dropout
-      and SpecAugment) are restored and training resumes after the saved
-      epoch.
+    * with ``cfg.train_from_ckpt`` and a last checkpoint (this package's
+      or the JAX package's): parameters, Adam state, the best watermark
+      and the step counter (which seeds dropout and SpecAugment) are
+      restored and training resumes after the saved epoch.
     """
     step = engine if engine is not None else make_engine(
         cfg, loss_fn, model, frozen_prefixes=frozen_prefixes)
@@ -125,7 +126,7 @@ def fit(cfg, loss_fn: Callable, model: nn.Module, train_loader,
         model.load_state_dict(params)
         if opt_state is not None:
             # after the model is on its device: the moments land there
-            optimizer.load_state_dict(opt_state)
+            load_optimizer_state(optimizer, model, opt_state)
         step.step_count = int(meta["step"])
         start_epoch = int(meta["epoch"]) + 1
         log_fn(f"resumed from epoch {meta['epoch']} "

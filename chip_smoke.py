@@ -133,7 +133,29 @@ Phases (any failure ends the run with a non-zero exit code):
    best checkpoint for the held-out speaker against the fold's test dict
    (1e-4 relative). Checkpoint seconds and GB per run, peak memory per fold
    and the phase's seconds are printed; each run's directory is deleted
-   once checked.
+   once checked, but for 8c's and the first FORCE fold's best checkpoints.
+9. The inference surfaces at full width, in phase 8's directory: (9a) the
+   streamers of the three families (APTAI; W2V2PR with the fused feature
+   extractor; FORCE greedy; random weights, seed 0) over 10 minutes of the
+   synthetic corpora's audio in 4 × 20 s chunk groups with 2 s of
+   overlap: wall s, audio-s/s, peak memory, the launches a group (24
+   flash-forward, 6 fused under the flag), the stitched length of the whole
+   recording, ``per_file``, ``upload_ahead`` and the int16 transfer bit for
+   bit against the default, a 7.3 s recording streamed against
+   ``predict_batch`` (per-TV Pearson ≥ 0.999, frame agreement ≥ 99 %), a
+   small float32 APTAI streamed on the card against the CPU (1e-4), and
+   the flash forward and the fused conv against their plain versions at
+   the streamed shape (T = 999); (9b) ``build_app`` over 8c's checkpoint
+   behind the native (C++ epoll) transport: 256 ``/v1/predict`` requests
+   of 1-10 s, float32 and int16, from 16 client threads (requests/s,
+   audio-s/s, latency p50/p95/p99, batches formed, the launches of one
+   batch alone), each response held to ``ServingApp.handle`` on the same
+   audio; 64 of them through the Python transport; a 2-minute
+   ``/v1/stream`` in the binary format against the streamer; ``/healthz``
+   and ``/metrics``; (9c) ``python -m aptai_tpu_torch.infer`` in two
+   subprocesses started together: 8 wavs over 8c's checkpoint against
+   ``predict_batch`` in the same batches, and ``--task alignment`` over
+   the FORCE checkpoint.
 
 Output: the phases' lines, then one JSON line of kernel records, the card
 line, and last ``{"ok": true, "device": {...}}``. A flash kernel record's
@@ -144,15 +166,18 @@ the APTAI train step with the fused feature extractor, the W2V2PR train
 step, the W2V2PR train step with a frozen fused feature extractor, FORCE
 serving, FORCE serving with the fused feature extractor, the FORCE train
 step from audio, the FE cache pass, the APTAI step from the FE cache, the
-FORCE cache pass with the device beam, and the APTAI trainer's epoch from
-the FE cache), each read with the counts set to 0 just before it.
+FORCE cache pass with the device beam, the APTAI trainer's epoch from
+the FE cache, the three streams of 9a and one batch served over HTTP in
+9b), each read with the counts set to 0 just before it.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import http.client
 import io
 import json
 import os
@@ -160,6 +185,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 from signal import SIGTERM
@@ -172,13 +198,20 @@ from aptai_tpu_torch.data import (BucketedLoader, HPRCDataset, PrefetchLoader,
                                   make_synthetic_commonphone,
                                   make_synthetic_hprc)
 from aptai_tpu_torch.data.hprc import HPRC_SPEAKERS, loso_split
+from aptai_tpu_torch import TV_ORDER
+from aptai_tpu_torch.data.audio_io import save_wav
 from aptai_tpu_torch.data.manifest import read_rows
+from aptai_tpu_torch.data.synthetic import _random_utterance
 from aptai_tpu_torch.decode import native
 from aptai_tpu_torch.decode.beam import beam_decode_padded
 from aptai_tpu_torch.decode.device import beam_decode_device
 from aptai_tpu_torch.infer import (APTAIPredictor, ForceAPTAIPredictor,
-                                   MicroBatcher, W2V2PRPredictor)
-from aptai_tpu_torch.infer.api import _prepare, fetch_outputs
+                                   MicroBatcher, StreamingAPTAI,
+                                   StreamingForceAPTAI, StreamingW2V2PR,
+                                   W2V2PRPredictor, build_app, make_server)
+from aptai_tpu_torch.infer.api import _prepare, fetch_outputs, quantize_i16
+from aptai_tpu_torch.infer.native_transport import make_native_server
+from aptai_tpu_torch.infer.serve import decode_binary, decode_wire_audio
 from aptai_tpu_torch.infer.loader import load_model, load_predictor
 from aptai_tpu_torch.models import (APTAI, W2V2PR, ForceAPTAI, Wav2Vec2Config,
                                     random_aptai, random_force_aptai,
@@ -2879,7 +2912,8 @@ def phase_force_trainer(root, hprc_csv, pr_exp, speakers, card):
     cache): ``pr_spliced``, one corpus pass, head-only saves beside one
     ``frozen_tower.pt``, whole-model best and last after the fold,
     ``load_predictor(best)`` serving with 8a's tower bit for bit; then one
-    fold whose collapse guard falls back to ``beam_host``."""
+    fold whose collapse guard falls back to ``beam_host``. Returns the
+    first fold's best checkpoint, moved to ``root/force_best``."""
     def config(name, **kw):
         return ForceAPTAIConfig(
             exp_dir=str(Path(root) / name), hprc_csv_path=str(hprc_csv),
@@ -2949,6 +2983,8 @@ def phase_force_trainer(root, hprc_csv, pr_exp, speakers, card):
             raise AssertionError("8b: the FORCE checkpoint does not serve "
                                  "8a's tower")
         del pred, loaded, tower_8a, served, probe
+        force_best = Path(root) / "force_best"  # phase 9's FORCE checkpoint
+        shutil.move(fold_dirs[0] / "best-model-ckpt", force_best)
         shutil.rmtree(cfg.exp_dir)
 
         cfg = config("force_fallback", collapse_per_threshold=0.0,
@@ -2970,6 +3006,7 @@ def phase_force_trainer(root, hprc_csv, pr_exp, speakers, card):
         (train_force_aptai.FrozenEncodedCorpus,
          train_force_aptai.FrozenEncodedLoader) = real
     torch.cuda.empty_cache()
+    return force_best
 
 
 def phase_aptai_trainer(root, hprc_csv, spk, card):
@@ -3081,23 +3118,547 @@ def phase_eval_cli(aptai_exp, spk, fold_results, hprc_csv, card):
         raise AssertionError("8d: eval_cli disagrees with the trainer's test")
 
 
-def phase_trainers(card):
+def phase_trainers(card, root):
+    """Phase 8 in the directory ``root``: returns the APTAI trainer's epoch
+    launches and steps, and the APTAI and FORCE checkpoints it leaves
+    there for phase 9."""
     log("== phase 8: the trainers at full width")
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        cp_csv = make_synthetic_commonphone(root / "cp", 8, 2, 2)
-        hprc_csv = make_synthetic_hprc(root / "hprc", 3, HPRC_SPEAKERS[:4])
-        speakers = [r["speaker"] for r in read_rows(hprc_csv)]
-        speakers = list(dict.fromkeys(speakers))
-        pr_exp = phase_pr_trainer(root, cp_csv, hprc_csv, card)
-        phase_force_trainer(root, hprc_csv, pr_exp, speakers[:2], card)
-        shutil.rmtree(pr_exp)
-        aptai_exp, fold_results, epoch = phase_aptai_trainer(
-            root, hprc_csv, speakers[-1], card)
-        phase_eval_cli(aptai_exp, speakers[-1], fold_results, hprc_csv, card)
+    cp_csv = make_synthetic_commonphone(root / "cp", 8, 2, 2)
+    hprc_csv = make_synthetic_hprc(root / "hprc", 3, HPRC_SPEAKERS[:4])
+    speakers = [r["speaker"] for r in read_rows(hprc_csv)]
+    speakers = list(dict.fromkeys(speakers))
+    pr_exp = phase_pr_trainer(root, cp_csv, hprc_csv, card)
+    force_best = phase_force_trainer(root, hprc_csv, pr_exp, speakers[:2],
+                                     card)
+    shutil.rmtree(pr_exp)
+    aptai_exp, fold_results, epoch = phase_aptai_trainer(
+        root, hprc_csv, speakers[-1], card)
+    phase_eval_cli(aptai_exp, speakers[-1], fold_results, hprc_csv, card)
     log(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s")
-    return epoch
+    return epoch, aptai_exp / f"best-model-ckpt-{speakers[-1]}", force_best
+
+
+# -- phase 9 ------------------------------------------------------------------
+
+STREAM_KW = dict(chunk_seconds=20.0, overlap_seconds=2.0, chunk_batch=4)
+STREAM_SECONDS = 600.0
+STREAM_CLASSES = {"aptai": StreamingAPTAI, "w2v2_pr": StreamingW2V2PR,
+                  "force_aptai": StreamingForceAPTAI}
+FRAME_KEYS = {"aptai": "phn_fc_pred", "force_aptai": "pred_frame_phns"}
+
+
+def synthetic_recording(seconds: float, seed: int = 0) -> np.ndarray:
+    """``seconds`` of the synthetic corpora's phone-driven audio
+    (``data/synthetic.py``), utterance after utterance, quantized to 16-bit
+    PCM (so the int16 transfer of it is lossless)."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * SAMPLE_RATE)
+    parts, total = [], 0
+    while total < n:
+        parts.append(_random_utterance(rng)[2])
+        total += len(parts[-1])
+    return (quantize_i16(np.concatenate(parts)[:n]).astype(np.float32)
+            / np.float32(32768.0))
+
+
+def stream_groups(streamer, n: int):
+    """The chunk groups a streamer runs for ``n`` samples, and the frame
+    lengths of the last group's slots (a partial group's empty slots run
+    at the chunk's length)."""
+    s = streamer
+    starts = [0] if n <= s.chunk else list(range(0, n - s.overlap, s.hop))
+    lens = [min(s.chunk, n - st) for st in starts]
+    g = s.chunk_batch
+    last = lens[(len(lens) - 1) // g * g:]
+    last += [s.chunk] * (g - len(last))
+    frames = [int(s.model.cfg.feat_extract_output_lengths(x)) for x in last]
+    return -(-len(starts) // g), frames
+
+
+def flat_stream(out):
+    """A streamer's output as arrays by key, the per-TV dict stacked."""
+    flat = {k: v for k, v in out.items() if isinstance(v, np.ndarray)}
+    if "tvs_pred" in out:
+        flat["tvs_pred"] = np.stack([out["tvs_pred"][k] for k in TV_ORDER],
+                                    1)
+    return flat
+
+
+def same_stream(a, b) -> bool:
+    fa, fb = flat_stream(a), flat_stream(b)
+    return fa.keys() == fb.keys() and all(np.array_equal(fa[k], fb[k])
+                                          for k in fa)
+
+
+def served_agreement(got, want):
+    """The served-model gates of two outputs of one recording (dicts of
+    (T, ...) arrays, the TVs stacked): the least Pearson (per TV; the
+    logits flattened) and the least frame agreement (the frame phonemes;
+    the logits' argmax)."""
+    rs, agree = [], []
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape:
+            return -1.0, 0.0
+        if k == "phoneme_logits":
+            rs.append(pearson(g.ravel(), w.ravel()))
+            agree.append(float(np.mean(g.argmax(-1) == w.argmax(-1))))
+        elif w.dtype.kind == "f" and w.ndim == 2 and k == "tvs_pred":
+            rs += [pearson(g[:, i], w[:, i]) for i in range(w.shape[1])]
+        elif w.dtype.kind in "iu":
+            agree.append(float(np.mean(g == w)))
+    return min(rs, default=1.0), min(agree, default=1.0)
+
+
+def timed_stream(streamer, wav):
+    """One stream of ``wav`` with the launch counts set to 0 just before:
+    (output, wall s, counts, peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = streamer.predict(wav)  # waits for its last copy to the host
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    return out, wall, counts, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def stream_family(kind, model, pred, wav, card):
+    """9a for one family: the long recording streamed (launches a group,
+    the stitched length, audio-s/s, peak memory), then per_file,
+    upload_ahead and the int16 transfer bit for bit against it, and a
+    recording shorter than a chunk against ``pred.predict_batch``."""
+    cfg = model.cfg
+    fused = bool(cfg.fused_feature_extractor)
+    streamer = STREAM_CLASSES[kind](pred.model, **STREAM_KW)
+    streamer.predict(wav[:SAMPLE_RATE])  # warm: cuDNN plans, pinned pool
+    out, wall, counts, peak = timed_stream(streamer, wav)
+    groups, last_frames = stream_groups(streamer, len(wav))
+    n_frames = int(cfg.feat_extract_output_lengths(len(wav)))
+    lengths = {k: len(v) for k, v in flat_stream(out).items()}
+    variants = {}
+    for name, kw in (("per_file", dict(fetch_mode="per_file")),
+                     ("upload_ahead", dict(upload_ahead=True)),
+                     ("int16", dict(transfer_dtype="int16"))):
+        other = STREAM_CLASSES[kind](pred.model, **STREAM_KW, **kw)
+        variants[name] = same_stream(other.predict(wav), out)
+    short = wav[:int(7.3 * SAMPLE_RATE)]
+    batch = fetch_outputs(pred.predict_batch([short]) if kind != "w2v2_pr"
+                          else pred.encode_batch([short]))
+    n_short = int(batch["frame_lengths"][0])
+    keys = tuple(flat_stream(out))
+    r, agree = served_agreement(
+        flat_stream(streamer.predict(short)),
+        {k: batch[k][0, :n_short] for k in keys})
+    want = {"flash_attn_fwd": cfg.num_hidden_layers * groups,
+            "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
+            "fused_conv_ln_gelu": 6 * groups if fused else 0}
+    log(f"  9a {kind}{' (fused FE)' if fused else ''}: {STREAM_SECONDS:.0f} s "
+        f"streamed in {groups} groups of {STREAM_KW['chunk_batch']} x "
+        f"{STREAM_KW['chunk_seconds']:.0f} s chunks: {wall:.3f} s wall, "
+        f"{STREAM_SECONDS / wall:.1f} audio-s/s, peak {peak:.2f} GiB on "
+        f"{card}; launches {counts} ({per_step(counts, groups)} a group); "
+        f"stitched lengths {lengths} (want {n_frames}); bit-identical "
+        f"{variants}; 7.3 s streamed vs predict_batch: Pearson min "
+        f"{r:.6f}, frame agreement {agree:.4%}")
+    if not (counts == want and set(lengths.values()) == {n_frames}
+            and all(variants.values()) and r >= 0.999 and agree >= 0.99
+            and all(np.isfinite(v).all() for v in flat_stream(out).values()
+                    if v.dtype.kind == "f")):
+        raise AssertionError(f"9a: the {kind} stream is wrong (launches "
+                             f"want {want})")
+    return counts, groups, last_frames
+
+
+def check_streamed_kernel_shapes(streamer_frames):
+    """Kernels 1 and 4 against their plain versions at the streamed shape
+    (4 chunks of 20 s: T = 999; the last group's frame lengths), under
+    phase 2's tolerances."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    t = max(streamer_frames)
+    q, k, v = _qkv(gen, len(streamer_frames), 16, t, torch.bfloat16, True)
+    check_kernel_case(f"flash forward at the streamed shape "
+                      f"{len(streamer_frames)} x {t}", q, k, v, None,
+                      streamer_frames, backward=False)
+    length = (int(STREAM_KW["chunk_seconds"] * SAMPLE_RATE) - 10) // 5 + 1
+    lengths = [length]
+    for kk in FE_KERNELS[:-1]:
+        lengths.append((lengths[-1] - kk) // 2 + 1)
+    for i in (0, 5):
+        x, w, bb, ln_w, ln_b = fused_operands(
+            gen, len(streamer_frames), lengths[i], 512, 512, FE_KERNELS[i],
+            torch.bfloat16, bias=i == 0)
+        got = fused_conv.fused_conv_ln_gelu_cuda(x, w, bb, ln_w, ln_b, 2)
+        torch.cuda.synchronize()
+        want = fused_conv.fused_conv_ln_gelu_plain(x, w, bb, ln_w, ln_b, 2)
+        err = _check_fused(f"layer {i + 1} at the streamed shape", got, want,
+                           torch.bfloat16)
+        log(f"  fused_conv_ln_gelu layer {i + 1} at the streamed shape: x "
+            f"{tuple(x.shape)} -> T_out {got.shape[1]}, max_abs_err "
+            f"{err:.3e}")
+
+
+def check_small_stream_reference():
+    """A small float32 APTAI streamed on the card against the same stream
+    on the CPU (which runs the plain attention): TVs and probabilities
+    within 1e-4 of their largest magnitude, frame phonemes ≥ 99 %."""
+    model = random_aptai(small_force_config(), seed=1, num_phonemes=46)
+    wav = synthetic_recording(50.0, seed=3)
+    kw = dict(chunk_seconds=8.0, overlap_seconds=1.0, chunk_batch=2,
+              frame_keys=("tvs_pred", "phn_fc_pred", "phn_fc_probs"))
+    runs = [flat_stream(StreamingAPTAI(model, device=dev, **kw).predict(wav))
+            for dev in ("cpu", "cuda")]
+    errs = {k: float(np.abs(runs[1][k] - runs[0][k]).max()
+                     / max(np.abs(runs[0][k]).max(), 1e-30))
+            for k in ("tvs_pred", "phn_fc_probs")}
+    agree = float(np.mean(runs[1]["phn_fc_pred"] == runs[0]["phn_fc_pred"]))
+    log(f"  small f32 APTAI streamed, card vs CPU: relative errors "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} }, frame phonemes "
+        f"agree {agree:.4%} over {len(runs[0]['phn_fc_pred'])} frames")
+    if not (all(v <= 1e-4 for v in errs.values()) and agree >= 0.99):
+        raise AssertionError("9a: the card's stream disagrees with the CPU's")
+
+
+def phase_streaming(card):
+    """9a: the three families' streamers at full width (random weights,
+    seed 0) over 10 minutes of synthetic audio."""
+    wav = synthetic_recording(STREAM_SECONDS)
+    cfg = Wav2Vec2Config(dtype="bfloat16")
+    check_small_stream_reference()
+    out = {}
+    for kind, build in (
+            ("aptai", lambda: (random_aptai(cfg, seed=0), APTAIPredictor)),
+            ("w2v2_pr", lambda: (random_w2v2_pr(dataclasses.replace(
+                cfg, fused_feature_extractor=True), seed=0),
+                W2V2PRPredictor)),
+            ("force_aptai", lambda: (random_force_aptai(cfg, seed=0),
+                                     ForceAPTAIPredictor))):
+        t0 = time.perf_counter()
+        model, cls = build()
+        pred = cls(model)
+        log(f"  full-width {kind} (bf16, seed 0) on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out[kind] = stream_family(kind, model, pred, wav, card)
+        del model, pred
+        torch.cuda.empty_cache()
+    check_streamed_kernel_shapes(out["aptai"][2])
+    return out
+
+
+def http_load(port, reqs, threads=16):
+    """``reqs`` ((body, headers) each) POSTed to ``/v1/predict`` by
+    ``threads`` clients, each on its own kept-alive connection: (status
+    and body of each, client latency s of each, wall s)."""
+    results = [None] * len(reqs)
+    lat = [float("nan")] * len(reqs)
+
+    def client(indices):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        try:
+            for i in indices:
+                body, hdr = reqs[i]
+                t0 = time.perf_counter()
+                conn.request("POST", "/v1/predict", body=body, headers=hdr)
+                r = conn.getresponse()
+                results[i] = (r.status, r.read())
+                lat[i] = time.perf_counter() - t0
+        finally:
+            conn.close()
+
+    workers = [threading.Thread(target=client, args=(
+        list(range(k, len(reqs), threads)),)) for k in range(threads)]
+    t0 = time.perf_counter()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=600)
+    return results, np.asarray(lat), time.perf_counter() - t0
+
+
+def check_http_answers(results, direct, what):
+    """Every response 200 with ``ServingApp.handle``'s frame count for the
+    same audio, and over all of them phase 3's served-model gates against
+    it (per-TV Pearson ≥ 0.999 and frame-phoneme agreement ≥ 99 % over
+    the frames of every response together). Returns (least per-TV
+    Pearson, agreement, least Pearson of one response)."""
+    got_tv, want_tv, got_ph, want_ph, single = [], [], [], [], 1.0
+    for res, (status, data, _) in zip(results, direct):
+        if res is None or res[0] != 200 or status != 200:
+            raise AssertionError(f"9b: a {what} request failed: "
+                                 f"{None if res is None else res[0]}")
+        got, want = json.loads(res[1]), json.loads(data)
+        if got["frames"] != want["frames"]:
+            raise AssertionError(f"9b: {what} frame counts differ")
+        got_tv.append(np.stack([got["tvs_pred"][k] for k in TV_ORDER], 1))
+        want_tv.append(np.stack([want["tvs_pred"][k] for k in TV_ORDER], 1))
+        got_ph.append(np.asarray(got["phn_fc_pred"]))
+        want_ph.append(np.asarray(want["phn_fc_pred"]))
+        single = min(single, served_agreement(
+            {"tvs_pred": got_tv[-1]}, {"tvs_pred": want_tv[-1]})[0])
+    r, a = served_agreement(
+        {"tvs_pred": np.concatenate(got_tv),
+         "phn_fc_pred": np.concatenate(got_ph)},
+        {"tvs_pred": np.concatenate(want_tv),
+         "phn_fc_pred": np.concatenate(want_ph)})
+    if r < 0.999 or a < 0.99:
+        raise AssertionError(f"9b: {what} disagrees with ServingApp: "
+                             f"Pearson {r:.6f}, agreement {a:.4%}")
+    return r, a, single
+
+
+def replayed_identical(app, batches, reqs, results):
+    """Each batch the batcher formed, run again as it was formed and
+    formatted as the transports format a response: how many responses
+    are byte for byte what the transport sent."""
+    index = {decode_wire_audio(body, hdr.get("Content-Type", ""),
+                               hdr.get("X-Audio-Encoding"), None,
+                               app.max_seconds).tobytes(): i
+             for i, (body, hdr) in enumerate(reqs)}
+    same = 0
+    for wavs in batches:
+        for wav, item in zip(wavs, app.batcher.run_batch(wavs)):
+            status, payload = app._filter_fields(
+                app._format(item, len(wav)), {})
+            data = app._encode(status, payload, "json")[1]
+            i = index.get(wav.tobytes())
+            same += i is not None and results[i][1] == data
+    return same
+
+
+def latency_text(lat):
+    p50, p95, p99 = (np.percentile(lat, q) * 1e3 for q in (50, 95, 99))
+    return f"latency p50 {p50:.1f} / p95 {p95:.1f} / p99 {p99:.1f} ms"
+
+
+def phase_http(aptai_ckpt, card):
+    """9b: ``build_app`` over phase 8's APTAI run behind the native
+    transport: 256 requests of 1-10 s from 16 clients, float32 and int16;
+    64 of them through the Python transport; a 2-minute ``/v1/stream`` in
+    the binary format; ``/healthz`` and ``/metrics``. Returns the flash
+    launches of one batch served with no other traffic."""
+    t0 = time.perf_counter()
+    app = build_app(str(aptai_ckpt), max_batch_size=16, max_wait_ms=10.0,
+                    **STREAM_KW)
+    log(f"  build_app over phase 8's APTAI run (warm-up included) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    inner, batches = app.batcher.predict_batch, []
+
+    def counted(wavs, fields=None, real_rows=None):
+        batches.append(list(wavs[:real_rows]))  # the requests' own audio
+        return inner(wavs, fields=fields, real_rows=real_rows)
+
+    app.batcher.predict_batch = counted
+    native_srv = make_native_server(app, "127.0.0.1", 0)
+    py_srv = None
+    try:
+        port = native_srv.port
+        recording = synthetic_recording(STREAM_SECONDS, seed=1)
+        rng = np.random.default_rng(0)
+        secs = rng.uniform(1.0, 10.0, 256)
+        starts = rng.integers(0, len(recording) - 10 * SAMPLE_RATE, 256)
+        reqs = []
+        for i, (s, st) in enumerate(zip(secs, starts)):
+            wav = recording[st:st + int(s * SAMPLE_RATE)]
+            reqs.append((quantize_i16(wav).tobytes(),
+                         {"X-Audio-Encoding": "int16"}) if i % 2 else
+                        (wav.tobytes(), {"Content-Type":
+                                         "application/octet-stream"}))
+        audio_s = float(sum(int(s * SAMPLE_RATE) for s in secs)) / SAMPLE_RATE
+
+        reset_counts()
+        batches.clear()
+        status, _, _ = request_once(port, "POST", "/v1/predict", *reqs[0])
+        one = read_counts()
+        layers = app.streamer.model.cfg.num_hidden_layers
+        if not (status == 200 and len(batches) == 1
+                and one["flash_attn_fwd"] == layers
+                and sum(one.values()) == layers):
+            raise AssertionError(f"9b: one request made {len(batches)} "
+                                 f"batch(es) with launches {one}")
+
+        served = {}
+        for what, port_, sub in (("native", port, reqs),
+                                 ("python", None, reqs[:64])):
+            if port_ is None:
+                py_srv = make_server(app, "127.0.0.1", 0)
+                threading.Thread(target=py_srv.serve_forever,
+                                 daemon=True).start()
+                port_ = py_srv.server_address[1]
+            batches.clear()
+            results, lat, wall = http_load(port_, sub)
+            served[what] = (results, lat, wall, list(batches))
+        app.batcher.predict_batch = inner
+        with concurrent.futures.ThreadPoolExecutor(16) as pool:
+            direct = list(pool.map(lambda r: app.handle(
+                "POST", "/v1/predict", r[1], r[0]), reqs))
+        for what, (results, lat, wall, formed) in served.items():
+            n = len(results)
+            sub_s = float(sum(int(x * SAMPLE_RATE) for x in secs[:n])
+                          ) / SAMPLE_RATE
+            r, a, single = check_http_answers(results, direct[:n], what)
+            same = replayed_identical(app, formed, reqs[:n], results)
+            log(f"  9b {what} transport: {n} requests ({sub_s:.1f} "
+                f"audio-s, float32 and int16) from 16 clients in "
+                f"{wall:.3f} s: {n / wall:.1f} requests/s, "
+                f"{sub_s / wall:.1f} audio-s/s, {latency_text(lat)} on "
+                f"{card}; {len(formed)} batches of mean "
+                f"{np.mean([len(b) for b in formed]):.2f} requests (max "
+                f"16); responses byte for byte a replay of their batch "
+                f"{same}/{n}; against ServingApp.handle: per-TV Pearson "
+                f"min {r:.6f} (one response's min {single:.6f}), frame "
+                f"agreement {a:.4%}")
+            if same != n:
+                raise AssertionError(f"9b: {what} responses differ from "
+                                     "their batches' replay")
+        log(f"  9b one batch alone launched {one}")
+
+        wav = recording[:120 * SAMPLE_RATE]
+        t0 = time.perf_counter()
+        status, ctype, data = request_once(port, "POST",
+                                           "/v1/stream?format=binary",
+                                           wav.tobytes(), {})
+        stream_s = time.perf_counter() - t0
+        got = decode_binary(data) if status == 200 else {}
+        want = app.streamer.predict(wav)
+        n_frames = int(app.streamer.model.cfg.feat_extract_output_lengths(
+            len(wav)))
+        same = status == 200 and same_stream(got, want)
+        r, a = served_agreement(flat_stream(got), flat_stream(want)) if (
+            status == 200) else (-1.0, 0.0)
+        health = request_once(port, "GET", "/healthz", None, {})
+        metrics = request_once(port, "GET", "/metrics", None, {})
+        m = json.loads(metrics[2]) if metrics[0] == 200 else {}
+        log(f"  9b /v1/stream, 120 s, binary: {status} {ctype} in "
+            f"{stream_s:.3f} s, {got.get('frames')} frames (want "
+            f"{n_frames}), against the streamer called directly: "
+            f"bit-identical {same}, Pearson min {r:.6f}, agreement {a:.4%}; "
+            f"/healthz {health[0]}; /metrics {metrics[0]}: requests "
+            f"{m.get('requests_total')}, errors {m.get('errors_total')}, "
+            f"server-side p50 {m.get('latency_p50_ms')} / p95 "
+            f"{m.get('latency_p95_ms')} ms, stream_rtf {m.get('stream_rtf')}")
+        if not (status == 200 and got["frames"] == n_frames and r >= 0.999
+                and a >= 0.99 and health[0] == 200 and metrics[0] == 200
+                and m.get("errors_total") == 0):
+            raise AssertionError("9b: /v1/stream, /healthz or /metrics")
+        return one
+    finally:
+        native_srv.shutdown()
+        if py_srv is not None:
+            py_srv.shutdown()
+            py_srv.server_close()
+        app.batcher.stop()
+
+
+def request_once(port, method, path, body, headers):
+    """(status, content type, body) of one request on a new connection."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request(method, path, body=body, headers=headers)
+        r = conn.getresponse()
+        return r.status, r.getheader("Content-Type"), r.read()
+    finally:
+        conn.close()
+
+
+def phase_cli(root, aptai_ckpt, force_ckpt, card):
+    """9c: ``python -m aptai_tpu_torch.infer`` in subprocesses on the card,
+    both started together: 8 wavs over phase 8's APTAI run (its JSON lines
+    against ``predict_batch`` in the same batches of 4), and ``--task
+    alignment`` over its FORCE run (against ``get_alignment``: the same
+    shape, per-frame argmax over the phonemes ≥ 99 %; a run whose greedy
+    decode is empty aligns no phoneme, in both)."""
+    rng = np.random.default_rng(2)
+    recording = synthetic_recording(90.0, seed=2)
+    wavs, paths = [], []
+    (root / "wavs").mkdir()
+    for i, s in enumerate(rng.uniform(1.0, 10.0, 8)):
+        st = int(rng.integers(0, len(recording) - 10 * SAMPLE_RATE))
+        wavs.append(recording[st:st + int(s * SAMPLE_RATE)])
+        paths.append(str(root / "wavs" / f"utt{i}.wav"))
+        save_wav(paths[-1], wavs[-1], SAMPLE_RATE)
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(here), os.environ.get("PYTHONPATH")) if p))
+    extra = ["--cpu"] if PLATFORM == "cpu" else []
+    argvs = {"aptai": [str(aptai_ckpt), *paths, "--batch_size", "4"],
+             "alignment": [str(force_ckpt), *paths[:3], "--task",
+                           "alignment"]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(
+        [sys.executable, "-m", "aptai_tpu_torch.infer", *argv, *extra],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for k, argv in argvs.items()}
+    try:
+        pred = load_predictor(aptai_ckpt)
+        want = [fetch_outputs(pred.predict_batch(
+            wavs[i:i + 4], fields=("tvs_pred", "phn_fc_pred")))
+            for i in range(0, 8, 4)]
+        del pred
+        fpred = load_predictor(force_ckpt)
+        want_al = [fpred.get_alignment(w)["alignment"] for w in wavs[:3]]
+        del fpred
+        outs = {k: p.communicate(timeout=600) for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cli_s = time.perf_counter() - t0
+    rcs = {k: p.returncode for k, p in procs.items()}
+    if any(rcs.values()):
+        raise AssertionError(f"9c: the CLI failed: {rcs}: "
+                             + " | ".join(e[-2000:] for _, e in outs.values()))
+    lines = [json.loads(x) for x in outs["aptai"][0].splitlines()]
+    worst_r, worst_a, worst_err = 1.0, 1.0, 0.0
+    for i, line in enumerate(lines):
+        w = want[i // 4]
+        n = int(w["frame_lengths"][i % 4])
+        tv_w = w["tvs_pred"][i % 4, :n]
+        tv_g = np.stack([line["tvs_pred"][k] for k in line["tvs_pred"]], 1)
+        r, a = served_agreement(
+            {"tvs_pred": tv_g, "phn_fc_pred": np.asarray(
+                line["pred_frame_phns"])},
+            {"tvs_pred": tv_w, "phn_fc_pred": w["phn_fc_pred"][i % 4, :n]})
+        worst_r, worst_a = min(worst_r, r), min(worst_a, a)
+        if tv_g.shape == tv_w.shape:
+            worst_err = max(worst_err, float(np.abs(tv_g - tv_w).max()))
+    aligns = [np.asarray(json.loads(x)["alignment"], np.float32)
+              for x in outs["alignment"][0].splitlines()]
+    cfg = Wav2Vec2Config()
+    al_agree, al_err = 1.0, 0.0
+    for got, want, w in zip(aligns, want_al, wavs):
+        frames = int(cfg.feat_extract_output_lengths(len(w)))
+        if want.shape[0] == 0:  # no phoneme decoded: an empty matrix
+            al_agree = min(al_agree, float(got.size == 0
+                                           and want.shape == (0, frames)))
+            continue
+        if got.shape != want.shape or want.shape[1] != frames:
+            al_agree = 0.0
+            continue
+        al_agree = min(al_agree, float(np.mean(
+            got.argmax(0) == want.argmax(0))))
+        al_err = max(al_err, float(np.abs(got - want).max()))
+    log(f"  9c CLI subprocesses (both together) in {cli_s:.1f} s on {card}: "
+        f"{len(lines)} JSON lines over the APTAI run against predict_batch "
+        f"in the same batches: Pearson min {worst_r:.6f}, frame agreement "
+        f"{worst_a:.4%}, TV max_abs_err {worst_err:.3e}; --task alignment "
+        f"over the FORCE run: (phonemes, frames) "
+        f"{[tuple(a.shape) for a in want_al]}, against get_alignment: "
+        f"argmax agreement {al_agree:.4%}, max_abs_err {al_err:.3e}")
+    if not (len(lines) == 8 and worst_r >= 0.999 and worst_a >= 0.99
+            and len(aligns) == 3 and al_agree >= 0.99):
+        raise AssertionError("9c: the CLI's output is wrong")
+
+
+def phase_inference(root, aptai_ckpt, force_ckpt, card):
+    log("== phase 9: the inference surfaces at full width")
+    t_phase = time.perf_counter()
+    streams = phase_streaming(card)
+    http_one = phase_http(aptai_ckpt, card)
+    phase_cli(root, aptai_ckpt, force_ckpt, card)
+    log(f"  phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return streams, http_one
 
 
 def main() -> int:
@@ -3150,7 +3711,11 @@ def main() -> int:
     force_training = phase_force_train(card)
     (fe_pass, fe_batches), fe_step, (force_pass, force_pass_batches) = \
         phase_data(card)
-    trainer_epoch, trainer_steps = phase_trainers(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        (trainer_epoch, trainer_steps), aptai_ckpt, force_ckpt = \
+            phase_trainers(card, Path(tmp))
+        streams, http_one = phase_inference(Path(tmp), aptai_ckpt,
+                                            force_ckpt, card)
     for rec in records:
         name = rec["name"]
         rec["launches"] = (pr_serving if name == "fused_conv_ln_gelu"
@@ -3180,7 +3745,13 @@ def main() -> int:
                 "batches": force_pass_batches,
                 "launches": force_pass[name]},
             "aptai_trainer_epoch_from_fe_cache": {
-                "steps": trainer_steps, "launches": trainer_epoch[name]}}
+                "steps": trainer_steps, "launches": trainer_epoch[name]},
+            **{f"stream_{path}": {"groups": streams[kind][1],
+                                  "launches": streams[kind][0][name]}
+               for path, kind in (("aptai", "aptai"),
+                                  ("w2v2_pr_fused_fe", "w2v2_pr"),
+                                  ("force", "force_aptai"))},
+            "http_serving": {"batches": 1, "launches": http_one[name]}}
 
     print(json.dumps({"kernels": records}))
     print(card)

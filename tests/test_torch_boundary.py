@@ -64,9 +64,15 @@ print("TRAINERS", all(m in sys.modules for m in (
     "aptai_tpu_torch.train.checkpoints", "aptai_tpu_torch.train.builders",
     "aptai_tpu_torch.train.loop", "aptai_tpu_torch.train.eval_cli",
     "aptai_tpu_torch.infer.loader")))
+print("SERVING", all(m in sys.modules for m in (
+    "aptai_tpu_torch.infer.streaming", "aptai_tpu_torch.infer.__main__",
+    "aptai_tpu_torch.infer.serve", "aptai_tpu_torch.infer.native_transport",
+    "aptai_tpu_torch.utils.cxx_build")))
 # importing builds and loads nothing
 print("NATIVE_LOADED", sys.modules["aptai_tpu_torch.decode.native"]._lib
       is not None)
+print("HTTP_LOADED", sys.modules["aptai_tpu_torch.infer.native_transport"]
+      ._lib is not None)
 """
 
 
@@ -85,7 +91,9 @@ def test_port_imports_no_jax_or_reference_package():
     assert "FORCE True" in res.stdout, res.stdout
     assert "DATA True" in res.stdout, res.stdout
     assert "TRAINERS True" in res.stdout, res.stdout
+    assert "SERVING True" in res.stdout, res.stdout
     assert "NATIVE_LOADED False" in res.stdout, res.stdout
+    assert "HTTP_LOADED False" in res.stdout, res.stdout
 
 
 _RUN_CLIS = """
@@ -117,6 +125,35 @@ def test_cli_entry_points_import_no_jax_msgpack_or_wandb():
     assert "BAD []" in res.stdout, res.stdout
     for flag in ("--cp_csv_path", "--hprc_csv_path", "--pr_model_path",
                  "--collapse_fallback", "--speaker"):
+        assert flag in res.stdout, flag
+
+
+_RUN_INFER_CLIS = """
+import runpy, sys
+for name in ("aptai_tpu_torch.infer", "aptai_tpu_torch.infer.serve"):
+    sys.argv = [name, "--help"]
+    try:
+        runpy.run_module(name, run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        assert e.code == 0, (name, e.code)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "aptai_tpu", "pandas", "msgpack", "wandb"))
+print("BAD", bad)
+"""
+
+
+def test_inference_clis_import_no_jax():
+    """``python -m aptai_tpu_torch.infer --help`` and the serving CLI's:
+    each parses its flags without loading JAX or the JAX package."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+    res = subprocess.run([sys.executable, "-c", _RUN_INFER_CLIS], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+    for flag in ("--task", "--transfer_dtype", "--transport",
+                 "--max_stream_seconds"):
         assert flag in res.stdout, flag
 
 

@@ -13,14 +13,20 @@
 * ``load_model`` / ``load_predictor`` on experiment directories the JAX
   ``CheckpointManager`` wrote, for each model kind: the port's predictor
   outputs equal the JAX predictor's (float32, within 1e-4 of the largest
-  magnitude; decoded sequences equal).
+  magnitude; decoded sequences equal);
+* a JAX run's optax Adam state: the masked FORCE state (the tower frozen,
+  weight decay on) puts the head's moments on their parameters by name and
+  ``count`` in ``step``; a state other than the trainers' Adam, or a
+  parameter the JAX run froze but the port trains, raises.
 """
 
 import dataclasses
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 from flax import serialization
@@ -31,11 +37,14 @@ from aptai_tpu.models import W2V2PR as JaxW2V2PR
 from aptai_tpu.models import ForceAPTAI as JaxForceAPTAI
 from aptai_tpu.models import configs as jcfg
 from aptai_tpu.train import checkpoints as jckpt
+from aptai_tpu.train import harness as jharness
 from aptai_tpu_torch.infer.loader import (backbone_from_dict, load_model,
                                           load_predictor,
                                           resolve_checkpoint_dir)
+from aptai_tpu_torch.models import APTAI, ForceAPTAI
 from aptai_tpu_torch.models import configs as tcfg
 from aptai_tpu_torch.train import checkpoints as tckpt
+from aptai_tpu_torch.train import torch_adam
 
 from _torch_port import (jax_lstm_one_step_a_loop, one_torch_thread,
                          random_jax_aptai_params, random_jax_force_params,
@@ -294,3 +303,78 @@ def test_backbone_dicts_cross_and_unported_fields_raise(jax_experiments):
         load_model(jax_experiments["aptai"], quant="w8a8")
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         load_predictor(jax_experiments["aptai"], device="cpu", mesh=object())
+
+
+# -- a JAX run's optax Adam state ---------------------------------------------
+
+def _jax_adam_checkpoint(root, params, frozen=(), weight_decay=0.0, seed=0):
+    """A JAX last checkpoint of ``params`` whose optax state (the JAX
+    trainers' ``torch_adam``) took one update of random gradients, written
+    by the JAX manager; returns the state's ``count``, ``mu`` and ``nu``."""
+    tx = jharness.torch_adam(weight_decay=weight_decay,
+                             frozen_prefixes=frozen)
+    rng = np.random.default_rng(seed)
+    grads = jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(
+        np.float32), params)
+    state = jax.jit(tx.init)(params)
+    update = jax.jit(tx.update)
+    for _ in range(2):
+        _, state = update(grads, state, params)
+    state = jax.device_get(state)
+    jckpt.CheckpointManager(root, "m").save_interrupt(
+        1, params, opt_state=state, step=2)
+    inner = state.inner_state if frozen else state
+    adam = [s for s in inner if isinstance(s, optax.ScaleByAdamState)][0]
+    return int(adam.count), adam.mu, adam.nu
+
+
+def test_force_head_moments_restored_from_a_jax_run(jax_trees, tmp_path):
+    """A masked FORCE state (the tower frozen, weight decay on): the head's
+    moments land on their parameters by name, the tower holds none."""
+    params = jax.tree.map(np.asarray, jax_trees["force_aptai"])
+    count, mu, nu = _jax_adam_checkpoint(tmp_path, params,
+                                         frozen=("w2v2_pr",),
+                                         weight_decay=1e-2)
+    manager = tckpt.CheckpointManager(tmp_path, "m")
+    assert manager.has_last()
+    sd, opt_state, meta = manager.restore_last()
+    assert meta["step"] == count == 2
+    model = ForceAPTAI(tcfg.tiny_config(**STACK), vocab_size=V)
+    model.load_state_dict(sd)
+    opt = torch_adam(model)
+    tckpt.load_optimizer_state(opt, model, opt_state)
+    state = {n: opt.state[p] for n, p in model.named_parameters()
+             if p in opt.state}
+    assert set(state) == {n for n, p in model.named_parameters()
+                          if not n.startswith("w2v2_pr.")}
+    for name, want_mu, want_nu in (
+            ("frame_lin.weight", mu["frame_lin"]["kernel"].T,
+             nu["frame_lin"]["kernel"].T),
+            ("rnn.lstm.weight_hh_l0_reverse", mu["rnn"]["w_hh_bwd"],
+             nu["rnn"]["w_hh_bwd"]),
+            ("phn_encoder.embed.weight", mu["phn_encoder"]["embed"][
+                "embedding"], nu["phn_encoder"]["embed"]["embedding"])):
+        np.testing.assert_array_equal(state[name]["exp_avg"].numpy(),
+                                      np.asarray(want_mu), err_msg=name)
+        np.testing.assert_array_equal(state[name]["exp_avg_sq"].numpy(),
+                                      np.asarray(want_nu), err_msg=name)
+        assert state[name]["step"].dtype == torch.float32
+        assert float(state[name]["step"]) == count
+
+
+def test_unmappable_jax_optimizer_state_raises(jax_trees, tmp_path):
+    """An optax state other than the trainers' Adam names itself in an
+    error; resuming never starts over in silence."""
+    params = jax.tree.map(np.asarray, jax_trees["aptai"])
+    state = optax.sgd(0.1, momentum=0.9).init(params)
+    jckpt.CheckpointManager(tmp_path, "m").save_interrupt(
+        1, params, opt_state=state, step=2)
+    with pytest.raises(ValueError, match="cannot map this optax state"):
+        tckpt.CheckpointManager(tmp_path, "m").restore_last()
+
+    # a parameter the port trains but the JAX run froze
+    _jax_adam_checkpoint(tmp_path, params, frozen=("tv_linear",))
+    _, opt_state, _ = tckpt.CheckpointManager(tmp_path, "m").restore_last()
+    model = APTAI(tcfg.tiny_config(**STACK), num_phonemes=V)
+    with pytest.raises(ValueError, match="tv_linear.weight.*frozen"):
+        tckpt.load_optimizer_state(torch_adam(model), model, opt_state)

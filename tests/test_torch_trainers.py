@@ -12,6 +12,11 @@
   ``samples_per_epoch`` batches: the same batches chosen, per-epoch
   ``mean_train_loss`` and validation metrics within 1e-4 relative, the
   same ``improved`` flags;
+* resuming a JAX run: the JAX ``fit`` of APTAI (frozen FE) and of W2V2PR
+  preempted mid-epoch, then resumed by the JAX ``fit`` and by the port's
+  from copies of its directory (``params.msgpack``, ``opt_state.msgpack``):
+  the port restores the step counter and Adam state, and the remaining
+  epochs' losses and metrics match within 1e-4 relative;
 * preemption and resume on the port alone: mid-epoch (the epoch repeats;
   parameters, Adam state and the step counter restored bit for bit), at an
   epoch boundary with ``ckpt_every=0`` (no best written), a second SIGINT
@@ -26,6 +31,7 @@ import dataclasses
 import functools
 import json
 import os
+import shutil
 import signal
 
 import jax
@@ -40,6 +46,7 @@ from aptai_tpu.data import collate_tv as jax_collate_tv
 from aptai_tpu.data.hprc import loso_split as jax_loso_split
 from aptai_tpu.models.hf_convert import convert_w2v2_pr
 from aptai_tpu.models import APTAI as JaxAPTAI
+from aptai_tpu.models import W2V2PR as JaxW2V2PR
 from aptai_tpu.models import configs as jcfg
 from aptai_tpu.train import checkpoints as jckpt
 from aptai_tpu.train import config as jconfig
@@ -47,6 +54,7 @@ from aptai_tpu.train import evaluate as jeval
 from aptai_tpu.train import harness as jharness
 from aptai_tpu.train import loop as jloop
 from aptai_tpu.train import train_aptai as jtrain_aptai
+from aptai_tpu.train import train_pr as jtrain_pr
 from aptai_tpu_torch.data import (BucketedLoader, HPRCDataset, build_vocab,
                                   collate_tv, make_synthetic_commonphone,
                                   make_synthetic_hprc)
@@ -59,11 +67,12 @@ from aptai_tpu_torch.train import config as tconfig
 from aptai_tpu_torch.train import (train_aptai, train_force_aptai,
                                    train_pr)
 from aptai_tpu_torch.train.checkpoints import CheckpointManager, load_state
-from aptai_tpu_torch.train.evaluate import validate_tv
+from aptai_tpu_torch.train.evaluate import validate_pr, validate_tv
 from aptai_tpu_torch.train.loop import Preempted, fit
 
 from _torch_port import (NO_DROP, one_torch_thread, port_aptai_from_jax,
-                         random_jax_aptai_params)
+                         port_w2v2_pr_from_jax, random_jax_aptai_params,
+                         random_jax_w2v2_pr_params)
 
 # the 7-layer conv stack (49 frames a second, as the manifests), tiny widths
 STACK = dict(conv_dim=(16,) * 7, conv_kernel=(10, 3, 3, 3, 3, 2, 2),
@@ -329,6 +338,210 @@ def test_fit_matches_jax_fit(hprc, tmp_path):
                 _close(t[k], val, k)
     # training moved the weights, so the epochs' losses differ
     assert t_hist[0]["mean_train_loss"] != t_hist[1]["mean_train_loss"]
+
+
+
+# -- resuming a JAX run -------------------------------------------------------
+
+class _PreemptingLoader:
+    """Fresh copies of ``batches`` each pass (or ``loader``'s); sends
+    SIGUSR1 to this process before the first batch of pass ``at``."""
+
+    def __init__(self, batches, at=None):
+        self.batches, self.at, self.epoch = batches, at, 0
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        epoch, self.epoch = self.epoch, self.epoch + 1
+        for i, b in enumerate(self.batches):
+            if (epoch, i) == (self.at, 0):
+                os.kill(os.getpid(), signal.SIGUSR1)
+            yield dict(b)
+
+
+def _resume_jax_run(tmp_path, jax_fit, port_fit):
+    """A JAX run preempted in its second of 3 epochs, then resumed by the
+    JAX ``fit`` and by the port's ``fit`` from copies of its directory:
+    both histories, the JAX checkpoint's meta, and what the port's
+    ``log_fn`` saw of its engine at the restore."""
+    with pytest.raises(jloop.Preempted):
+        jax_fit(tmp_path / "jax", at=1, resume=False)
+    meta = json.loads((tmp_path / "jax" / "last-model-ckpt"
+                       / "train_meta.json").read_text())
+    assert meta["preempted"] and meta["epoch"] == 0
+    for name in ("jax_resumed", "port_resumed"):
+        shutil.copytree(tmp_path / "jax", tmp_path / name)
+    j_hist = jax_fit(tmp_path / "jax_resumed", at=None, resume=True)
+    t_hist, seen = port_fit(tmp_path / "port_resumed")
+    # the port wrote its own files and left the JAX run's as they were
+    last = tmp_path / "port_resumed" / "last-model-ckpt"
+    assert (last / "params.pt").exists() and (last / "opt_state.pt").exists()
+    assert ((last / "params.msgpack").read_bytes()
+            == (tmp_path / "jax" / "last-model-ckpt"
+                / "params.msgpack").read_bytes())
+    return j_hist, t_hist, meta, seen
+
+
+def _port_restore_probe(engine):
+    """A ``log_fn`` that records the engine's step counter and Adam state
+    when ``fit`` reports the restore."""
+    seen = {}
+
+    def log_fn(msg):
+        if msg.startswith("resumed"):
+            opt = engine.optimizer
+            seen["step"] = engine.step_count
+            seen["adam_steps"] = sorted({float(s["step"])
+                                         for s in opt.state.values()})
+            seen["n_state"] = len(opt.state)
+    return log_fn, seen
+
+
+def _assert_resumes_match(j_hist, t_hist, metric_prefix):
+    assert [e["epoch"] for e in t_hist] == [e["epoch"] for e in j_hist] \
+        == [1, 2]
+    for t, j in zip(t_hist, j_hist):
+        assert (t["lr"], t["train_steps"], t["improved"]) == (
+            j["lr"], j["train_steps"], j["improved"])
+        for k, val in j.items():
+            if k.startswith(("mean_train_loss", metric_prefix)):
+                _close(t[k], val, k)
+
+
+def test_port_resumes_a_jax_aptai_run(hprc, tmp_path):
+    """The JAX APTAI ``fit`` (frozen FE) preempted mid-epoch: the port's
+    ``fit`` restores its params, Adam moments, step and watermark from
+    ``params.msgpack`` / ``opt_state.msgpack``, and the remaining epochs'
+    losses and metrics match the JAX resume's within 1e-4."""
+    path, rows, vocab = hprc
+    v = len(vocab)
+    cfg_t = tcfg.tiny_config(**STACK, **QUIET)
+    params = random_jax_aptai_params(cfg_t, v, seed=3)
+    common = dict(num_epochs=3, batch_size=1, learning_rate=1e-3, seed=0,
+                  lr_decay=0.5, target_metric="val_mean_rmse")
+    samples = 2
+
+    df = pd.read_csv(path)
+    j_train, j_valid, _, _ = jax_loso_split(df, "M03", "both", seed=0)
+    jmodel = JaxAPTAI(jcfg.tiny_config(**STACK, **QUIET), tv_drop=0.0,
+                      phn_drop=0.0, num_phonemes=v)
+    j_eval = jtrain_aptai.make_eval_forward(jmodel)
+    j_valid_dl = JaxLoader(JaxHPRC(j_valid, vocab, "both"), 1,
+                           jax_collate_tv, shuffle=False)
+    j_batches = list(JaxLoader(JaxHPRC(j_train, vocab, "both"), 1,
+                               jax_collate_tv, shuffle=False))
+    engine = None
+
+    def jax_fit(exp_dir, at, resume):
+        nonlocal engine
+        cfg = jconfig.APTAIConfig(exp_dir=str(exp_dir), mesh_data=1,
+                                  **common)
+        cfg.train_from_ckpt = resume
+        engine = engine or jharness.make_engine(
+            cfg, jtrain_aptai.aptai_loss_fn(jmodel))
+        return jloop.fit(
+            cfg, None, params, _PreemptingLoader(j_batches, at),
+            lambda p, e: jeval.validate_tv(functools.partial(j_eval, p),
+                                           j_valid_dl),
+            jckpt.CheckpointManager(exp_dir, "val_mean_rmse"),
+            samples_per_epoch=samples, log_fn=lambda m: None,
+            engine=engine)[1]
+
+    def port_fit(exp_dir):
+        train, valid, _, _ = loso_split(rows, "M03", "both", seed=0)
+        # other weights: only the restore can make the runs agree
+        model = port_aptai_from_jax(cfg_t, random_jax_aptai_params(
+            cfg_t, v, seed=4), v, tv_drop=0.0, phn_drop=0.0)
+        cfg = tconfig.APTAIConfig(exp_dir=str(exp_dir), platform="cpu",
+                                  train_from_ckpt=True, **common)
+        step = make_engine(cfg, train_aptai.aptai_loss_fn(), model)
+        eval_fwd = train_aptai.make_eval_forward(model)
+        valid_dl = BucketedLoader(HPRCDataset(valid, vocab, "both"), 1,
+                                  collate_tv, shuffle=False)
+        log_fn, seen = _port_restore_probe(step)
+        _, hist = fit(
+            cfg, None, model,
+            _PreemptingLoader(list(BucketedLoader(
+                HPRCDataset(train, vocab, "both"), 1, collate_tv,
+                shuffle=False))),
+            lambda e: validate_tv(eval_fwd, valid_dl),
+            CheckpointManager(exp_dir, "val_mean_rmse"),
+            samples_per_epoch=samples, log_fn=log_fn, engine=step)
+        n_trained = sum(1 for _ in step.optimizer.param_groups[0]["params"])
+        return hist, dict(seen, n_trainable=n_trained)
+
+    j_hist, t_hist, meta, seen = _resume_jax_run(tmp_path, jax_fit,
+                                                 port_fit)
+    # epoch 0's two steps and the step the preemption let finish
+    assert meta["step"] == 3
+    assert seen["step"] == 3 and seen["adam_steps"] == [3.0]
+    assert seen["n_state"] == seen["n_trainable"]
+    _assert_resumes_match(j_hist, t_hist, "val_mean")
+
+
+def test_port_resumes_a_jax_w2v2_pr_run(tmp_path):
+    """The same for W2V2PR (trainable FE), validated by ``validate_pr``
+    with the greedy decode."""
+    det = dict(QUIET, final_dropout=0.0, mask_time_prob=0.0, **STACK)
+    cfg_t = tcfg.tiny_config(**det)
+    params = random_jax_w2v2_pr_params(cfg_t, seed=31)
+    rng = np.random.default_rng(32)
+
+    def batch(n, labels):
+        audio = np.zeros((1, 8000), np.float32)
+        audio[0, :n] = rng.standard_normal(n) * 0.1
+        lab = np.full((1, 6), -100, np.int32)
+        lab[0, :len(labels)] = labels
+        return {"audio": audio, "audio_lengths": np.array([n], np.int32),
+                "phoneme_labels": lab}
+
+    train = [batch(8000, [3, 3, 5, 1, 7, 2]), batch(5500, [4, 9, 9, 2]),
+             batch(7000, [1, 2, 3]), batch(6000, [5, 6, 7, 8, 9])]
+    valid = [batch(8000, [2, 4, 6]), batch(6500, [9, 1, 1, 3])]
+    common = dict(num_epochs=3, batch_size=1, learning_rate=1e-3, seed=0,
+                  lr_decay=0.5, target_metric="mean_val_loss")
+    samples = 2
+    jmodel = JaxW2V2PR(jcfg.tiny_config(**det))
+    j_eval = jtrain_pr.make_eval_forward(jmodel)
+    engine = None
+
+    def jax_fit(exp_dir, at, resume):
+        nonlocal engine
+        cfg = jconfig.PRConfig(exp_dir=str(exp_dir), mesh_data=1, **common)
+        cfg.train_from_ckpt = resume
+        engine = engine or jharness.make_engine(
+            cfg, jtrain_pr.pr_loss_fn(jmodel))
+        return jloop.fit(
+            cfg, None, params, _PreemptingLoader(train, at),
+            lambda p, e: jeval.validate_pr(functools.partial(j_eval, p),
+                                           valid, decode="greedy"),
+            jckpt.CheckpointManager(exp_dir, "mean_val_loss"),
+            samples_per_epoch=samples, log_fn=lambda m: None,
+            engine=engine)[1]
+
+    def port_fit(exp_dir):
+        model = port_w2v2_pr_from_jax(cfg_t, random_jax_w2v2_pr_params(
+            cfg_t, seed=33))
+        cfg = tconfig.PRConfig(exp_dir=str(exp_dir), platform="cpu",
+                               train_from_ckpt=True, **common)
+        step = make_engine(cfg, train_pr.pr_loss_fn(), model)
+        eval_fwd = train_pr.make_eval_forward(model)
+        log_fn, seen = _port_restore_probe(step)
+        _, hist = fit(cfg, None, model, _PreemptingLoader(train),
+                      lambda e: validate_pr(eval_fwd, valid,
+                                            decode="greedy"),
+                      CheckpointManager(exp_dir, "mean_val_loss"),
+                      samples_per_epoch=samples, log_fn=log_fn,
+                      engine=step)
+        return hist, seen
+
+    j_hist, t_hist, meta, seen = _resume_jax_run(tmp_path, jax_fit,
+                                                 port_fit)
+    assert meta["step"] == 3
+    assert seen["step"] == 3 and seen["adam_steps"] == [3.0]
+    _assert_resumes_match(j_hist, t_hist, "mean_val")
 
 
 # -- preemption and resume ----------------------------------------------------
