@@ -6,9 +6,11 @@ and returns this package's ``APTAI`` state_dict: HF ``Wav2Vec2Model`` names
 under ``wav2vec2.``, plus ``tv_linear`` and ``phn_linear``.
 :func:`w2v2_pr_state_dict_from_jax` does the same for ``W2V2PR``
 (``{"encoder", "pr_head"}`` → ``wav2vec2.*`` and ``pr_head``, the layout of
-the JAX package's ``export_w2v2_pr``), and
+the JAX package's ``export_w2v2_pr``),
 :func:`force_aptai_state_dict_from_jax` for ``ForceAPTAI`` (the tower under
-``w2v2_pr.``, then the head). Layouts:
+``w2v2_pr.``, then the head) and :func:`pretrain_state_dict_from_jax` for
+``Wav2Vec2Pretrain`` (``{"encoder", "quantizer", "project_hid",
+"project_q"}`` → HF ``Wav2Vec2ForPreTraining`` names). Layouts:
 
 * conv kernel (k, Cin, Cout) → (Cout, Cin, k)
 * Dense kernel (in, out) → (out, in); LayerNorm ``scale`` → ``weight``
@@ -40,16 +42,18 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
+def _dense(sd: Dict[str, torch.Tensor], base: str, leaf: Mapping) -> None:
+    """A flax Dense leaf into ``sd`` as ``<base>.weight`` / ``.bias``."""
+    sd[f"{base}.weight"] = _t(leaf["kernel"]).T.contiguous()
+    sd[f"{base}.bias"] = _t(leaf["bias"])
+
+
 def encoder_state_dict_from_jax(enc: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX ``Wav2Vec2Encoder`` tree → HF ``Wav2Vec2Model`` names."""
     sd: Dict[str, torch.Tensor] = {}
 
     def conv(key, kernel):
         sd[key] = _t(kernel).permute(2, 1, 0).contiguous()
-
-    def dense(base, leaf):
-        sd[f"{base}.weight"] = _t(leaf["kernel"]).T.contiguous()
-        sd[f"{base}.bias"] = _t(leaf["bias"])
 
     def ln(base, leaf):
         sd[f"{base}.weight"] = _t(leaf["scale"])
@@ -66,8 +70,8 @@ def encoder_state_dict_from_jax(enc: Mapping) -> Dict[str, torch.Tensor]:
 
     ln("feature_projection.layer_norm",
        enc["feature_projection"]["layer_norm"])
-    dense("feature_projection.projection",
-          enc["feature_projection"]["projection"])
+    _dense(sd, "feature_projection.projection",
+           enc["feature_projection"]["projection"])
     if "masked_spec_embed" in enc:
         sd["masked_spec_embed"] = _t(enc["masked_spec_embed"])
 
@@ -82,11 +86,11 @@ def encoder_state_dict_from_jax(enc: Mapping) -> Dict[str, torch.Tensor]:
         ln(f"{p}.layer_norm", layer["layer_norm"])
         ln(f"{p}.final_layer_norm", layer["final_layer_norm"])
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            dense(f"{p}.attention.{name}", layer["attention"][name])
-        dense(f"{p}.feed_forward.intermediate_dense",
-              layer["feed_forward"]["intermediate_dense"])
-        dense(f"{p}.feed_forward.output_dense",
-              layer["feed_forward"]["output_dense"])
+            _dense(sd, f"{p}.attention.{name}", layer["attention"][name])
+        _dense(sd, f"{p}.feed_forward.intermediate_dense",
+               layer["feed_forward"]["intermediate_dense"])
+        _dense(sd, f"{p}.feed_forward.output_dense",
+               layer["feed_forward"]["output_dense"])
         i += 1
 
     ln("encoder.layer_norm", enc["layer_norm"])
@@ -97,8 +101,7 @@ def _model_state_dict(params: Mapping, heads) -> Dict[str, torch.Tensor]:
     sd = {f"wav2vec2.{k}": v for k, v in
           encoder_state_dict_from_jax(params["encoder"]).items()}
     for head in heads:
-        sd[f"{head}.weight"] = _t(params[head]["kernel"]).T.contiguous()
-        sd[f"{head}.bias"] = _t(params[head]["bias"])
+        _dense(sd, head, params[head])
     return sd
 
 
@@ -113,6 +116,19 @@ def w2v2_pr_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX ``W2V2PR`` parameter tree → this package's ``W2V2PR``
     state_dict (float32 CPU tensors)."""
     return _model_state_dict(params, ("pr_head",))
+
+
+def pretrain_state_dict_from_jax(params: Mapping
+                                ) -> Dict[str, torch.Tensor]:
+    """The JAX ``Wav2Vec2Pretrain`` parameter tree → this package's
+    ``Wav2Vec2Pretrain`` state_dict (float32 CPU tensors): the encoder
+    under ``wav2vec2.``, ``quantizer.codevectors`` as it is, and the
+    quantizer's ``weight_proj`` and the two projections transposed."""
+    sd = _model_state_dict(params, ("project_hid", "project_q"))
+    quantizer = params["quantizer"]
+    sd["quantizer.codevectors"] = _t(quantizer["codevectors"])
+    _dense(sd, "quantizer.weight_proj", quantizer["weight_proj"])
+    return sd
 
 
 def force_aptai_state_dict_from_jax(params: Mapping
@@ -130,15 +146,10 @@ def force_head_state_dict_from_jax(params: Mapping
     ``ForceAPTAI`` tree → this package's names; a tree without the tower
     (the JAX trainer's head-only checkpoints) crosses whole."""
     sd: Dict[str, torch.Tensor] = {}
-
-    def dense(base, leaf):
-        sd[f"{base}.weight"] = _t(leaf["kernel"]).T.contiguous()
-        sd[f"{base}.bias"] = _t(leaf["bias"])
-
-    dense("frame_lin", params["frame_lin"])
+    _dense(sd, "frame_lin", params["frame_lin"])
     xatt = params["xatt"]
-    dense("xatt.q", xatt["q"])
-    dense("xatt.k", xatt["k"])
+    _dense(sd, "xatt.q", xatt["q"])
+    _dense(sd, "xatt.k", xatt["k"])
     sd["xatt.layer_norm.weight"] = _t(xatt["layer_norm"]["scale"])
     sd["xatt.layer_norm.bias"] = _t(xatt["layer_norm"]["bias"])
     sd["phn_encoder.embed.weight"] = _t(
@@ -149,15 +160,18 @@ def force_head_state_dict_from_jax(params: Mapping
                                ("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
             sd[f"rnn.lstm.{name}_l0{suffix}"] = _t(rnn[f"{jax_name}_"
                                                        f"{jax_dir}"])
-    dense("rnn.linear_0", rnn["linear_0"])
-    dense("rnn.linear_1", rnn["linear_1"])
+    _dense(sd, "rnn.linear_0", rnn["linear_0"])
+    _dense(sd, "rnn.linear_1", rnn["linear_1"])
     return sd
 
 
 def any_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """A JAX parameter tree of any of the three families → this package's
-    state_dict, the family read from the tree's top-level keys (a FORCE
-    tree without the tower gives the head's entries only)."""
+    """A JAX parameter tree of any of the four families (APTAI, W2V2PR,
+    ForceAPTAI, Wav2Vec2Pretrain) → this package's state_dict, the family
+    read from the tree's top-level keys (a FORCE tree without the tower
+    gives the head's entries only)."""
+    if "quantizer" in params:
+        return pretrain_state_dict_from_jax(params)
     if "pr_head" in params:
         return w2v2_pr_state_dict_from_jax(params)
     if "tv_linear" in params:
@@ -166,5 +180,6 @@ def any_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         if "w2v2_pr" in params:
             return force_aptai_state_dict_from_jax(params)
         return force_head_state_dict_from_jax(params)
-    raise ValueError(f"not a JAX APTAI, W2V2PR or ForceAPTAI parameter "
-                     f"tree: top-level keys {sorted(params)}")
+    raise ValueError(f"not a JAX APTAI, W2V2PR, ForceAPTAI or "
+                     f"Wav2Vec2Pretrain parameter tree: top-level keys "
+                     f"{sorted(params)}")

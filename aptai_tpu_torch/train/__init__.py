@@ -17,12 +17,15 @@ from aptai_tpu_torch.train.harness import TrainStep, make_engine, torch_adam
 from aptai_tpu_torch.train.loop import Preempted, fit
 from aptai_tpu_torch.train.schedule import epoch_learning_rate, lr_lambda
 
-# the loss adapters live in the trainer modules, which are imported when
-# first asked for: ``python -m aptai_tpu_torch.train.<trainer>`` then runs
-# a module the package has not imported already
+# the loss adapters (and the pretraining config) live in the trainer
+# modules, which are imported when first asked for: ``python -m
+# aptai_tpu_torch.train.<trainer>`` then runs a module the package has not
+# imported already
 _FROM_TRAINERS = {"aptai_loss_fn": "train_aptai",
                   "force_loss_fn": "train_force_aptai",
-                  "pr_loss_fn": "train_pr"}
+                  "pr_loss_fn": "train_pr",
+                  "pretrain_loss_fn": "pretrain",
+                  "PretrainConfig": "pretrain"}
 
 
 def __getattr__(name):

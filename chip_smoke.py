@@ -156,6 +156,26 @@ Phases (any failure ends the run with a non-zero exit code):
    subprocesses started together: 8 wavs over 8c's checkpoint against
    ``predict_batch`` in the same batches, and ``--task alignment`` over
    the FORCE checkpoint.
+10. wav2vec2 pretraining (``models/pretrain.py``, ``train/pretrain.py``):
+   (10a) a small float32 ``Wav2Vec2Pretrain`` (G 2 x V 320, K 100) on the
+   card against the CPU on given draws, in ``train()`` (Gumbel noise,
+   straight-through) and in ``eval()`` with one frame's distractors all
+   equal to its positive: the eight outputs within 1e-4 relative, the
+   gradients within 1e-4; (10b) the full-width step (wav2vec2-large, bf16
+   compute, float32 masters, G 2 x V 320, d = P = 256, K 100, seed 0)
+   through ``TrainStep(..., pretrain_loss_fn())`` at 8 x 5 s with dropout
+   and masking on: one step's launches (24 of each flash kernel, no fused
+   conv, Δ in the dq kernel), the median step ms, train audio-s/s, MFU
+   (the encoder's FLOPs x 3), peak memory and a profile; losses finite,
+   the accuracy in [0, 1], the perplexity in (0, G·V]; the same batch in
+   ``eval()`` on fixed draws through the kernels and through plain
+   attention, the encoder gradients under phase 5's gates; (10c) the same
+   at 4 x 15 s (T = 749, ragged); (10d) ``pretrain.main`` through its argv
+   (full width, laptop, batch 4) on a synthetic CommonPhone corpus in a
+   temporary directory (finite ``val_*``, the best checkpoint, 24
+   launches of each flash kernel in the step), then ``build_pr_model``
+   with ``pretrained_checkpoint`` at that run: every encoder tensor equal
+   to the best checkpoint's bit for bit.
 
 Output: the phases' lines, then one JSON line of kernel records, the card
 line, and last ``{"ok": true, "device": {...}}``. A flash kernel record's
@@ -167,8 +187,9 @@ step, the W2V2PR train step with a frozen fused feature extractor, FORCE
 serving, FORCE serving with the fused feature extractor, the FORCE train
 step from audio, the FE cache pass, the APTAI step from the FE cache, the
 FORCE cache pass with the device beam, the APTAI trainer's epoch from
-the FE cache, the three streams of 9a and one batch served over HTTP in
-9b), each read with the counts set to 0 just before it.
+the FE cache, the three streams of 9a, one batch served over HTTP in 9b,
+the pretraining step at 8 x 5 s and at 4 x 15 s and the pretraining
+trainer's epoch), each read with the counts set to 0 just before it.
 """
 
 from __future__ import annotations
@@ -218,6 +239,9 @@ from aptai_tpu_torch.models import (APTAI, W2V2PR, ForceAPTAI, Wav2Vec2Config,
                                     random_w2v2_pr, tiny_config)
 from aptai_tpu_torch.models import w2v2_pr
 from aptai_tpu_torch.models import wav2vec2 as w2v
+from aptai_tpu_torch.models.pretrain import (negative_indices_from_uniform,
+                                             random_wav2vec2_pretrain,
+                                             sample_negative_indices)
 from aptai_tpu_torch.ops import attention, fused_conv, kernels, signal
 from aptai_tpu_torch.ops.align import viterbi_align
 from aptai_tpu_torch.ops.ctc import ctc_loss, greedy_decode
@@ -229,8 +253,10 @@ from aptai_tpu_torch.train import (APTAIConfig, FECachedLoader,
                                    collate_encoded, encode_items,
                                    force_loss_fn, make_engine, pr_loss_fn,
                                    torch_adam)
-from aptai_tpu_torch.train import (eval_cli, train_aptai, train_force_aptai,
+from aptai_tpu_torch.train import (PRConfig, build_pr_model, eval_cli,
+                                   pretrain, train_aptai, train_force_aptai,
                                    train_pr)
+from aptai_tpu_torch.train.checkpoints import load_state
 from aptai_tpu_torch.train.fe_cache import collate_fe
 from aptai_tpu_torch.train.evaluate import validate_pr, validate_tv
 from aptai_tpu_torch.train.train_force_aptai import ctc_seq_per
@@ -238,8 +264,8 @@ from aptai_tpu_torch.train.train_force_aptai import \
     make_eval_forward as force_eval_forward
 from aptai_tpu_torch.train.train_pr import make_eval_forward
 from aptai_tpu_torch.utils.flops import (aptai_forward_flops,
-                                         device_peak_tflops, mfu,
-                                         pr_forward_flops,
+                                         device_peak_tflops, encoder_flops,
+                                         mfu, pr_forward_flops,
                                          training_step_flops)
 
 # H100 SXM (NVIDIA data sheet): dense bf16 tensor-core peak, HBM3 rate
@@ -3661,6 +3687,298 @@ def phase_inference(root, aptai_ckpt, force_ckpt, card):
     return streams, http_one
 
 
+# -- phase 10 -----------------------------------------------------------------
+
+SEVEN_CONVS = dict(conv_dim=(128,) * 7, conv_kernel=(10, 3, 3, 3, 3, 2, 2),
+                   conv_stride=(5, 2, 2, 2, 2, 2, 2))
+
+
+def pretrain_batch(cfg, b: int, seconds: int, seed: int = 0, lengths=None):
+    """``train_batch``'s audio (silenced past ``lengths`` in samples when
+    given) with the Gumbel temperature at the schedule's top, 2.0."""
+    base = train_batch(cfg, b, seconds, seed)
+    audio, lens = base["audio"], base["audio_lengths"]
+    if lengths is not None:
+        lens = np.asarray(lengths, np.int32)
+        for i, n in enumerate(lens):
+            audio[i, n:] = 0.0
+    return {"audio": audio, "audio_lengths": lens,
+            "gumbel_temp": np.full(b, 2.0, np.float32)}
+
+
+def fixed_draws(cfg, batch, num_negatives, seed):
+    """The span mask (prob 0.65, span 10, at least 2) and the distractor
+    indices of ``batch`` from generators seeded with ``seed``, on the
+    card: one set of draws for two runs that must agree."""
+    lengths = torch.as_tensor(batch["audio_lengths"]).cuda()
+    n = batch["audio"].shape[1]
+    t = int(cfg.feat_extract_output_lengths(n))
+    frames = cfg.feat_extract_output_lengths(lengths)
+    gen = torch.Generator(lengths.device).manual_seed(seed)
+    mask = w2v.compute_time_mask(gen, frames, t, 0.65, 10, 2)
+    idx = sample_negative_indices(gen, len(lengths), t, frames,
+                                  num_negatives)
+    return mask, idx
+
+
+def _codes(model, audio, lengths, mask, noise=None):
+    """(B, T, G) quantizer codes of ``model``'s features: the argmax of
+    the logits (plus ``noise``), as the forward picks them."""
+    with torch.no_grad():
+        extract = model.wav2vec2(audio, lengths, time_mask=mask)[2].float()
+        q = model.quantizer
+        logits = q.weight_proj(extract).view(*extract.shape[:2],
+                                             q.num_groups, q.num_vars)
+        if noise is not None:
+            logits = logits + noise
+    return logits.argmax(-1).numpy()
+
+
+def steer_distractors(codes, idx, frames, collide_first):
+    """``idx`` with every distractor that shares its positive's codes moved
+    to the first frame that does not (so no collision is decided by the
+    straight-through rows' rounding), or, with ``collide_first``, item 0
+    frame 0's distractors all on frames with its codes."""
+    idx = idx.copy()
+    b, t, _ = idx.shape
+    if collide_first:
+        same = [j for j in range(1, frames[0])
+                if (codes[0, j] == codes[0, 0]).all()]
+        if not same:
+            raise AssertionError("no frame shares frame 0's codes")
+        idx[0, 0] = np.resize(same, idx.shape[-1])
+        return idx
+    for bi in range(b):
+        for ti in range(t):
+            hit = (codes[bi, idx[bi, ti]] == codes[bi, ti]).all(-1)
+            if hit.any():
+                other = [j for j in range(frames[bi])
+                         if not (codes[bi, j] == codes[bi, ti]).all()]
+                idx[bi, ti, hit] = other[0]
+    return idx
+
+
+def check_small_pretrain_reference(device: str = "cuda"):
+    """10a: a small float32 ``Wav2Vec2Pretrain`` (head dim 64, G 2 x V 320,
+    K 100, dropout off) on the card against the same model on the CPU, the
+    draws given: in ``train()`` (Gumbel noise, straight-through; no
+    distractor shares its positive's codes) and in ``eval()`` with every
+    distractor of one frame equal to its positive. The eight outputs
+    within 1e-4 relative (the counts exact), the gradients within 1e-4
+    relative L2 and cosine 1 - 1e-8."""
+    cfg = tiny_config(hidden_size=128, num_attention_heads=2,
+                      intermediate_size=256, mask_time_prob=0.0,
+                      apply_spec_augment=True, **SEVEN_CONVS, **NO_DROP)
+    lengths = np.array([32_000, 21_000, 9_000], np.int32)
+    batch = pretrain_batch(cfg, 3, 2, seed=10, lengths=lengths)
+    frames = cfg.feat_extract_output_lengths(lengths)
+    t = int(cfg.feat_extract_output_lengths(batch["audio"].shape[1]))
+    rng = np.random.default_rng(10)
+    mask = torch.from_numpy(rng.random((3, t)) < 0.5)
+    mask[0, 0] = True
+    noise = torch.from_numpy(rng.gumbel(size=(3, t, 2, 320)).astype(
+        np.float32))
+    idx = negative_indices_from_uniform(
+        torch.from_numpy(rng.random((3, t, 100), np.float32)),
+        torch.from_numpy(frames)).numpy()
+    audio = torch.from_numpy(batch["audio"])
+    lens = torch.from_numpy(lengths)
+    for train in (True, False):
+        model = random_wav2vec2_pretrain(cfg, seed=1)
+        codes = _codes(model, audio, lens, mask, noise if train else None)
+        case_idx = torch.from_numpy(steer_distractors(
+            codes, idx, frames, collide_first=not train))
+        runs = {}
+        for dev in ("cpu", device):
+            m = random_wav2vec2_pretrain(cfg, seed=1).to(dev).train(train)
+            out = m(audio.to(dev), lens.to(dev), mask.to(dev), 1.5,
+                    gumbel_noise=noise.to(dev),
+                    negative_indices=case_idx.to(dev))
+            out["loss"].backward()
+            runs[dev] = ({k: v.detach().cpu() for k, v in out.items()},
+                         ) + flat_grads(m)
+        (oc, gc, fc), (og, gg, fg) = runs["cpu"], runs[device]
+        mode = "train()" if train else "eval(), frame 0's distractors all " \
+                                       "colliding"
+        log(f"  10a small f32 Wav2Vec2Pretrain, {mode}, card vs CPU: "
+            + ", ".join(f"{k} {float(og[k]):.6f} vs {float(oc[k]):.6f}"
+                        for k in pretrain.VAL_KEYS)
+            + f", num_masked {int(og['num_masked'])}")
+        for k, v in oc.items():
+            if k in ("num_masked", "frame_lengths"):
+                ok = torch.equal(og[k], v)
+            else:
+                ok = abs(float(og[k]) - float(v)) <= 1e-4 * abs(float(v))
+            if not ok:
+                raise AssertionError(f"10a: {k} on the card disagrees with "
+                                     "the CPU's")
+        compare_grads(f"10a small f32 pretrain gradients, {mode}, card vs "
+                      f"CPU", gg, fg, gc, fc, max_rel=1e-4,
+                      min_cos=0.99999999)
+
+
+def check_pretrain_outputs(out, gv, what):
+    vals = {k: float(v) for k, v in out.items()}
+    if not (all(np.isfinite(v) for v in vals.values())
+            and 0.0 <= vals["contrastive_accuracy"] <= 1.0
+            and 0.0 < vals["codebook_perplexity"] <= gv):
+        raise AssertionError(f"{what}: outputs out of range {vals}")
+    return vals
+
+
+def pretrain_kernels_vs_plain(model, cfg, batch, layers, what, seed):
+    """The same batch in ``eval()`` (no dropout, argmax quantization) on
+    fixed draws, through the kernels and through plain attention: the
+    encoder gradients under phase 5's gates."""
+    mask, idx = fixed_draws(cfg, batch, model.num_negatives, seed)
+    model.eval()
+    try:
+        grads_kernels_vs_plain(model, [
+            torch.as_tensor(batch["audio"]).cuda(),
+            torch.as_tensor(batch["audio_lengths"]).cuda(), mask, 1.0, None,
+            None, idx], layers, what)
+    finally:
+        model.train()
+
+
+def phase_pretrain_step(card):
+    """10b and 10c: the full-width pretraining step at 8 x 5 s and at
+    4 x 15 s through ``TrainStep(..., pretrain_loss_fn())``."""
+    cfg = Wav2Vec2Config(dtype="bfloat16")
+    layers = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    model = random_wav2vec2_pretrain(cfg, seed=0)
+    gv = model.quantizer.num_groups * model.quantizer.num_vars
+    step = TrainStep(model, torch_adam(model), pretrain.pretrain_loss_fn())
+    log(f"  full-width Wav2Vec2Pretrain (bf16 compute, float32 masters, "
+        f"G 2 x V 320, d = P = 256, K {model.num_negatives}, seed 0) on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
+    batch = pretrain_batch(cfg, 8, 5)
+    b, samples = batch["audio"].shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss0, counts = checked_first_step(step, batch, layers)
+    timed_steps(step, batch, 1)  # the second warm-up step
+    reset_counts()
+    times, m = timed_steps(step, batch, 5)
+    counts5 = read_counts()
+    sec = float(np.median(times))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    flops = training_step_flops(b * encoder_flops(cfg, samples)["total"])
+    util = mfu(flops, sec, device_peak_tflops())
+    vals = check_pretrain_outputs(m, gv, "10b")
+    log(f"  10b step times (s): {[round(x, 5) for x in times]}; launches "
+        f"over them {counts5}; last step {vals}")
+    log(f"  10b {b * samples / SAMPLE_RATE / sec:.1f} train audio-s/s, "
+        f"{sec * 1e3:.2f} ms per step, MFU "
+        f"{'not known for this card' if util is None else f'{util:.4f}'} "
+        f"({flops / 1e12:.2f} TFLOP per step: 3x the encoder's forward, FE "
+        f"included; the head's projections, quantizer and logits, under "
+        f"0.5 %, left out) on {card}; peak memory {peak:.2f} GiB")
+    if any(counts5[n] != 5 * layers for n in FLASH) \
+            or counts5["fused_conv_ln_gelu"]:
+        raise AssertionError(f"10b launches over 5 steps: {counts5}")
+    profile_breakdown(lambda: step(batch, 1e-5), "one pretrain step", top=15)
+    pretrain_kernels_vs_plain(
+        model, cfg, batch, layers,
+        "10b pretrain encoder gradients (FE included), kernels vs plain", 3)
+    torch.cuda.empty_cache()
+
+    # 10c: 4 x 15 s, ragged
+    batch15 = pretrain_batch(cfg, 4, 15, seed=1,
+                             lengths=[240_000, 200_000, 160_000, 120_000])
+    t15 = int(cfg.feat_extract_output_lengths(240_000))
+    torch.cuda.reset_peak_memory_stats()
+    loss15, counts15 = checked_first_step(step, batch15, layers)
+    times15, m15 = timed_steps(step, batch15, 2)
+    peak15 = torch.cuda.max_memory_allocated() / 2**30
+    vals15 = check_pretrain_outputs(m15, gv, "10c")
+    flops15 = training_step_flops(sum(
+        encoder_flops(cfg, int(n))["total"]
+        for n in batch15["audio_lengths"]))
+    util15 = mfu(flops15, times15[-1], device_peak_tflops())
+    audio15 = float(np.sum(batch15["audio_lengths"])) / SAMPLE_RATE
+    log(f"  10c 4 x 15 s (T = {t15}, lengths 15/12.5/10/7.5 s): step times "
+        f"(s) {[round(x, 5) for x in times15]}, "
+        f"{audio15 / times15[-1]:.1f} train audio-s/s of valid audio, MFU "
+        f"{'not known for this card' if util15 is None else f'{util15:.4f}'}"
+        f" (the valid audio's encoder FLOPs x 3), peak memory "
+        f"{peak15:.2f} GiB on {card}; last step {vals15}")
+    pretrain_kernels_vs_plain(
+        model, cfg, batch15, layers,
+        "10c pretrain encoder gradients at 4 x 15 s, kernels vs plain", 4)
+    del step, model
+    torch.cuda.empty_cache()
+    return ({k: counts[k] for k in COUNTED}, {k: counts15[k] for k in COUNTED})
+
+
+def phase_pretrain_trainer(root, card):
+    """10d: ``pretrain.main`` through its argv (full width, laptop, batch
+    4) on a synthetic CommonPhone corpus, then ``build_pr_model`` grafting
+    its best checkpoint's encoder: every tensor bit for bit."""
+    cp_csv = make_synthetic_commonphone(root / "cp_pretrain", 8, 2, 2)
+    exp = root / "pretrain"
+    argv = ["--exp_dir", str(exp), "--audio_csv_path", str(cp_csv),
+            "--laptop", "--batch_size", "4", "--platform", PLATFORM]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with FitProbe(pretrain) as probe:
+        history, model = pretrain.main(argv)
+    run_s = time.perf_counter() - t0
+    rec = probe.calls[0]
+    steps = history[0]["train_steps"]
+    counts = rec["epochs"][0]
+    layers = model.cfg.num_hidden_layers
+    val = {f"val_{k}": history[0][f"val_{k}"] for k in pretrain.VAL_KEYS}
+    missing = [f for f in ("experiment_args.json", "metrics.jsonl",
+                           "best-model-ckpt/params.pt",
+                           "best-model-ckpt/model_cfg.json",
+                           "last-model-ckpt/opt_state.pt")
+               if not (exp / f).exists()]
+    log(f"  10d pretrain.main {' '.join(argv[4:])}: {run_s:.1f} s, {steps} "
+        f"step(s), launches a step {per_step(counts, steps)}, train loss "
+        f"{history[0]['mean_train_loss']}, {val}; checkpoints "
+        f"{ckpt_seconds([rec]):.2f} s, run directory {dir_gb(exp):.2f} GB; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"on {card}")
+    if missing or steps != 1 or not (
+            all(counts[k] == layers for k in FLASH)
+            and counts["fused_conv_ln_gelu"] == 0
+            and np.isfinite(history[0]["mean_train_loss"])
+            and all(np.isfinite(v) for v in val.values())):
+        raise AssertionError(f"10d: missing {missing}, launches {counts} or "
+                             "a non-finite loss")
+    del model, rec, probe
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    pr_model, _ = build_pr_model(
+        PRConfig(platform=PLATFORM, pretrained_checkpoint=str(exp)),
+        {f"p{i}": i for i in range(46)})
+    best = load_state(exp / "best-model-ckpt" / "params.pt")
+    got = pr_model.wav2vec2.state_dict()
+    same = all(torch.equal(v, best[f"wav2vec2.{k}"]) for k, v in got.items())
+    log(f"  10d build_pr_model(pretrained_checkpoint=<the run>) in "
+        f"{time.perf_counter() - t0:.1f} s: {len(got)} encoder tensors "
+        f"(masked_spec_embed {'masked_spec_embed' in got}) equal to the best "
+        f"checkpoint's bit for bit: {same}")
+    if not (same and "masked_spec_embed" in got):
+        raise AssertionError("10d: the graft did not splice the pretrained "
+                             "encoder")
+    shutil.rmtree(exp)
+    return counts, steps
+
+
+def phase_pretrain(card, root):
+    log("== phase 10: wav2vec2 pretraining at full width")
+    t_phase = time.perf_counter()
+    check_small_pretrain_reference()
+    step_counts, step15_counts = phase_pretrain_step(card)
+    trainer_counts, trainer_steps = phase_pretrain_trainer(root, card)
+    log(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return step_counts, step15_counts, (trainer_counts, trainer_steps)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3716,6 +4034,9 @@ def main() -> int:
             phase_trainers(card, Path(tmp))
         streams, http_one = phase_inference(Path(tmp), aptai_ckpt,
                                             force_ckpt, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        pretrain_step, pretrain_step15, (pretrain_epoch, pretrain_steps) = \
+            phase_pretrain(card, Path(tmp))
     for rec in records:
         name = rec["name"]
         rec["launches"] = (pr_serving if name == "fused_conv_ln_gelu"
@@ -3751,7 +4072,12 @@ def main() -> int:
                for path, kind in (("aptai", "aptai"),
                                   ("w2v2_pr_fused_fe", "w2v2_pr"),
                                   ("force", "force_aptai"))},
-            "http_serving": {"batches": 1, "launches": http_one[name]}}
+            "http_serving": {"batches": 1, "launches": http_one[name]},
+            "pretrain_step": {"steps": 1, "launches": pretrain_step[name]},
+            "pretrain_step_4x15s": {"steps": 1,
+                                    "launches": pretrain_step15[name]},
+            "pretrain_trainer_epoch": {"steps": pretrain_steps,
+                                       "launches": pretrain_epoch[name]}}
 
     print(json.dumps({"kernels": records}))
     print(card)

@@ -64,6 +64,8 @@ print("TRAINERS", all(m in sys.modules for m in (
     "aptai_tpu_torch.train.checkpoints", "aptai_tpu_torch.train.builders",
     "aptai_tpu_torch.train.loop", "aptai_tpu_torch.train.eval_cli",
     "aptai_tpu_torch.infer.loader")))
+print("PRETRAIN", all(m in sys.modules for m in (
+    "aptai_tpu_torch.models.pretrain", "aptai_tpu_torch.train.pretrain")))
 print("SERVING", all(m in sys.modules for m in (
     "aptai_tpu_torch.infer.streaming", "aptai_tpu_torch.infer.__main__",
     "aptai_tpu_torch.infer.serve", "aptai_tpu_torch.infer.native_transport",
@@ -92,13 +94,15 @@ def test_port_imports_no_jax_or_reference_package():
     assert "DATA True" in res.stdout, res.stdout
     assert "TRAINERS True" in res.stdout, res.stdout
     assert "SERVING True" in res.stdout, res.stdout
+    assert "PRETRAIN True" in res.stdout, res.stdout
     assert "NATIVE_LOADED False" in res.stdout, res.stdout
     assert "HTTP_LOADED False" in res.stdout, res.stdout
 
 
 _RUN_CLIS = """
 import runpy, sys
-for name in ("train_pr", "train_aptai", "train_force_aptai", "eval_cli"):
+for name in ("train_pr", "train_aptai", "train_force_aptai", "eval_cli",
+             "pretrain"):
     sys.argv = [name, "--help"]
     try:
         runpy.run_module("aptai_tpu_torch.train." + name, run_name="__main__",
@@ -113,9 +117,9 @@ print("BAD", bad)
 
 def test_cli_entry_points_import_no_jax_msgpack_or_wandb():
     """``python -m aptai_tpu_torch.train.<cli> --help`` for the three
-    trainers and the eval CLI: each parses its flags, and none loads JAX,
-    the JAX package, pandas, msgpack or wandb (wandb loads only inside
-    ``RunLogger`` under ``--logging``)."""
+    trainers, the eval CLI and the pretrainer: each parses its flags, and
+    none loads JAX, the JAX package, pandas, msgpack or wandb (wandb loads
+    only inside ``RunLogger`` under ``--logging``)."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
     res = subprocess.run([sys.executable, "-c", _RUN_CLIS], cwd=REPO,
@@ -124,7 +128,8 @@ def test_cli_entry_points_import_no_jax_msgpack_or_wandb():
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
     for flag in ("--cp_csv_path", "--hprc_csv_path", "--pr_model_path",
-                 "--collapse_fallback", "--speaker"):
+                 "--collapse_fallback", "--speaker", "--audio_csv_path",
+                 "--gumbel_temp_decay"):
         assert flag in res.stdout, flag
 
 
