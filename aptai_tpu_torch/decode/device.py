@@ -25,6 +25,13 @@ the decoded sequences agree exactly on realistic posteriors. Past
 matches the host contract) but store no tokens, and the repeat/doubling
 distinction reads the last stored token, so scores are exact only while
 sequences fit the cap.
+
+:data:`beam_decode` is the search as the ``torch.library`` op
+``aptai_torch::beam_decode`` (``ops/library.py``), one implementation for
+every device, at a fixed output width: its frame loop reads the longest
+input on the host, which ``torch.export`` cannot trace, so a program that
+decodes with the beam (FORCE-APTAI's ``beam_device`` serving) holds the op
+as one opaque call.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from aptai_tpu_torch.ops.library import define
 
 # dead-hypothesis score: far below any real log-prob sum, finite so the
 # log-sum-exps stay free of NaN
@@ -166,3 +175,18 @@ def beam_decode_device(log_probs: torch.Tensor, input_lengths: torch.Tensor,
         return seqs, out_lens, truncated, _take(times, best)[:, 0].to(
             torch.int32)
     return seqs, out_lens, truncated
+
+
+def _fake_beam(log_probs, input_lengths, blank, beam_size, beam_threshold,
+               max_output_length):
+    b = log_probs.shape[0]
+    return (log_probs.new_empty((b, max_output_length), dtype=torch.int32),
+            log_probs.new_empty((b,), dtype=torch.int32),
+            log_probs.new_empty((b,), dtype=torch.int32))
+
+
+beam_decode = define(
+    "beam_decode", "(Tensor log_probs, Tensor input_lengths, int blank, "
+    "int beam_size, float beam_threshold, int max_output_length) -> "
+    "(Tensor, Tensor, Tensor)", _fake_beam,
+    any_device=lambda *a: beam_decode_device(*a))

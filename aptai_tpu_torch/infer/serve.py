@@ -28,10 +28,15 @@ packed binary frame of :func:`encode_binary` instead: the arrays as raw
 little-endian buffers, decoded client-side by :func:`decode_binary`
 (stdlib and numpy only).
 
+``--checkpoint`` may also name a serving bundle of ``aptai-torch-export``
+(``infer/export.py``): it serves ``/v1/predict`` at the bundle's static
+shape and fields, with no model code and no ``/v1/stream``. A bundle of the
+JAX package's ``aptai-export`` (a StableHLO program, which needs jax) is
+refused with a message naming ``aptai-torch-export``.
+
 The default transport is the C++ epoll front end
 (``infer/native_transport.py`` over ``native/http_server.cpp``) when g++
-builds it, else ``http.server``. Serving bundles (the JAX package's AOT
-export) are not implemented in this package yet and raise.
+builds it, else ``http.server``.
 """
 
 from __future__ import annotations
@@ -54,8 +59,6 @@ from aptai_tpu_torch import SAMPLE_RATE, TV_ORDER
 from aptai_tpu_torch.data.vocab import ids_to_phonemes
 from aptai_tpu_torch.decode.beam import decode_with_times
 from aptai_tpu_torch.infer.api import _log_softmax_host
-
-_UNPORTED_BUNDLE = "ROADMAP Queue 1 item 7c"
 
 # outputs each family serves by default (those of the batch CLI,
 # infer/__main__.py); the predictors skip the heads none of them needs
@@ -571,19 +574,66 @@ STREAMER_CLASSES = {
 }
 
 
-def is_bundle(path) -> bool:
-    """True when ``path`` is a serving bundle directory of the JAX
-    package's ``aptai-export`` (vs a trainer checkpoint)."""
+def _is_jax_bundle(path) -> bool:
     p = Path(path)
     return (p / "forward.stablehlo").is_file() and (p / "meta.json").is_file()
 
 
-def build_app_from_bundle(bundle_dir, **kwargs) -> ServingApp:
-    """Serving an AOT bundle is not implemented in this package yet."""
-    raise NotImplementedError(
-        f"{bundle_dir} is a serving bundle (aptai-export); serving bundles "
-        f"is not implemented in aptai_tpu_torch yet ({_UNPORTED_BUNDLE}): "
-        "serve the trainer checkpoint it was exported from")
+def is_bundle(path) -> bool:
+    """True when ``path`` is a serving bundle directory (vs a trainer
+    checkpoint): this package's (``aptai-torch-export``) or the JAX
+    package's (``aptai-export``), which :func:`build_app_from_bundle`
+    refuses."""
+    from aptai_tpu_torch.infer import export
+
+    return export.is_bundle(path) or _is_jax_bundle(path)
+
+
+def build_app_from_bundle(bundle_dir, max_wait_ms: float = 10.0,
+                          fetch_workers: int = 4,
+                          request_timeout_s: float = 60.0,
+                          warmup: bool = True, device=None) -> ServingApp:
+    """Serving bundle directory → started ServingApp, on ``device``
+    (``cuda`` unless named; one of the bundle's platforms).
+
+    The bundle (``infer/export.py``: the exported program, its weights and
+    metadata) carries its own static shape, baked output fields and wire
+    encoding, so the serving host needs no model code and no checkpoint
+    loader. ``/v1/stream`` is unavailable (the chunked streamer needs the
+    live model); ``max_seconds`` is the exported shape's cap."""
+    from aptai_tpu_torch.infer import export
+    from aptai_tpu_torch.infer.server import MicroBatcher
+
+    if not export.is_bundle(bundle_dir):
+        raise ValueError(
+            f"{bundle_dir} is a serving bundle of the JAX package "
+            "(aptai-export: a StableHLO program, which runs only under jax); "
+            "aptai_tpu_torch serves its own bundles: export the checkpoint "
+            "it came from with `aptai-torch-export <checkpoint> <out_dir>`, "
+            "or serve that checkpoint directly")
+    bundle = export.load_serving_bundle(bundle_dir, device=device)
+    kind = bundle.meta.get("kind")
+    if kind not in KIND_FIELDS:
+        raise ValueError(
+            f"bundle {bundle_dir} records no serving family (kind="
+            f"{kind!r}); re-export it with aptai-torch-export, which stamps "
+            "the family and vocabulary into meta.json")
+    max_seconds = bundle.meta["samples"] / SAMPLE_RATE
+    batcher = MicroBatcher(
+        bundle.predict_batch, max_batch_size=int(bundle.meta["batch"]),
+        max_wait_ms=max_wait_ms, pad_to_max=False,  # the bundle pads itself
+        fields=None,  # baked into the program at export time
+        fetch_workers=fetch_workers,
+    )
+    if warmup:
+        batcher.warmup(seconds=min(2.0, max_seconds))
+    batcher.start()
+    return ServingApp(batcher, kind, vocab=bundle.meta.get("vocab"),
+                      request_timeout_s=request_timeout_s,
+                      max_seconds=max_seconds,
+                      meta={"bundle": str(bundle_dir),
+                            "platforms": bundle.meta.get("platforms")},
+                      streamer=None)
 
 
 def build_app(checkpoint: str, fields: Optional[Sequence[str]] = None,
@@ -599,8 +649,9 @@ def build_app(checkpoint: str, fields: Optional[Sequence[str]] = None,
               device=None) -> ServingApp:
     """Checkpoint directory → started ServingApp: the predictor and its
     batcher, and the long-audio streamer sharing the predictor's serving
-    model, on ``device`` (``cuda`` unless named). A serving bundle raises
-    (:func:`build_app_from_bundle`)."""
+    model, on ``device`` (``cuda`` unless named). A serving bundle
+    directory is detected and served by :func:`build_app_from_bundle`:
+    the same endpoints but ``/v1/stream``, no model code."""
     from aptai_tpu_torch.infer import streaming as streaming_mod
     from aptai_tpu_torch.infer.api import (APTAIPredictor,
                                           ForceAPTAIPredictor,
@@ -609,7 +660,11 @@ def build_app(checkpoint: str, fields: Optional[Sequence[str]] = None,
     from aptai_tpu_torch.infer.server import MicroBatcher
 
     if is_bundle(checkpoint):
-        return build_app_from_bundle(checkpoint)
+        return build_app_from_bundle(
+            checkpoint, max_wait_ms=max_wait_ms,
+            fetch_workers=fetch_workers,
+            request_timeout_s=request_timeout_s, warmup=warmup,
+            device=device)
 
     kind, model, vocab = load_model(checkpoint, dtype=dtype, quant=quant)
     kw = dict(device=device, transfer_dtype=transfer_dtype)
@@ -658,8 +713,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="HTTP serving for aptai_tpu_torch and aptai_tpu "
                     "checkpoints (micro-batched, one padded device shape)")
     p.add_argument("--checkpoint", required=True,
-                   help="trainer run dir or best-model-ckpt dir (serving "
-                        "bundles are not implemented yet)")
+                   help="trainer run dir, best-model-ckpt dir, or serving "
+                        "bundle dir (aptai-torch-export)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8077)
     p.add_argument("--max_batch_size", type=int, default=16)
@@ -721,19 +776,29 @@ def main(argv=None) -> int:
             print("aptai-torch-serve: the checkpoint is an AOT bundle — "
                   f"{', '.join(ignored)} are fixed at export time",
                   file=sys.stderr)
-    app = build_app(
-        args.checkpoint,
-        fields=[f for f in args.fields.split(",") if f] or None,
-        max_batch_size=args.max_batch_size, max_wait_ms=args.max_wait_ms,
-        transfer_dtype=args.transfer_dtype, dtype=args.dtype,
-        quant=args.quant,
-        fetch_workers=args.fetch_workers, request_timeout_s=args.timeout_s,
-        max_seconds=args.max_seconds, warmup_seconds=args.warmup_seconds,
-        streaming=not args.no_streaming, chunk_seconds=args.chunk_seconds,
-        overlap_seconds=args.overlap_seconds, chunk_batch=args.chunk_batch,
-        max_stream_seconds=args.max_stream_seconds,
-        device="cpu" if args.cpu else None,
-    )
+    try:
+        app = build_app(
+            args.checkpoint,
+            fields=[f for f in args.fields.split(",") if f] or None,
+            max_batch_size=args.max_batch_size,
+            max_wait_ms=args.max_wait_ms,
+            transfer_dtype=args.transfer_dtype, dtype=args.dtype,
+            quant=args.quant, fetch_workers=args.fetch_workers,
+            request_timeout_s=args.timeout_s, max_seconds=args.max_seconds,
+            warmup_seconds=args.warmup_seconds,
+            streaming=not args.no_streaming,
+            chunk_seconds=args.chunk_seconds,
+            overlap_seconds=args.overlap_seconds,
+            chunk_batch=args.chunk_batch,
+            max_stream_seconds=args.max_stream_seconds,
+            device="cpu" if args.cpu else None,
+        )
+    except ValueError as e:
+        if not is_bundle(args.checkpoint):
+            raise
+        # a JAX bundle, or one without a family: a usage error
+        print(f"aptai-torch-serve: {e}", file=sys.stderr)
+        return 2
     transport = args.transport
     if transport == "auto":
         from aptai_tpu_torch.infer.native_transport import (

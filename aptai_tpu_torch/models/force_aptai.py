@@ -27,7 +27,8 @@ runs under ``torch.no_grad()``.
   ``allow_host_callback_decode=True``, as the JAX package does, and then
   decodes on the calling thread;
 * ``"beam_device"`` — the batched beam search on the tower's device
-  (:func:`aptai_tpu_torch.decode.device.beam_decode_device`), every row,
+  (:func:`aptai_tpu_torch.decode.device.beam_decode_device`, through its
+  op ``aptai_torch::beam_decode``), every row,
   inside the forward as greedy is.
 """
 
@@ -41,7 +42,7 @@ from torch import nn
 
 from aptai_tpu_torch import FRAME_RATE_HZ, TV_PAD_VALUE
 from aptai_tpu_torch.decode.beam import beam_decode_padded
-from aptai_tpu_torch.decode.device import beam_decode_device
+from aptai_tpu_torch.decode.device import beam_decode
 from aptai_tpu_torch.models.aptai import NUM_TVS, _pad_or_trim
 from aptai_tpu_torch.models.configs import Wav2Vec2Config
 from aptai_tpu_torch.models.modules import (CrossAttention, PhonemeEncoder,
@@ -159,8 +160,8 @@ class ForceAPTAI(nn.Module):
                                  max_output_length=self.max_phn_seq_len,
                                  return_truncated=True)
         if self.decode_method == "beam_device":
-            return beam_decode_device(enc["ctc_log_probs"], fl,
-                                      max_output_length=self.max_phn_seq_len)
+            return beam_decode(enc["ctc_log_probs"], fl, 0, 10, 50.0,
+                               self.max_phn_seq_len)
         n = fl.shape[0] if n_real is None else n_real
         return tuple(torch.from_numpy(x).to(fl.device) for x in
                      beam_decode_padded(enc["ctc_log_probs"][:n], fl[:n],

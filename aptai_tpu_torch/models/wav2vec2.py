@@ -163,8 +163,13 @@ class ConvLayerBlock(nn.Module):
     def _kernel_weights(self, dtype: torch.dtype):
         """The conv weight in the kernel's (C_out, k, C_in) layout and the
         bias, both in ``dtype``: made once and reused until the parameters
-        change (in place, or by a move or a cast)."""
+        change (in place, or by a move or a cast). Under ``torch.export``
+        (whose parameters have no storage to key on) they are made in the
+        traced program."""
         w, b = self.conv.weight, self.conv.bias
+        if torch.compiler.is_compiling():
+            return (kernel_weight(w.detach().to(dtype)),
+                    None if b is None else b.detach().to(dtype).contiguous())
         key = (dtype, w.device, w.data_ptr(), w._version,
                None if b is None else (b.data_ptr(), b._version))
         if self._fused_weights is None or self._fused_weights[0] != key:

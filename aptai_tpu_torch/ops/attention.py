@@ -1,21 +1,27 @@
 """Length-masked multi-head attention over (B, H, T, D), forward and backward.
 
-:func:`multi_head_attention_bhtd` is the op the encoder calls:
+:func:`multi_head_attention_bhtd` is the op the encoder calls. It reaches
+the kernels through ``torch.library`` ops (``ops/library.py``), which pick
+the implementation by the tensors' device:
 
-* a CUDA tensor goes to the hand-written Hopper kernels: the flash forward
-  (``csrc/flash_attn_fwd.cu``, :func:`flash_attention_bhtd_cuda`) and, when
-  a gradient is needed, the dq and dk/dv backward kernels
-  (``csrc/flash_attn_bwd.cu``, :func:`flash_attention_bwd_cuda`);
-* a CPU tensor goes to :func:`flash_attention_bhtd_plain` and
-  :func:`flash_attention_bhtd_bwd_plain`, the same functions in ordinary
-  tensor ops;
+* ``aptai_torch::flash_fwd`` and ``aptai_torch::flash_fwd_lse`` (the
+  forward, without and with the per-row logsumexp): on a CUDA tensor the
+  hand-written Hopper kernel (``csrc/flash_attn_fwd.cu``,
+  :func:`flash_attention_bhtd_cuda`), on a CPU tensor
+  :func:`flash_attention_bhtd_plain`, the same function in ordinary tensor
+  ops;
+* ``aptai_torch::flash_bwd_dq`` and ``aptai_torch::flash_bwd_dkv``: the dq
+  and dk/dv backward kernels (``csrc/flash_attn_bwd.cu``) and their plain
+  versions;
 * any other device raises.
 
-Forward and backward are tied by :class:`FlashAttention`, a
-``torch.autograd.Function`` that saves q, k, v, the output, the per-row
-logsumexp and the lengths, like the JAX package's ``_mha_bhtd_flash``
-custom VJP. Without a gradient the forward runs alone and writes no
-logsumexp.
+Every op returns its (B, H, T, D) outputs as views of (B, T, H, D)
+buffers on either device, and its fake implementation says so, so a
+program exported on one device runs on the other. Forward and backward
+are tied by :class:`FlashAttention`, a ``torch.autograd.Function`` that
+saves q, k, v, the output, the per-row logsumexp and the lengths, like the
+JAX package's ``_mha_bhtd_flash`` custom VJP. Without a gradient the
+forward runs alone and writes no logsumexp.
 
 All versions compute the TPU flash kernels' functions: f32 scores with the
 1/√D scale applied after the dot, keys at ``col >= lengths[b]`` masked,
@@ -40,6 +46,7 @@ from typing import Optional, Tuple
 import torch
 
 from aptai_tpu_torch.ops.kernels import kernel_fn, launch
+from aptai_tpu_torch.ops.library import define
 
 HEAD_DIM = 64  # the only head width the kernels are built for
 
@@ -335,48 +342,117 @@ flash_attention_bwd_dkv_cuda.launches = 0
 
 def flash_attention_bwd_cuda(q, k, v, out, lse, dout,
                              lengths: Optional[torch.Tensor] = None):
-    """The backward on the card: the dq kernel (which computes Δ) and then
-    the dk/dv kernel. ``dout`` may come with any strides: one whose head dim
-    is not contiguous, or whose other strides are not multiples of 16
-    bytes, is copied with ``.contiguous()`` first. Returns (dq, dk, dv),
-    (B, H, T, 64) views of (B, T, H, 64) buffers."""
-    if not _kernel_strides_ok(dout):
-        dout = dout.contiguous()
-    dq, delta = flash_attention_bwd_dq_cuda(q, k, v, out, lse, dout, lengths)
-    dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, dout, lse, delta, lengths)
-    return dq, dk, dv
+    """The backward on the card, as training runs it: :func:`_backward`
+    (the dq op, which computes Δ, then the dk/dv op) on CUDA tensors,
+    which it checks first. ``dout`` may come with any strides. Returns
+    (dq, dk, dv), (B, H, T, 64) views of (B, T, H, 64) buffers."""
+    lengths = _lengths_or_full(lengths, q.shape[0], q.shape[2], q.device)
+    _check_kernel_inputs(lengths, q=q, k=k, v=v, out=out)
+    return _backward(q, k, v, out, lse, dout, lengths)
+
+
+# -- the ops -------------------------------------------------------------------
+
+def _as_bthd(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, H, T, D) copied into the kernels' output layout."""
+    out = _bthd_buffer_like(x)
+    out.copy_(x)
+    return out
+
+
+def _rows_like(q: torch.Tensor) -> torch.Tensor:
+    """An empty (B, H, T) tensor of the accumulation dtype: the layout of
+    the logsumexp and of Δ."""
+    return q.new_empty(q.shape[:3], dtype=_acc_dtype(q.dtype))
+
+
+def _fwd_cuda(q, k, v, lengths):
+    return flash_attention_bhtd_cuda(q, k, v, lengths)
+
+
+def _fwd_cpu(q, k, v, lengths):
+    return _as_bthd(flash_attention_bhtd_plain(q, k, v, lengths))
+
+
+def _fwd_lse_cuda(q, k, v, lengths):
+    return flash_attention_bhtd_cuda(q, k, v, lengths, return_lse=True)
+
+
+def _fwd_lse_cpu(q, k, v, lengths):
+    out, lse = flash_attention_bhtd_plain(q, k, v, lengths, return_lse=True)
+    return _as_bthd(out), lse
+
+
+def _dq_cpu(q, k, v, out, lse, dout, lengths):
+    dq, delta = flash_attention_bwd_dq_plain(q, k, v, out, lse, dout, lengths)
+    return _as_bthd(dq), delta
+
+
+def _dkv_cpu(q, k, v, dout, lse, delta, lengths):
+    dk, dv = flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta, lengths)
+    return _as_bthd(dk), _as_bthd(dv)
+
+
+_QKV = "Tensor q, Tensor k, Tensor v"
+flash_fwd = define(
+    "flash_fwd", f"({_QKV}, Tensor lengths) -> Tensor",
+    lambda q, k, v, lengths: _bthd_buffer_like(q),
+    cuda=_fwd_cuda, cpu=_fwd_cpu)
+flash_fwd_lse = define(
+    "flash_fwd_lse", f"({_QKV}, Tensor lengths) -> (Tensor, Tensor)",
+    lambda q, k, v, lengths: (_bthd_buffer_like(q), _rows_like(q)),
+    cuda=_fwd_lse_cuda, cpu=_fwd_lse_cpu)
+flash_bwd_dq = define(
+    "flash_bwd_dq", f"({_QKV}, Tensor out, Tensor lse, Tensor dout, "
+    "Tensor lengths) -> (Tensor, Tensor)",
+    lambda q, k, v, out, lse, dout, lengths: (_bthd_buffer_like(q),
+                                              _rows_like(q)),
+    cuda=lambda *a: flash_attention_bwd_dq_cuda(*a), cpu=_dq_cpu)
+flash_bwd_dkv = define(
+    "flash_bwd_dkv", f"({_QKV}, Tensor dout, Tensor lse, Tensor delta, "
+    "Tensor lengths) -> (Tensor, Tensor)",
+    lambda q, k, v, dout, lse, delta, lengths: (_bthd_buffer_like(k),
+                                                _bthd_buffer_like(v)),
+    cuda=lambda *a: flash_attention_bwd_dkv_cuda(*a), cpu=_dkv_cpu)
 
 
 # -- dispatch ------------------------------------------------------------------
 
-def _impls(device: torch.device):
-    """(forward, backward) for a tensor's device: the kernels on a CUDA
-    tensor, the plain versions on a CPU tensor."""
-    if device.type == "cuda":
-        return flash_attention_bhtd_cuda, flash_attention_bwd_cuda
-    if device.type == "cpu":
-        return flash_attention_bhtd_plain, flash_attention_bhtd_bwd_plain
-    raise ValueError(f"no attention implementation for device {device}")
+def _check_device(q: torch.Tensor) -> None:
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no attention implementation for device {q.device}")
+
+
+def _backward(q, k, v, out, lse, dout, lengths):
+    """(dq, dk, dv) through the dq and dk/dv ops, on every device: the
+    kernels on a CUDA tensor, their plain versions on a CPU tensor.
+    ``dout`` is copied first if the kernels cannot read its strides (a
+    head dim that is not contiguous, or other strides that are not
+    multiples of 16 bytes)."""
+    if not _kernel_strides_ok(dout):
+        dout = dout.contiguous()
+    dq, delta = flash_bwd_dq(q, k, v, out, lse, dout, lengths)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, lengths)
+    return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
-    """Attention with the flash backward: the forward saves q, k, v, its
-    output, the per-row logsumexp and the lengths; the backward runs the
-    dq and dk/dv kernels (the plain versions on the CPU)."""
+    """Attention with the flash backward: the forward (``flash_fwd_lse``)
+    saves q, k, v, its output, the per-row logsumexp and the lengths; the
+    backward runs the dq and dk/dv ops (:func:`_backward`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, lengths):
-        fwd, _ = _impls(q.device)
+        _check_device(q)
         lengths = _lengths_or_full(lengths, q.shape[0], q.shape[2], q.device)
-        out, lse = fwd(q, k, v, lengths, return_lse=True)
+        out, lse = flash_fwd_lse(q, k, v, lengths)
         ctx.save_for_backward(q, k, v, out, lse, lengths)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, lengths = ctx.saved_tensors
-        _, bwd = _impls(q.device)
-        dq, dk, dv = bwd(q, k, v, out, lse, dout, lengths)
+        dq, dk, dv = _backward(q, k, v, out, lse, dout, lengths)
         return dq, dk, dv, None
 
 
@@ -384,11 +460,14 @@ def multi_head_attention_bhtd(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor,
                               lengths: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
-    """Length-masked scaled-dot-product MHA over (B, H, T, D) tensors: the
-    Hopper kernels for a CUDA tensor, the plain versions for a CPU tensor.
-    Differentiable in q, k, v through :class:`FlashAttention`."""
+    """Length-masked scaled-dot-product MHA over (B, H, T, D) tensors
+    through the ``aptai_torch`` ops: the Hopper kernels for a CUDA tensor,
+    the plain versions for a CPU tensor. Differentiable in q, k, v through
+    :class:`FlashAttention`."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, lengths)
-    fwd, _ = _impls(q.device)
-    return fwd(q, k, v, lengths)
+    _check_device(q)
+    return flash_fwd(q, k, v,
+                     _lengths_or_full(lengths, q.shape[0], q.shape[2],
+                                      q.device))

@@ -11,11 +11,13 @@ wide channels):
           (two-pass statistics over all C_out, float32 ln_w and ln_b)
     out = 0.5 · y · (1 + erf(y / √2)), rounded once to the input dtype
 
-:func:`fused_conv_ln_gelu` is the op the encoder calls: a CUDA tensor goes
-to the hand-written Hopper kernel (``csrc/fused_conv_ln_gelu.cu``, bf16 on
-the tensor cores or a float32 scalar variant), a CPU tensor to
-:func:`fused_conv_ln_gelu_plain`, any other device raises. Neither the TPU
-kernel nor this one has a backward: with a gradient required the op raises.
+:func:`fused_conv_ln_gelu` is the op the encoder calls. It goes through the
+``torch.library`` op ``aptai_torch::fused_conv_ln_gelu`` (``ops/library.py``):
+a CUDA tensor to the hand-written Hopper kernel
+(``csrc/fused_conv_ln_gelu.cu``, bf16 on the tensor cores or a float32
+scalar variant), a CPU tensor to :func:`fused_conv_ln_gelu_plain`; any other
+device raises. Neither the TPU kernel nor this one has a backward: with a
+gradient required the op raises.
 
 Layouts: x (B, L, C_in) and the output (B, T_out, C_out) are channels-last,
 as in the JAX package. The weight is taken in the kernel's layout
@@ -31,6 +33,7 @@ from typing import Optional
 import torch
 
 from aptai_tpu_torch.ops.kernels import kernel_fn, launch
+from aptai_tpu_torch.ops.library import define
 
 # the output widths the kernel is instantiated for (one block owns whole
 # output rows, so C_out is a compile-time constant)
@@ -159,14 +162,27 @@ def fused_conv_ln_gelu_cuda(x: torch.Tensor, w: torch.Tensor,
 fused_conv_ln_gelu_cuda.launches = 0  # kernel launches, for run checks
 
 
-# -- dispatch ------------------------------------------------------------------
+# -- the op and its dispatch ---------------------------------------------------
+
+def _fake(x, w, b, ln_w, ln_b, stride, eps):
+    t_out = _out_length(x.shape[1], w.shape[1], stride)
+    return x.new_empty((x.shape[0], t_out, w.shape[0]))
+
+
+fused_conv_ln_gelu_op = define(
+    "fused_conv_ln_gelu", "(Tensor x, Tensor w, Tensor? b, Tensor ln_w, "
+    "Tensor ln_b, int stride, float eps) -> Tensor", _fake,
+    cuda=lambda *a: fused_conv_ln_gelu_cuda(*a),
+    cpu=lambda *a: fused_conv_ln_gelu_plain(*a))
+
 
 def fused_conv_ln_gelu(x: torch.Tensor, w: torch.Tensor,
                        b: Optional[torch.Tensor], ln_w: torch.Tensor,
                        ln_b: torch.Tensor, stride: int,
                        eps: float = 1e-5) -> torch.Tensor:
-    """GELU(LayerNorm(conv_valid(x))), channels-last: the Hopper kernel for
-    a CUDA tensor, the plain version for a CPU tensor. Raises
+    """GELU(LayerNorm(conv_valid(x))), channels-last, through the
+    ``aptai_torch::fused_conv_ln_gelu`` op: the Hopper kernel for a CUDA
+    tensor, the plain version for a CPU tensor. Raises
     ``NotImplementedError`` when a gradient is required: the op has no
     backward."""
     if torch.is_grad_enabled() and any(
@@ -175,8 +191,6 @@ def fused_conv_ln_gelu(x: torch.Tensor, w: torch.Tensor,
             "the fused conv+LayerNorm+GELU has no backward; run the feature "
             "extractor frozen or under torch.no_grad(), or leave "
             "fused_feature_extractor off to train it")
-    if x.device.type == "cuda":
-        return fused_conv_ln_gelu_cuda(x, w, b, ln_w, ln_b, stride, eps)
-    if x.device.type == "cpu":
-        return fused_conv_ln_gelu_plain(x, w, b, ln_w, ln_b, stride, eps)
-    raise ValueError(f"no fused conv implementation for device {x.device}")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no fused conv implementation for device {x.device}")
+    return fused_conv_ln_gelu_op(x, w, b, ln_w, ln_b, stride, eps)

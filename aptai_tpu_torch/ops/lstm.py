@@ -16,6 +16,12 @@ are read to the host: one device synchronisation a call when they live on
 the card. A length of 0 cannot be packed; such a row runs with length 1 and
 its outputs and states are zeroed afterwards, which is what the masked scan
 gives (no step taken from zero states).
+
+Without a gradient the packed run goes through the ``torch.library`` op
+``aptai_torch::packed_lstm`` (``ops/library.py``, one implementation for
+every device), so that ``torch.export`` holds it as one opaque call: the
+host read of the lengths cannot be traced. With a gradient it runs
+directly, and autograd differentiates the LSTM operator.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 from torch.nn.utils.rnn import (PackedSequence, pack_padded_sequence,
                                 pad_packed_sequence)
+
+from aptai_tpu_torch.ops.library import define
 
 
 class LSTMParams(NamedTuple):
@@ -37,8 +45,8 @@ class LSTMParams(NamedTuple):
     b_hh: torch.Tensor
 
 
-def _packed_lstm(x: torch.Tensor, lengths: torch.Tensor,
-                 weights: Sequence[torch.Tensor], bidirectional: bool):
+def _packed_lstm_run(x: torch.Tensor, lengths: torch.Tensor,
+                     weights: Sequence[torch.Tensor], bidirectional: bool):
     """``nn.LSTM``'s operator over ``x`` (B, T, I) packed by ``lengths``:
     ``(outputs (B, T, D·H), h_n (D, B, H), c_n (D, B, H))``, D directions,
     with the zero-length rows zeroed."""
@@ -67,6 +75,29 @@ def _packed_lstm(x: torch.Tensor, lengths: torch.Tensor,
         h_n = h_n * keep[None, :, None]
         c_n = c_n * keep[None, :, None]
     return out, h_n, c_n
+
+
+def _fake_packed_lstm(x, lengths, weights, bidirectional):
+    b, t, _ = x.shape
+    hdim, dirs = weights[1].shape[1], 2 if bidirectional else 1
+    return (x.new_empty((b, t, dirs * hdim)), x.new_empty((dirs, b, hdim)),
+            x.new_empty((dirs, b, hdim)))
+
+
+packed_lstm = define(
+    "packed_lstm", "(Tensor x, Tensor lengths, Tensor[] weights, "
+    "bool bidirectional) -> (Tensor, Tensor, Tensor)", _fake_packed_lstm,
+    any_device=lambda *a: _packed_lstm_run(*a))
+
+
+def _packed_lstm(x: torch.Tensor, lengths: torch.Tensor,
+                 weights: Sequence[torch.Tensor], bidirectional: bool):
+    """:func:`_packed_lstm_run`, through the op when no gradient is
+    required."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *weights)):
+        return _packed_lstm_run(x, lengths, weights, bidirectional)
+    return packed_lstm(x, lengths, list(weights), bidirectional)
 
 
 def lstm(x: torch.Tensor, lengths: torch.Tensor, params: LSTMParams,

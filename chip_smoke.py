@@ -176,6 +176,31 @@ Phases (any failure ends the run with a non-zero exit code):
    launches of each flash kernel in the step), then ``build_pr_model``
    with ``pretrained_checkpoint`` at that run: every encoder tensor equal
    to the best checkpoint's bit for bit.
+11. The kernels as ``torch.library`` ops and the serving export
+   (``infer/export.py``), in phase 8's directory: (11a)
+   ``torch.library.opcheck`` on every ``aptai_torch`` op with CUDA inputs
+   (the flash forward with and without the logsumexp, dq, dk/dv and the
+   fused conv in bf16 and float32; FORCE's packed BiLSTM and device beam),
+   and the host time of one attention call through the op beside the
+   kernel's wrapper alone;
+   (11b) small float32 bundles exported on the card (FORCE greedy and
+   ``beam_device``, W2V2PR with the fused feature extractor), each graph
+   holding the kernel ops and no packing, each against the live predictor
+   on the same requests, and one FORCE bundle for ``("cuda", "cpu")``
+   loaded on the CPU, in a fresh process with CUDA hidden, against the CPU
+   predictor; (11c)
+   ``aptai-torch-export`` (``export.main``) over phase 8's APTAI and FORCE
+   checkpoints at bf16, 16 x 10 s (export and load seconds, bytes), and a
+   full-width W2V2PR bundle with the fused feature extractor: 16 requests
+   of 1-10 s in one bundle batch against the live predictor under the
+   serving gates of phases 3 and 6, each batch's launches (24 flash
+   forward; 6 fused more for W2V2PR), and the APTAI and FORCE bundles'
+   audio-s/s at 16 x 10 s beside the live predictor's, alternated live,
+   bundle, bundle, live; (11d) ``build_app`` over the APTAI bundle behind
+   the native transport: 8 ``/v1/predict`` requests against the live
+   app's ``ServingApp.handle`` under phase 9b's gates, an 11 s request's
+   400, ``/v1/stream`` without a streamer, ``/healthz`` naming the bundle
+   and its platforms.
 
 Output: the phases' lines, then one JSON line of kernel records, the card
 line, and last ``{"ok": true, "device": {...}}``. A flash kernel record's
@@ -188,8 +213,9 @@ serving, FORCE serving with the fused feature extractor, the FORCE train
 step from audio, the FE cache pass, the APTAI step from the FE cache, the
 FORCE cache pass with the device beam, the APTAI trainer's epoch from
 the FE cache, the three streams of 9a, one batch served over HTTP in 9b,
-the pretraining step at 8 x 5 s and at 4 x 15 s and the pretraining
-trainer's epoch), each read with the counts set to 0 just before it.
+the pretraining step at 8 x 5 s and at 4 x 15 s, the pretraining
+trainer's epoch, one batch of each bundle of 11c and one request to the
+bundle app of 11d), each read with the counts set to 0 just before it.
 """
 
 from __future__ import annotations
@@ -3604,8 +3630,7 @@ def phase_cli(root, aptai_ckpt, force_ckpt, card):
         paths.append(str(root / "wavs" / f"utt{i}.wav"))
         save_wav(paths[-1], wavs[-1], SAMPLE_RATE)
     here = Path(__file__).resolve().parent
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (str(here), os.environ.get("PYTHONPATH")) if p))
+    env = _package_env()
     extra = ["--cpu"] if PLATFORM == "cpu" else []
     argvs = {"aptai": [str(aptai_ckpt), *paths, "--batch_size", "4"],
              "alignment": [str(force_ckpt), *paths[:3], "--task",
@@ -3979,6 +4004,523 @@ def phase_pretrain(card, root):
     return step_counts, step15_counts, (trainer_counts, trainer_steps)
 
 
+# -- phase 11 -----------------------------------------------------------------
+
+# where phase 11 exports, loads and serves its bundles ("cpu" rehearses
+# 11b-11d on the CPU)
+BUNDLE_DEVICE = "cuda"
+# the aptai_torch ops, by the name the exported graphs give them
+OP_NAMES = {"flash_attn_fwd": "aptai_torch.flash_fwd.default",
+            "fused_conv_ln_gelu": "aptai_torch.fused_conv_ln_gelu.default",
+            "packed_lstm": "aptai_torch.packed_lstm.default",
+            "beam_decode": "aptai_torch.beam_decode.default"}
+
+
+def graph_ops(bundle):
+    """{call target: count} of a loaded bundle's exported graph."""
+    ops = {}
+    for node in bundle.program.graph.nodes:
+        if node.op == "call_function":
+            ops[str(node.target)] = ops.get(str(node.target), 0) + 1
+    return ops
+
+
+def check_graph(bundle, what, layers, fused=0, lstm=0, beam=0):
+    """The exported graph holds the kernel ops (the flash forward once a
+    layer, the fused conv, FORCE's two serving ops) and no packing or
+    inlined plain attention (its row max), and none of torch.export's
+    dtype assertions (``infer/export.py`` erases them)."""
+    ops = graph_ops(bundle)
+    want = {OP_NAMES["flash_attn_fwd"]: layers,
+            OP_NAMES["fused_conv_ln_gelu"]: fused,
+            OP_NAMES["packed_lstm"]: lstm, OP_NAMES["beam_decode"]: beam}
+    got = {k: ops.get(k, 0) for k in want}
+    bad = sorted(k for k in ops if "pack_padded" in k or "amax" in k
+                 or "flash_fwd_lse" in k or "flash_bwd" in k
+                 or "_assert_tensor_metadata" in k)
+    if got != want or bad:
+        raise AssertionError(f"11: {what}'s graph holds {got} (want {want}), "
+                             f"and {bad}")
+    return sum(ops.values())
+
+
+def opcheck_cases(gen):
+    """(name, op, args) of every aptai_torch op at small shapes on the
+    card, bf16 and float32 where the kernel takes both."""
+    from aptai_tpu_torch.decode.device import beam_decode
+    from aptai_tpu_torch.ops.lstm import packed_lstm
+
+    cases = []
+    lens = torch.tensor([65, 17], dtype=torch.int32, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        q, k, v = _qkv(gen, 2, 2, 65, dtype, model_layout=True)
+        dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        out, lse = attention.flash_fwd_lse(q, k, v, lens)
+        _, delta = attention.flash_bwd_dq(q, k, v, out, lse, dout, lens)
+        cases += [
+            (f"flash_fwd {tag}", attention.flash_fwd, (q, k, v, lens)),
+            (f"flash_fwd_lse {tag}", attention.flash_fwd_lse,
+             (q, k, v, lens)),
+            (f"flash_bwd_dq {tag}", attention.flash_bwd_dq,
+             (q, k, v, out, lse, dout, lens)),
+            (f"flash_bwd_dkv {tag}", attention.flash_bwd_dkv,
+             (q, k, v, dout, lse, delta, lens))]
+        x, w, b, ln_w, ln_b = fused_operands(gen, 2, 263, 128, 128, 3, dtype)
+        cases.append((f"fused_conv_ln_gelu {tag}",
+                      fused_conv.fused_conv_ln_gelu_op,
+                      (x, w, b, ln_w, ln_b, 2, 1e-5)))
+    h = 16
+    weights = [torch.randn(shape, generator=gen, device="cuda") * 0.3
+               for shape in ((4 * h, 8), (4 * h, h), (4 * h,), (4 * h,))] * 2
+    cases.append(("packed_lstm f32", packed_lstm, (
+        torch.randn((3, 9, 8), generator=gen, device="cuda"),
+        torch.tensor([9, 4, 0], dtype=torch.int32, device="cuda"), weights,
+        True)))
+    log_probs = torch.log_softmax(
+        3 * torch.randn((2, 30, 12), generator=gen, device="cuda"), -1)
+    cases.append(("beam_decode f32", beam_decode, (
+        log_probs, torch.tensor([30, 17], dtype=torch.int32, device="cuda"),
+        0, 10, 50.0, 16)))
+    return cases
+
+
+def phase_opcheck():
+    """11a: ``torch.library.opcheck`` on every op with CUDA inputs: the
+    schema, the fake implementation's shapes, dtypes and strides against
+    the kernels' outputs, and the op under AOT dispatch."""
+    gen = torch.Generator("cuda").manual_seed(11)
+    t0 = time.perf_counter()
+    names = []
+    for name, op, args in opcheck_cases(gen):
+        result = torch.library.opcheck(op, args)
+        if set(result.values()) != {"SUCCESS"}:
+            raise AssertionError(f"11a: opcheck of {name}: {result}")
+        names.append(name)
+    log(f"  11a opcheck on the card, every test SUCCESS for {len(names)} "
+        f"cases ({', '.join(names)}) in {time.perf_counter() - t0:.1f} s")
+
+
+def op_host_cost(card):
+    """11a: host time of one attention call in inference mode at a
+    request's shape (1, 16, 49, 64), through the op
+    (``multi_head_attention_bhtd``) and through the kernel's wrapper
+    alone, 2000 calls each after 200, in turns op, wrapper, wrapper, op:
+    the dispatcher's cost a call (a record, not a gate)."""
+    gen = torch.Generator("cuda").manual_seed(12)
+    q, k, v = _qkv(gen, 1, 16, 49, torch.bfloat16, model_layout=True)
+    lens = torch.tensor([49], dtype=torch.int32, device="cuda")
+    fns = {"op": lambda: attention.multi_head_attention_bhtd(q, k, v, lens),
+           "wrapper": lambda: attention.flash_attention_bhtd_cuda(q, k, v,
+                                                                  lens)}
+    turns = []
+    with torch.inference_mode():
+        for who in ("op", "wrapper", "wrapper", "op"):
+            for _ in range(200):
+                fns[who]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                fns[who]()
+            turns.append((who, (time.perf_counter() - t0) / 2000 * 1e6))
+            torch.cuda.synchronize()
+    log("  11a host time of one attention call, inference mode, (1, 16, 49, "
+        "64) bf16, in turns: " + ", ".join(f"{who} {us:.1f} us"
+                                           for who, us in turns)
+        + f" on {card}")
+
+
+def _bundle_gap(got, want, n_frames, frame_keys):
+    """Largest |Δ| of the float outputs over the valid frames relative to
+    the largest |want| there, and whether every integer output agrees."""
+    err, same = 0.0, True
+    for k, w in want.items():
+        g = got[k]
+        for b, n in enumerate(n_frames):
+            gb, wb = (g[b, :n], w[b, :n]) if k in frame_keys else (g[b],
+                                                                   w[b])
+            if w.dtype.kind == "f":
+                err = max(err, _rel_err(torch.from_numpy(gb),
+                                        torch.from_numpy(wb))[1])
+            else:
+                same &= bool(np.array_equal(gb, wb))
+    return err, same
+
+
+FRAME_KEYS = ("tvs_pred", "phn_fc_pred", "pred_frame_phns", "phoneme_logits")
+
+
+def phase_small_bundles(root):
+    """11b: small float32 bundles exported on the card (FORCE greedy and
+    ``beam_device``, W2V2PR with the fused feature extractor), each
+    against the live predictor on the same requests (the same padded
+    shape: 4 x 3 s) and its graph checked; then one bundle exported for
+    ``("cuda", "cpu")``, loaded on the CPU in a fresh process with CUDA
+    hidden, against the CPU predictor."""
+    from aptai_tpu_torch.infer.export import (load_serving_bundle,
+                                              save_serving_bundle)
+    from aptai_tpu_torch.infer.serve import KIND_FIELDS
+
+    rng = np.random.default_rng(12)
+    wavs = [(rng.standard_normal(int(s * SAMPLE_RATE)) * 0.1).astype(
+        np.float32) for s in (3.0, 1.4, 2.2, 0.7)]
+    force_cfg, pr_cfg = small_force_config(), small_pr_config()
+    cases = (
+        ("force_aptai greedy", random_force_aptai(force_cfg, seed=3),
+         "predict", ForceAPTAIPredictor, dict(lstm=1)),
+        ("force_aptai beam_device", random_force_aptai(
+            force_cfg, seed=3, decode_method="beam_device"), "predict",
+         ForceAPTAIPredictor, dict(lstm=1, beam=1)),
+        ("w2v2_pr fused FE", random_w2v2_pr(pr_cfg, seed=3), "encode",
+         W2V2PRPredictor, dict(fused=2)))
+    for name, model, method, cls, ops in cases:
+        kind = "w2v2_pr" if method == "encode" else "force_aptai"
+        fields = KIND_FIELDS[kind]
+        t0 = time.perf_counter()
+        path = save_serving_bundle(
+            root / name.replace(" ", "_"), model, method=method, batch=4,
+            seconds=3.0, fields=fields, platforms=(BUNDLE_DEVICE,),
+            kind=kind)
+        export_s = time.perf_counter() - t0
+        bundle = load_serving_bundle(path, device=BUNDLE_DEVICE)
+        layers = model.cfg.num_hidden_layers if kind == "w2v2_pr" else \
+            model.w2v2_pr.cfg.num_hidden_layers
+        n_ops = check_graph(bundle, name, layers, **ops)
+        pred = cls(model, device=BUNDLE_DEVICE)
+        live = (pred.encode_batch if kind == "w2v2_pr"
+                else pred.predict_batch)(wavs, fields=fields)
+        got, want = fetch_outputs(bundle.predict_batch(wavs)), \
+            fetch_outputs(live)
+        err, same = _bundle_gap(got, want, want["frame_lengths"], FRAME_KEYS)
+        log(f"  11b small f32 {name}: exported on {BUNDLE_DEVICE} in "
+            f"{export_s:.1f} s, {n_ops} graph calls ({ops} + {layers} flash "
+            f"forward); against the live predictor, same requests: max rel "
+            f"err {err:.2e}, integer outputs equal {same}")
+        if err > F32_TOL or not same:
+            raise AssertionError(f"11b: the {name} bundle disagrees with the "
+                                 "live predictor")
+
+    model = random_force_aptai(force_cfg, seed=4, decode_method="beam_device")
+    path = save_serving_bundle(
+        root / "force_cuda_cpu", model, batch=4, seconds=3.0,
+        fields=KIND_FIELDS["force_aptai"], platforms=(BUNDLE_DEVICE, "cpu"),
+        kind="force_aptai")
+    np.savez(root / "cpu_wavs.npz", *wavs)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", _CPU_LOAD, str(path), str(root)],
+        cwd=root, env=dict(_package_env(), CUDA_VISIBLE_DEVICES=""),
+        capture_output=True, text=True, timeout=300)
+    child_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"11b: loading the bundle in a process without "
+                             f"CUDA failed:\n{res.stderr[-3000:]}")
+    info = json.loads(res.stdout.strip().splitlines()[-1])
+    with np.load(root / "cpu_out.npz") as z:
+        got = {k: z[k] for k in z.files}
+    want = fetch_outputs(ForceAPTAIPredictor(model, device="cpu")
+                         .predict_batch(wavs, fields=KIND_FIELDS[
+                             "force_aptai"]))
+    err, same = _bundle_gap(got, want, want["frame_lengths"], FRAME_KEYS)
+    log(f"  11b FORCE beam_device bundle for ('{BUNDLE_DEVICE}', 'cpu'), "
+        f"traced on {BUNDLE_DEVICE}, loaded in a fresh process without "
+        f"CUDA (cuda available {info['cuda']}; process {child_s:.1f} s, "
+        f"load {info['load_s']:.1f} s, weights on {info['placed']}): "
+        f"against the CPU predictor max rel err {err:.2e}, integer outputs "
+        f"equal {same}; kernel launches {info['launches']}")
+    if (err > F32_TOL or not same or info["cuda"]
+            or info["placed"] != ["cpu"] or any(info["launches"].values())):
+        raise AssertionError("11b: the bundle loaded without CUDA disagrees "
+                             "with the CPU predictor")
+
+
+def _package_env():
+    """The environment with this checkout first on ``PYTHONPATH``."""
+    here = Path(__file__).resolve().parent
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(here), os.environ.get("PYTHONPATH")) if p))
+
+
+# 11b's child: loads a bundle on the CPU with CUDA hidden and runs
+# <dir>/cpu_wavs.npz through it into <dir>/cpu_out.npz
+_CPU_LOAD = r"""
+import json, sys, time
+from pathlib import Path
+import numpy as np
+import torch
+from aptai_tpu_torch.infer.export import load_serving_bundle
+from aptai_tpu_torch.infer.transfer import fetch_outputs
+from aptai_tpu_torch.ops import attention, fused_conv
+
+root = Path(sys.argv[2])
+t0 = time.perf_counter()
+bundle = load_serving_bundle(sys.argv[1], device="cpu")
+load_s = time.perf_counter() - t0
+with np.load(root / "cpu_wavs.npz") as z:
+    wavs = [z[f"arr_{i}"] for i in range(len(z.files))]
+np.savez(root / "cpu_out.npz", **fetch_outputs(bundle.predict_batch(wavs)))
+launches = {f.__name__: f.launches for f in (
+    attention.flash_attention_bhtd_cuda, attention.flash_attention_bwd_dq_cuda,
+    attention.flash_attention_bwd_dkv_cuda, fused_conv.fused_conv_ln_gelu_cuda)}
+print(json.dumps({"cuda": torch.cuda.is_available(), "load_s": load_s,
+                  "placed": sorted({str(t.device) for t in
+                                    bundle.program.state_dict.values()}),
+                  "launches": launches}))
+"""
+
+
+def export_requests(seed: int, n: int = 16):
+    """``n`` requests of 1-10 s cut from the synthetic corpora's audio."""
+    recording = synthetic_recording(120.0, seed=seed)
+    rng = np.random.default_rng(seed)
+    secs = rng.uniform(1.0, 10.0, n)
+    starts = rng.integers(0, len(recording) - 10 * SAMPLE_RATE, n)
+    return [recording[st:st + int(x * SAMPLE_RATE)]
+            for x, st in zip(secs, starts)]
+
+
+def bundle_vs_live(kind, bundle, live, wavs, what):
+    """One bundle batch of ``wavs`` against the live predictor on the same
+    requests, under the serving gates of phases 3 and 6: per-TV Pearson
+    (the logits' for W2V2PR) ≥ 0.999 and frame agreement ≥ 99 % over the
+    valid frames of every request together; FORCE's decoded sequences no
+    further from the live ones than the live ones on the waveforms x
+    (1 + 2^-9) are (one point of slack). Returns the bundle batch's
+    launches."""
+    reset_counts()
+    got = fetch_outputs(bundle.predict_batch(wavs))
+    counts = read_counts()
+    want = fetch_outputs(live(wavs))
+    n = want["frame_lengths"]
+    if not np.array_equal(got["frame_lengths"], n):
+        raise AssertionError(f"11c: {what} frame counts differ")
+    keys = [k for k in FRAME_KEYS if k in want]
+    cat = lambda out: {k: np.concatenate([out[k][b, :n[b]]
+                                          for b in range(len(wavs))])
+                       for k in keys}
+    r, agree = served_agreement(cat(got), cat(want))
+    text = (f"per-{'logit' if kind == 'w2v2_pr' else 'TV'} Pearson min "
+            f"{r:.6f}, frame agreement {agree:.4%}")
+    ok = r >= 0.999 and agree >= 0.99
+    if kind == "force_aptai":
+        seqs = lambda out: [out["pred_ctc_phn_seq"][b, :out[
+            "phn_seq_lengths"][b]].tolist() for b in range(len(wavs))]
+        nudged = fetch_outputs(live([w * np.float32(1 + 2 ** -9)
+                                     for w in wavs]))
+        ter, ter_n = (compare_seqs(seqs(got), seqs(want)),
+                      compare_seqs(seqs(nudged), seqs(want)))
+        text += (f", sequences identical on "
+                 f"{sum(a == b for a, b in zip(seqs(got), seqs(want)))} of "
+                 f"{len(wavs)}, token error rate {ter:.4%} (noise floor "
+                 f"{ter_n:.4%})")
+        ok &= ter <= ter_n + 0.01
+    log(f"  11c {what}, 16 requests of 1-10 s in one bundle batch against "
+        f"the live predictor: {text}; launches {counts}")
+    if not ok:
+        raise AssertionError(f"11c: the {what} bundle disagrees with the "
+                             "live predictor")
+    return counts
+
+
+def bundle_throughput(bundle, live, card, what):
+    """Bundle and live audio-s/s at 16 x 10 s, alternated live, bundle,
+    bundle, live (records, not claims); then one profiled batch of each:
+    device kernel time against wall time, and host aten calls."""
+    rng = np.random.default_rng(13)
+    big = [(rng.standard_normal(10 * SAMPLE_RATE) * 0.1).astype(np.float32)
+           for _ in range(16)]
+    runs = {"live": [], "bundle": []}
+    for who in ("live", "bundle", "bundle", "live"):
+        fn = (lambda: bundle.predict_batch(big)) if who == "bundle" else \
+            (lambda: live(big))
+        runs[who].append(float(np.median(timed_batches(fn, n=3, warmup=1))))
+    text = ", ".join(f"{who} {160 / t:.1f} audio-s/s ({t * 1e3:.2f} ms)"
+                     for who in ("live", "bundle", "bundle", "live")
+                     for t in [runs[who].pop(0)])
+    log(f"  11c {what} at 16 x 10 s, median of 3 batches each, in turns: "
+        f"{text} on {card}")
+    for who, fn in (("bundle", lambda: bundle.predict_batch(big)),
+                    ("live", lambda: live(big))):
+        busy, wall, prof = profile_breakdown(fn, f"one {who} batch ({what})",
+                                             top=0)
+        ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
+        top = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:4]
+        log(f"    {who}: {sum(e.count for e in ops)} host aten calls, "
+            f"{sum(e.self_cpu_time_total for e in ops) / 1e3:.2f} ms of "
+            f"their self CPU time (" + ", ".join(
+                f"{e.key} {e.count}x {e.self_cpu_time_total / 1e3:.2f} ms"
+                for e in top) + f"); {threading.active_count()} threads")
+
+
+def export_cli(ckpt, out, card):
+    """``export.main`` over a trainer checkpoint (bf16, 16 x 10 s): its
+    JSON line, the export and load seconds, the bundle's bytes."""
+    from aptai_tpu_torch.infer import export
+
+    argv = [str(ckpt), str(out), "--batch", "16", "--seconds", "10",
+            "--dtype", "bfloat16", "--platforms", BUNDLE_DEVICE]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = export.main(argv)
+    export_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"11c: aptai-torch-export {ckpt} exited {rc}")
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    t0 = time.perf_counter()
+    bundle = export.load_serving_bundle(out, device=BUNDLE_DEVICE)
+    load_s = time.perf_counter() - t0
+    log(f"  11c aptai-torch-export {line['kind']} ({' '.join(argv[2:])}): "
+        f"{export_s:.1f} s, {line['bytes']} bytes ({line['bytes'] / 2**30:.2f}"
+        f" GiB), loaded on {BUNDLE_DEVICE} in {load_s:.1f} s; {card}")
+    return line, bundle
+
+
+def phase_export_cli(root, aptai_ckpt, force_ckpt, card):
+    """11c: ``aptai-torch-export`` over phase 8's APTAI and FORCE
+    checkpoints, and a full-width W2V2PR bundle with the fused feature
+    extractor: each bundle batch against the live predictor, its
+    launches, and audio-s/s beside the live predictor's. Returns
+    {path: launches of one bundle batch} and the APTAI bundle's
+    directory, live predictor and vocabulary."""
+    from aptai_tpu_torch.infer.export import (load_serving_bundle,
+                                              save_serving_bundle)
+    from aptai_tpu_torch.infer.serve import KIND_FIELDS
+
+    cfg = Wav2Vec2Config(dtype="bfloat16")
+    layers = cfg.num_hidden_layers
+    launches = {}
+    for kind, ckpt, seed in (("aptai", aptai_ckpt, 14),
+                             ("force_aptai", force_ckpt, 15)):
+        out = root / f"bundle_{kind}"
+        line, bundle = export_cli(ckpt, out, card)
+        check_graph(bundle, f"the {kind} bundle", layers,
+                    lstm=int(kind == "force_aptai"))
+        _, model, vocab = load_model(ckpt, dtype="bfloat16")
+        pred = (APTAIPredictor if kind == "aptai" else
+                ForceAPTAIPredictor)(model, device=BUNDLE_DEVICE)
+        del model
+        live = lambda wavs: pred.predict_batch(wavs,
+                                               fields=KIND_FIELDS[kind])
+        counts = bundle_vs_live(kind, bundle, live, export_requests(seed),
+                                f"{kind} bundle")
+        want = {"flash_attn_fwd": layers, "flash_attn_bwd_dq": 0,
+                "flash_attn_bwd_dkv": 0, "fused_conv_ln_gelu": 0}
+        if counts != want:
+            raise AssertionError(f"11c: a {kind} bundle batch launched "
+                                 f"{counts}, want {want}")
+        bundle_throughput(bundle, live, card, f"{kind} bundle")
+        launches[f"bundle_{kind}"] = counts
+        if kind == "aptai":  # 11d serves it beside this predictor
+            aptai = (out, pred, vocab)
+        del bundle, pred
+        torch.cuda.empty_cache()
+
+    pr_cfg = dataclasses.replace(cfg, fused_feature_extractor=True)
+    model = random_w2v2_pr(pr_cfg, seed=0)
+    t0 = time.perf_counter()
+    path = save_serving_bundle(
+        root / "bundle_w2v2_pr", model, method="encode", batch=16,
+        seconds=10.0, fields=KIND_FIELDS["w2v2_pr"],
+        platforms=(BUNDLE_DEVICE,), kind="w2v2_pr",
+        vocab={f"p{i}": i for i in range(pr_cfg.vocab_size)})
+    export_s = time.perf_counter() - t0
+    bundle = load_serving_bundle(path, device=BUNDLE_DEVICE)
+    check_graph(bundle, "the W2V2PR bundle", layers, fused=6)
+    pred = W2V2PRPredictor(model, device=BUNDLE_DEVICE)
+    del model
+    log(f"  11c full-width W2V2PR (fused FE, bf16, seed 0) exported with "
+        f"save_serving_bundle in {export_s:.1f} s")
+    counts = bundle_vs_live(
+        "w2v2_pr", bundle,
+        lambda wavs: pred.encode_batch(wavs, fields=("phoneme_logits",)),
+        export_requests(16), "W2V2PR fused-FE bundle")
+    want = {"flash_attn_fwd": layers, "flash_attn_bwd_dq": 0,
+            "flash_attn_bwd_dkv": 0, "fused_conv_ln_gelu": 6}
+    if counts != want:
+        raise AssertionError(f"11c: a W2V2PR bundle batch launched {counts},"
+                             f" want {want}")
+    launches["bundle_w2v2_pr_fused_fe"] = counts
+    del bundle, pred
+    torch.cuda.empty_cache()
+    return launches, aptai
+
+
+def phase_bundle_http(aptai_bundle, live_pred, vocab, card):
+    """11d: ``build_app`` over the APTAI bundle behind the native transport:
+    8 ``/v1/predict`` requests against ``ServingApp.handle`` of the live
+    app over the checkpoint's predictor (as ``build_app`` serves it,
+    batch 16, without a streamer; phase 9b's gates), an over-cap request's
+    400, ``/v1/stream`` without a streamer, ``/healthz``. Returns the
+    launches of one request alone."""
+    from aptai_tpu_torch.infer.serve import KIND_FIELDS, ServingApp
+
+    t0 = time.perf_counter()
+    app = build_app(str(aptai_bundle), device=BUNDLE_DEVICE)
+    build_s = time.perf_counter() - t0
+    live = ServingApp(MicroBatcher(live_pred.predict_batch,
+                                   max_batch_size=16,
+                                   fields=KIND_FIELDS["aptai"]).start(),
+                      "aptai", vocab=vocab)
+    layers = Wav2Vec2Config().num_hidden_layers
+    srv = make_native_server(app, "127.0.0.1", 0)
+    try:
+        port = srv.port
+        reqs = [(w.tobytes(), {"Content-Type": "application/octet-stream"})
+                for w in export_requests(17, 8)]
+        reset_counts()
+        results = [request_once(port, "POST", "/v1/predict", *reqs[0])[::2]]
+        one = read_counts()
+        results += [request_once(port, "POST", "/v1/predict", *r)[::2]
+                    for r in reqs[1:]]
+        direct = [live.handle("POST", "/v1/predict", r[1], r[0])
+                  for r in reqs]
+        r, a, single = check_http_answers(results, direct, "bundle")
+        over = request_once(port, "POST", "/v1/predict",
+                            np.zeros(11 * SAMPLE_RATE, np.float32).tobytes(),
+                            {})
+        stream = request_once(port, "POST", "/v1/stream",
+                              np.zeros(SAMPLE_RATE, np.float32).tobytes(), {})
+        health = request_once(port, "GET", "/healthz", None, {})
+        h = json.loads(health[2]) if health[0] == 200 else {}
+        over_msg = json.loads(over[2]).get("error", "")
+        log(f"  11d build_app over the APTAI bundle (warm-up included) in "
+            f"{build_s:.1f} s, native transport: 8 /v1/predict requests "
+            f"against the live app's handle: per-TV Pearson min {r:.6f} "
+            f"(one response's min {single:.6f}), frame agreement {a:.4%}; "
+            f"one request alone launched {one}; 11 s: {over[0]} "
+            f"{over_msg!r}; /v1/stream {stream[0]}; /healthz {health[0]} "
+            f"bundle {h.get('bundle')!r} platforms {h.get('platforms')} "
+            f"streaming {h.get('streaming')} on {card}")
+        if not (over[0] == 400 and "serving cap" in over_msg
+                and stream[0] == 404 and health[0] == 200
+                and h.get("bundle") == str(aptai_bundle)
+                and h.get("platforms") == [BUNDLE_DEVICE]
+                and h.get("streaming") is False
+                and one["flash_attn_fwd"] == layers
+                and sum(one.values()) == layers):
+            raise AssertionError("11d: the bundle app's cap, /v1/stream, "
+                                 "/healthz or launches are wrong")
+        return one
+    finally:
+        srv.shutdown()
+        app.batcher.stop()
+        live.batcher.stop()
+
+
+def phase_export(root, aptai_ckpt, force_ckpt, card):
+    log("== phase 11: the kernels as torch.library ops and the serving "
+        "export")
+    t_phase = time.perf_counter()
+    phase_opcheck()
+    op_host_cost(card)
+    phase_small_bundles(root / "small_bundles")
+    launches, aptai = phase_export_cli(root, aptai_ckpt, force_ckpt, card)
+    launches["http_bundle"] = phase_bundle_http(*aptai, card)
+    log(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4034,9 +4576,12 @@ def main() -> int:
             phase_trainers(card, Path(tmp))
         streams, http_one = phase_inference(Path(tmp), aptai_ckpt,
                                             force_ckpt, card)
-    with tempfile.TemporaryDirectory() as tmp:
-        pretrain_step, pretrain_step15, (pretrain_epoch, pretrain_steps) = \
-            phase_pretrain(card, Path(tmp))
+        with tempfile.TemporaryDirectory() as tmp10:
+            pretrain_step, pretrain_step15, (pretrain_epoch,
+                                             pretrain_steps) = \
+                phase_pretrain(card, Path(tmp10))
+        # phase 8's checkpoints stay for the export
+        bundles = phase_export(Path(tmp), aptai_ckpt, force_ckpt, card)
     for rec in records:
         name = rec["name"]
         rec["launches"] = (pr_serving if name == "fused_conv_ln_gelu"
@@ -4077,7 +4622,9 @@ def main() -> int:
             "pretrain_step_4x15s": {"steps": 1,
                                     "launches": pretrain_step15[name]},
             "pretrain_trainer_epoch": {"steps": pretrain_steps,
-                                       "launches": pretrain_epoch[name]}}
+                                       "launches": pretrain_epoch[name]},
+            **{path: {"batches": 1, "launches": counts[name]}
+               for path, counts in bundles.items()}}
 
     print(json.dumps({"kernels": records}))
     print(card)

@@ -134,11 +134,14 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def run_turn(root: Path, parts=PARTS) -> dict:
+def run_turn(root: Path, parts=PARTS, snippet: str = _TURN,
+             timeout: float = 900) -> dict:
+    """Run ``snippet`` in a fresh process from the checkout ``root`` (with
+    ``parts`` as its argument) and return the JSON of its ``TURN`` line."""
     env = dict(os.environ, PYTHONPATH=str(root))
-    res = subprocess.run([sys.executable, "-c", _TURN, ",".join(parts)],
+    res = subprocess.run([sys.executable, "-c", snippet, ",".join(parts)],
                          cwd=root, env=env,
-                         capture_output=True, text=True, timeout=900)
+                         capture_output=True, text=True, timeout=timeout)
     for line in res.stdout.splitlines():
         if not line.startswith("TURN "):
             print(f"    {line}", flush=True)

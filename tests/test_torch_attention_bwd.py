@@ -129,19 +129,22 @@ def test_gradcheck_float64():
 
 def test_cpu_gradient_routes_to_plain_backward(monkeypatch):
     """A CPU tensor that needs a gradient goes through FlashAttention with
-    the plain forward (with logsumexp) and the plain backward; no kernel
-    wrapper counts a launch."""
+    the plain forward (with logsumexp) and the plain backward (the dq and
+    dk/dv ops' CPU implementations, once each); no kernel wrapper counts a
+    launch."""
     calls = []
-    plain_bwd = tatt.flash_attention_bhtd_bwd_plain
-    monkeypatch.setattr(tatt, "flash_attention_bhtd_bwd_plain",
-                        lambda *a: calls.append("bwd") or plain_bwd(*a))
+    for name, tag in (("flash_attention_bwd_dq_plain", "dq"),
+                      ("flash_attention_bwd_dkv_plain", "dkv")):
+        plain = getattr(tatt, name)
+        monkeypatch.setattr(tatt, name, lambda *a, _p=plain, _t=tag:
+                            calls.append(_t) or _p(*a))
     before = [f.launches for f in (tatt.flash_attention_bhtd_cuda,
                                    tatt.flash_attention_bwd_dq_cuda,
                                    tatt.flash_attention_bwd_dkv_cuda)]
     q, k, v = (torch.from_numpy(x).requires_grad_()
                for x in _inputs(7, 1, 2, 9, 64))
     tatt.multi_head_attention_bhtd(q, k, v, None).sum().backward()
-    assert calls == ["bwd"]
+    assert calls == ["dq", "dkv"]
     assert [f.launches for f in (tatt.flash_attention_bhtd_cuda,
                                  tatt.flash_attention_bwd_dq_cuda,
                                  tatt.flash_attention_bwd_dkv_cuda)] == before

@@ -32,6 +32,7 @@ for m in pkgutil.walk_packages(aptai_tpu_torch.__path__, "aptai_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 import compare_kernels
+import compare_serving
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "flax", "aptai_tpu", "pandas", "msgpack", "wandb"))
 print("LOADED", len([m for m in sys.modules if m.startswith("aptai_tpu_torch")]))
@@ -69,7 +70,8 @@ print("PRETRAIN", all(m in sys.modules for m in (
 print("SERVING", all(m in sys.modules for m in (
     "aptai_tpu_torch.infer.streaming", "aptai_tpu_torch.infer.__main__",
     "aptai_tpu_torch.infer.serve", "aptai_tpu_torch.infer.native_transport",
-    "aptai_tpu_torch.utils.cxx_build")))
+    "aptai_tpu_torch.utils.cxx_build", "aptai_tpu_torch.infer.export",
+    "aptai_tpu_torch.infer.transfer", "aptai_tpu_torch.ops.library")))
 # importing builds and loads nothing
 print("NATIVE_LOADED", sys.modules["aptai_tpu_torch.decode.native"]._lib
       is not None)
@@ -135,7 +137,8 @@ def test_cli_entry_points_import_no_jax_msgpack_or_wandb():
 
 _RUN_INFER_CLIS = """
 import runpy, sys
-for name in ("aptai_tpu_torch.infer", "aptai_tpu_torch.infer.serve"):
+for name in ("aptai_tpu_torch.infer", "aptai_tpu_torch.infer.serve",
+             "aptai_tpu_torch.infer.export"):
     sys.argv = [name, "--help"]
     try:
         runpy.run_module(name, run_name="__main__", alter_sys=True)
@@ -148,8 +151,9 @@ print("BAD", bad)
 
 
 def test_inference_clis_import_no_jax():
-    """``python -m aptai_tpu_torch.infer --help`` and the serving CLI's:
-    each parses its flags without loading JAX or the JAX package."""
+    """``python -m aptai_tpu_torch.infer --help``, the serving CLI's and
+    the export CLI's: each parses its flags without loading JAX or the JAX
+    package."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
     res = subprocess.run([sys.executable, "-c", _RUN_INFER_CLIS], cwd=REPO,
@@ -158,7 +162,7 @@ def test_inference_clis_import_no_jax():
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
     for flag in ("--task", "--transfer_dtype", "--transport",
-                 "--max_stream_seconds"):
+                 "--max_stream_seconds", "--platforms"):
         assert flag in res.stdout, flag
 
 
@@ -268,6 +272,32 @@ def test_backward_comparison_script_fits_this_checkout():
     assert all(hasattr(modules[m], name) for m, name in used), used
     assert compare_kernels.main([]) == 2
     assert compare_kernels.main(["--only", "fused_conv"]) == 2
+
+
+def test_serving_comparison_script_fits_this_checkout():
+    """compare_serving.py runs one snippet in each checkout it times: every
+    chip_smoke name it uses is one the checkout before the kernels became
+    ``torch.library`` ops has too, and exists in this one, as do the
+    attention names of its op-only part; with no checkout to time it
+    prints its usage."""
+    import ast
+
+    import chip_smoke
+    import compare_serving
+
+    modules = {"cs": chip_smoke, "attention": tatt}
+    used = {(node.value.id, node.attr)
+            for node in ast.walk(ast.parse(compare_serving._TURN))
+            if isinstance(node, ast.Attribute)
+            and isinstance(node.value, ast.Name)
+            and node.value.id in modules}
+    older = {("cs", n) for n in ("SAMPLE_RATE", "timed_batches",
+                                 "synthetic_recording", "http_load", "_qkv",
+                                 "profile_breakdown", "device_kernels")}
+    assert {m for m, _ in used} == {"cs", "attention"}
+    assert {u for u in used if u[0] == "cs"} <= older, used - older
+    assert all(hasattr(modules[m], name) for m, name in used), used
+    assert compare_serving.main([]) == 2
 
 
 @pytest.mark.parametrize("header", ["flash_attn_common.cuh",

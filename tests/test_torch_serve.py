@@ -16,7 +16,12 @@ package's, float32 on the CPU, with the same weights:
 * a small seeded fuzz of garbage requests over raw sockets leaves both of
   the port's transports answering ``/healthz``;
 * ``build_app`` over a checkpoint on the CPU (a ``beam_host`` FORCE model
-  serves with ``/v1/stream`` off); a serving bundle and ``--quant`` raise.
+  serves with ``/v1/stream`` off); ``--quant`` raises, and so does a JAX
+  serving bundle, with a message naming ``aptai-torch-export``;
+* ``aptai-torch-export`` over a checkpoint of either package, then
+  ``build_app`` over the bundle: ``/v1/predict`` as the live app answers,
+  the bundle's cap enforced with a 400, no ``/v1/stream``; a bundle without
+  a family and a ``beam_host`` checkpoint refused.
 """
 
 import dataclasses
@@ -414,12 +419,119 @@ def test_build_app_over_checkpoints(tmp_path, monkeypatch):
     (bundle / "meta.json").write_text("{}")
     for path, want in ((bundle, True), (aptai, False)):
         assert tserve.is_bundle(path) is jax_is_bundle(path) is want
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7c"):
-        tserve.build_app(str(bundle))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7c"):
-        tserve.main(["--checkpoint", str(bundle), "--cpu"])
+    with pytest.raises(ValueError, match="aptai-torch-export"):
+        tserve.build_app(str(bundle), device="cpu")
+    assert tserve.main(["--checkpoint", str(bundle), "--cpu"]) == 2
     parser = tserve.build_parser()
     args = parser.parse_args(["--checkpoint", "x", "--chunk_batch", "8",
                               "--dtype", "float32"])
     assert tserve.bundle_ignored_flags(args, parser) == [
         "--dtype", "--chunk_batch"]
+
+
+def test_export_cli_then_serve_bundle(tmp_path, capsys):
+    """The deployment path: a checkpoint of either package →
+    ``aptai-torch-export`` → ``build_app`` over the bundle, on the CPU:
+    ``/v1/predict`` answers as the live app over the checkpoint does, an
+    over-cap request gets the JAX bundle app's 400, ``/v1/stream`` is off
+    and ``/healthz`` names the bundle; a bundle with no family and a
+    ``beam_host`` checkpoint are refused."""
+    from aptai_tpu_torch.infer import export as texport
+    from aptai_tpu_torch.train import checkpoints as tckpt
+
+    cfg_t = tcfg.tiny_config(**STACK)
+    params = random_jax_aptai_params(cfg_t, V, 74)
+    jax_ckpt = _write_checkpoint(tmp_path / "jax_run", "aptai", params)
+    port_ckpt = tmp_path / "port_run"
+    tckpt.CheckpointManager(port_ckpt, "m").update(
+        0, {"m": 1.0}, port_aptai_from_jax(cfg_t, params, V).state_dict(),
+        model_cfg={"backbone": dataclasses.asdict(cfg_t), "vocab": VOCAB,
+                   "kind": "aptai"})
+    live = tserve.build_app(jax_ckpt, device="cpu", max_batch_size=2,
+                            warmup=False, streaming=False)
+    wav = _wav(9000, 75)
+    want = live.handle("POST", "/v1/predict", {}, wav.tobytes())
+    live.batcher.stop()
+    for i, ckpt in enumerate((jax_ckpt, str(port_ckpt))):
+        out = tmp_path / f"bundle{i}"
+        assert texport.main([ckpt, str(out), "--batch", "2", "--seconds",
+                             "1", "--platforms", "cpu"]) == 0
+        line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert line["kind"] == "aptai" and line["bytes"] > 0
+        app = tserve.build_app(str(out), device="cpu", warmup=i == 0)
+        try:
+            assert app.streamer is None and app.max_seconds == 1.0
+            got = app.handle("POST", "/v1/predict", {}, wav.tobytes())
+            assert got[0] == want[0] == 200 and got[2] == want[2]
+            assert got[1] == want[1]  # the same padded batch: equal
+            status, body, _ = app.handle(
+                "POST", "/v1/predict", {},
+                np.zeros(20_000, np.float32).tobytes())
+            assert status == 400 and "serving cap" in json.loads(body)["error"]
+            assert app.handle("POST", "/v1/stream", {}, wav.tobytes())[0] \
+                == 404
+            health = app.health()[1]
+            assert health["bundle"] == str(out)
+            assert health["platforms"] == ["cpu"]
+        finally:
+            app.batcher.stop()
+
+    nokind = texport.save_serving_bundle(
+        tmp_path / "nokind", port_aptai_from_jax(cfg_t, params, V), batch=1,
+        seconds=0.25, platforms=("cpu",))
+    with pytest.raises(ValueError, match="aptai-torch-export"):
+        tserve.build_app(str(nokind), device="cpu")
+
+    force = _write_checkpoint(
+        tmp_path / "force", "force_aptai", random_jax_force_params(
+            jcfg.tiny_config(**STACK), len(VOCAB), 76),
+        decode_method="beam_host")
+    assert texport.main([force, str(tmp_path / "fb"), "--platforms",
+                         "cpu"]) == 2
+    assert "beam_host" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("family", ["w2v2_pr", "force_greedy",
+                                    "force_beam_device"])
+def test_export_cli_over_each_family(tmp_path, capsys, family):
+    """``aptai-torch-export`` over a JAX W2V2PR checkpoint and FORCE ones
+    (greedy and ``beam_device``): the family's fields and serving method,
+    its ops in the graph, and the bundle's outputs equal to the live
+    predictor's over the checkpoint on the same padded batch."""
+    import torch
+
+    from aptai_tpu_torch.infer import export as texport
+    from aptai_tpu_torch.infer.loader import load_predictor
+
+    cfg_j = jcfg.tiny_config(**STACK)
+    if family == "w2v2_pr":
+        ckpt = _write_checkpoint(tmp_path / "run", "w2v2_pr",
+                                 random_jax_w2v2_pr_params(
+                                     tcfg.tiny_config(**STACK), 77))
+    else:
+        ckpt = _write_checkpoint(
+            tmp_path / "run", "force_aptai",
+            random_jax_force_params(cfg_j, len(VOCAB), 78),
+            decode_method=family.split("_", 1)[1])
+    out = tmp_path / "bundle"
+    assert texport.main([ckpt, str(out), "--batch", "2", "--seconds", "1",
+                         "--platforms", "cpu"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    kind = "w2v2_pr" if family == "w2v2_pr" else "force_aptai"
+    assert line["kind"] == kind
+    assert line["fields"] == list(tserve.KIND_FIELDS[kind])
+    bundle = texport.load_serving_bundle(out, device="cpu")
+    assert bundle.meta["method"] == ("encode" if kind == "w2v2_pr"
+                                     else "predict")
+    ops = {str(n.target) for n in bundle.program.graph.nodes}
+    assert "aptai_torch.flash_fwd.default" in ops
+    assert (("aptai_torch.beam_decode.default" in ops)
+            == (family == "force_beam_device"))
+    wavs = [_wav(9000, 79), np.zeros(16_000, np.float32)]
+    got = bundle.predict_batch(wavs)
+    pred = load_predictor(ckpt, device="cpu")
+    entry = pred.encode_batch if kind == "w2v2_pr" else pred.predict_batch
+    want = entry(wavs, fields=tserve.KIND_FIELDS[kind])
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
