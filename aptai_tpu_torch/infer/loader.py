@@ -100,17 +100,17 @@ def load_model(path, dtype: Optional[str] = None,
     the CPU, in ``eval()`` mode) holds the checkpoint's weights.
 
     ``dtype`` overrides the compute dtype recorded at training time
-    (parameters are stored in float32 either way). ``quant`` is not
-    implemented yet and raises."""
-    if quant is not None:
-        raise NotImplementedError(f"quant={quant!r}: quantized GEMMs are not "
-                                  f"implemented in aptai_tpu_torch yet "
-                                  f"({_UNPORTED})")
+    (parameters are stored in float32 either way). ``quant`` ("none",
+    "w8a8_ffn" or "w8a8") overrides the backbone's dynamic W8A8 int8
+    inference GEMMs (``ops/quant.py``): the parameters do not depend on
+    it, so any checkpoint serves quantized."""
     ckpt_dir = resolve_checkpoint_dir(path)
     cfg = _find_model_cfg(ckpt_dir)
     backbone = backbone_from_dict(cfg["backbone"])
     if dtype is not None:
         backbone = dataclasses.replace(backbone, dtype=dtype)
+    if quant is not None:
+        backbone = dataclasses.replace(backbone, quant=quant)
     kind = cfg["kind"]
     model = _build_model(kind, backbone, cfg)
     model.load_state_dict(read_params(ckpt_dir), strict=True)
@@ -122,8 +122,9 @@ def load_predictor(path, device=None, transfer_dtype: str = "float32",
                    mesh=None):
     """The predictor for a trainer checkpoint directory
     (``APTAIPredictor`` / ``ForceAPTAIPredictor`` / ``W2V2PRPredictor``)
-    on ``device`` (``cuda`` unless named). ``mesh`` (several devices) is
-    not implemented yet and raises."""
+    on ``device`` (``cuda`` unless named), with ``dtype`` and ``quant`` as
+    in :func:`load_model`. ``mesh`` (several devices) is not implemented
+    yet and raises."""
     if mesh is not None:
         raise NotImplementedError(f"mesh serving is not implemented in "
                                   f"aptai_tpu_torch yet ({_UNPORTED})")

@@ -649,9 +649,13 @@ def build_app(checkpoint: str, fields: Optional[Sequence[str]] = None,
               device=None) -> ServingApp:
     """Checkpoint directory → started ServingApp: the predictor and its
     batcher, and the long-audio streamer sharing the predictor's serving
-    model, on ``device`` (``cuda`` unless named). A serving bundle
-    directory is detected and served by :func:`build_app_from_bundle`:
-    the same endpoints but ``/v1/stream``, no model code."""
+    model, on ``device`` (``cuda`` unless named). ``dtype`` and ``quant``
+    go to :func:`~aptai_tpu_torch.infer.loader.load_model`: with
+    ``quant="w8a8_ffn"`` or ``"w8a8"`` both ``/v1/predict`` and
+    ``/v1/stream`` run the int8 GEMMs. A serving bundle directory is
+    detected and served by :func:`build_app_from_bundle`: the same
+    endpoints but ``/v1/stream``, no model code, and ``dtype`` and
+    ``quant`` ignored (fixed at export time)."""
     from aptai_tpu_torch.infer import streaming as streaming_mod
     from aptai_tpu_torch.infer.api import (APTAIPredictor,
                                           ForceAPTAIPredictor,
@@ -728,7 +732,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="compute dtype override (e.g. bfloat16)")
     p.add_argument("--quant", default=None,
                    choices=("w8a8_ffn", "w8a8"),
-                   help="int8 W8A8 GEMMs (not implemented yet: raises)")
+                   help="serve with dynamic int8 W8A8 GEMMs (the FFN "
+                        "only, or every encoder projection); any checkpoint "
+                        "works, the parameters do not depend on it")
     p.add_argument("--fetch_workers", type=int, default=4)
     p.add_argument("--timeout_s", type=float, default=60.0)
     p.add_argument("--max_seconds", type=float, default=600.0,

@@ -15,6 +15,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+# dynamic W8A8 int8 inference GEMMs (ops/quant.py): none, the FFN's two
+# Linears, or those and the attention's four projections
+QUANT_MODES = ("none", "w8a8_ffn", "w8a8")
+
 
 @dataclasses.dataclass(frozen=True)
 class Wav2Vec2Config:
@@ -80,7 +84,6 @@ class Wav2Vec2Config:
 
     def __post_init__(self):
         unported = {
-            "quant": self.quant != "none",
             "fused_qkv": self.fused_qkv,
             "attention_layout": self.attention_layout != "bhtd",
             "activation_partition": self.activation_partition is not None,
@@ -91,6 +94,10 @@ class Wav2Vec2Config:
             raise NotImplementedError(
                 f"config field(s) {bad} are not implemented in aptai_tpu_torch "
                 "yet; leave them at their defaults")
+        if self.quant not in QUANT_MODES:
+            # the JAX package serves an unknown string as "none"
+            raise ValueError(f"quant must be one of {list(QUANT_MODES)}, "
+                             f"got {self.quant!r}")
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype must be 'float32' or 'bfloat16', "
                              f"got {self.dtype!r}")

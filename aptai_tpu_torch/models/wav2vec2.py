@@ -38,6 +38,11 @@ taken in float32 with float32 parameters, and the weight-normed kernel is
 composed in float32 before its cast. For serving,
 :func:`cast_matmul_weights` turns a copy's Linear and Conv1d parameters to
 bf16 once, and the in-op casts become no-ops.
+
+``cfg.quant`` (inference only) runs the FFN's two Linears (``"w8a8_ffn"``),
+or those and the attention's four projections (``"w8a8"``), as
+:class:`QuantLinear`: dynamic W8A8 int8 products (``ops/quant.py``) with
+the same parameters, which a serving copy keeps in float32.
 """
 
 from __future__ import annotations
@@ -55,6 +60,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from aptai_tpu_torch.models.configs import Wav2Vec2Config
 from aptai_tpu_torch.ops.attention import multi_head_attention_bhtd
 from aptai_tpu_torch.ops.fused_conv import fused_conv_ln_gelu, kernel_weight
+from aptai_tpu_torch.ops.quant import (quantize_rows, quantize_weight,
+                                       w8a8_linear)
 
 
 def compute_dtype(cfg: Wav2Vec2Config) -> torch.dtype:
@@ -88,6 +95,51 @@ class Linear(nn.Linear):
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class QuantLinear(Linear):
+    """:class:`Linear` whose product runs in dynamic W8A8 int8
+    (``ops/quant.py``): the JAX package's ``QuantDense`` (FFN,
+    ``fold_scales=False``) or its quantized ``HeadProjBHTD`` /
+    ``OutProjBHTD`` (attention, ``fold_scales=True``). The parameters are
+    :class:`Linear`'s, so state dicts are those of the exact model; they
+    stay float32 in a serving copy (:func:`cast_matmul_weights`), and the
+    weight codes are made from them, as the JAX package makes them from
+    its float32 kernels. Inference only: a forward that needs a gradient
+    raises."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 fold_scales: bool):
+        super().__init__(in_features, out_features)
+        self.fold_scales = fold_scales
+        self._codes = None  # (key, QuantizedWeight)
+
+    def forward(self, x, x_codes=None):
+        """``x_codes``: :func:`quantize_rows` of ``x``, where the caller
+        shares one quantization among the layers that read ``x``."""
+        if torch.is_grad_enabled() and (
+                x.requires_grad
+                or any(p.requires_grad for p in self.parameters())):
+            raise NotImplementedError(
+                "quant (W8A8) is inference only: run under torch.no_grad() "
+                "or torch.inference_mode(), or train with quant='none'")
+        xq = quantize_rows(x) if x_codes is None else x_codes
+        y = w8a8_linear(xq, self.weight_codes(), self.fold_scales, x.dtype)
+        return y + self.bias.to(x.dtype)
+
+    def weight_codes(self):
+        """The weight's :func:`quantize_weight`: made once and reused until
+        the weight changes (in place, or by a move or a cast). Under
+        ``torch.export`` (whose parameters have no storage to key on) it is
+        made in the traced program."""
+        w = self.weight
+        if torch.compiler.is_compiling():
+            return quantize_weight(w.detach())
+        key = (w.device, w.dtype, w.data_ptr(), w._version)
+        if self._codes is None or self._codes[0] != key:
+            with torch.no_grad():
+                self._codes = (key, quantize_weight(w.detach()))
+        return self._codes[1]
 
 
 class Conv1d(nn.Conv1d):
@@ -263,17 +315,23 @@ class SelfAttention(nn.Module):
         self.cfg = cfg
         self.heads = cfg.num_attention_heads
         c = cfg.hidden_size
-        self.q_proj = Linear(c, c)
-        self.k_proj = Linear(c, c)
-        self.v_proj = Linear(c, c)
-        self.out_proj = Linear(c, c)
+        # "w8a8_ffn" leaves the projections exact
+        self.quant = cfg.quant == "w8a8"
+        linear = (functools.partial(QuantLinear, fold_scales=True)
+                  if self.quant else Linear)
+        self.q_proj = linear(c, c)
+        self.k_proj = linear(c, c)
+        self.v_proj = linear(c, c)
+        self.out_proj = linear(c, c)
 
     def forward(self, x, lengths):  # (B, T, C)
         b, t, c = x.shape
         d = c // self.heads
+        # q, k and v quantize x to the same codes: once, shared
+        shared = {"x_codes": quantize_rows(x)} if self.quant else {}
 
         def to_heads(proj):  # a (B, H, T, D) view, no copy
-            return proj(x).view(b, t, self.heads, d).transpose(1, 2)
+            return proj(x, **shared).view(b, t, self.heads, d).transpose(1, 2)
 
         ctx = multi_head_attention_bhtd(to_heads(self.q_proj),
                                         to_heads(self.k_proj),
@@ -287,9 +345,11 @@ class FeedForward(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         self.cfg = cfg
-        self.intermediate_dense = Linear(cfg.hidden_size,
+        linear = (functools.partial(QuantLinear, fold_scales=False)
+                  if cfg.quant in ("w8a8_ffn", "w8a8") else Linear)
+        self.intermediate_dense = linear(cfg.hidden_size,
                                          cfg.intermediate_size)
-        self.output_dense = Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.output_dense = linear(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x):
         h = _gelu(self.intermediate_dense(x), self.cfg)
@@ -419,9 +479,11 @@ def compute_time_mask(generator: Optional[torch.Generator],
 def cast_matmul_weights(module: nn.Module, dtype: torch.dtype) -> None:
     """Turn the Linear and Conv1d parameters under ``module`` into
     ``dtype`` in place (serving: the in-op casts then do nothing).
-    LayerNorm, weight-norm g/v and embeddings stay float32."""
+    LayerNorm, weight-norm g/v, embeddings and the quantized Linears (whose
+    codes come from their float32 weights) stay float32."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d)):
+        if (isinstance(m, (nn.Linear, nn.Conv1d))
+                and not isinstance(m, QuantLinear)):
             m.to(dtype)
 
 

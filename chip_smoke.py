@@ -201,6 +201,32 @@ Phases (any failure ends the run with a non-zero exit code):
    app's ``ServingApp.handle`` under phase 9b's gates, an 11 s request's
    400, ``/v1/stream`` without a streamer, ``/healthz`` naming the bundle
    and its platforms.
+12. W8A8 int8 serving (``ops/quant.py``, ``Wav2Vec2Config.quant``), in
+   phase 8's directory: (12a) each encoder GEMM at 32 x 10 s (M 15968; K,
+   N of q/k/v/out and the FFN's two) and a padded 5-row one: the
+   ``_int_mm`` product equal to the exact float64 one, the card's codes,
+   scales and W8A8 products (both dequantization orders) bit for bit the
+   CPU's, and the device times of the bf16 ``F.linear``, ``_int_mm``
+   (with the weight codes as the transpose of (N, K) and as (K, N)
+   row-major), the row quantize and the whole op, beside the bf16 and int8
+   bounds; (12b) a small float32 W8A8 APTAI on the card against the CPU:
+   the CPU given the card's codes and scales for each quantized layer's
+   input under phase 3's gates (its own codes one step from the card's at
+   most), and free under 12c's deviation gates, the codes that differ
+   counted (a tie that rounds the other way moves every later
+   activation);
+   (12c) full-width bf16 APTAI (seed 0) at 32 x 10 s in the modes none,
+   ``w8a8_ffn`` and ``w8a8`` (the same weights), alternated none, ffn,
+   w8a8, w8a8, ffn, none (median of 5 each): audio-s/s, the TV RMS
+   relative error (≤ 0.05) and frame-phoneme agreement (≥ 99 %) against
+   exact bf16, 24 flash launches and the peak memory of one batch in each,
+   a profile of one ``w8a8_ffn`` batch; W2V2PR with the fused feature
+   extractor and FORCE greedy, one ``w8a8`` batch each against exact
+   (FORCE's TVs under the same gate, its sequences counted); (12d)
+   ``build_app(quant="w8a8_ffn")`` over phase 8's APTAI run behind the
+   native transport: 8 requests against ``ServingApp.handle`` over
+   ``load_predictor(quant="w8a8_ffn")``, byte for byte counted and under
+   phase 9b's gates, the streamer on the same model.
 
 Output: the phases' lines, then one JSON line of kernel records, the card
 line, and last ``{"ok": true, "device": {...}}``. A flash kernel record's
@@ -214,8 +240,11 @@ step from audio, the FE cache pass, the APTAI step from the FE cache, the
 FORCE cache pass with the device beam, the APTAI trainer's epoch from
 the FE cache, the three streams of 9a, one batch served over HTTP in 9b,
 the pretraining step at 8 x 5 s and at 4 x 15 s, the pretraining
-trainer's epoch, one batch of each bundle of 11c and one request to the
-bundle app of 11d), each read with the counts set to 0 just before it.
+trainer's epoch, one batch of each bundle of 11c, one request to the
+bundle app of 11d, one APTAI batch in ``w8a8_ffn`` and in ``w8a8``, one
+W2V2PR and one FORCE batch in ``w8a8`` and one request to the
+``w8a8_ffn`` app of 12d), each read with the counts set to 0 just before
+it.
 """
 
 from __future__ import annotations
@@ -268,7 +297,7 @@ from aptai_tpu_torch.models import wav2vec2 as w2v
 from aptai_tpu_torch.models.pretrain import (negative_indices_from_uniform,
                                              random_wav2vec2_pretrain,
                                              sample_negative_indices)
-from aptai_tpu_torch.ops import attention, fused_conv, kernels, signal
+from aptai_tpu_torch.ops import attention, fused_conv, kernels, quant, signal
 from aptai_tpu_torch.ops.align import viterbi_align
 from aptai_tpu_torch.ops.ctc import ctc_loss, greedy_decode
 from aptai_tpu_torch.ops.forward_sum import forward_sum_loss
@@ -4521,6 +4550,384 @@ def phase_export(root, aptai_ckpt, force_ckpt, card):
     return launches
 
 
+# -- phase 12 -----------------------------------------------------------------
+
+# H100 SXM (NVIDIA data sheet): dense int8 tensor-core peak
+PEAK_INT8_OPS = 1979e12
+QUANT_MODES = ("w8a8_ffn", "w8a8")
+# the encoder's GEMMs, (K, N): q/k/v/out, the FFN's first and second
+QUANT_GEMMS = ((1024, 1024), (1024, 4096), (4096, 1024))
+SERVING_ROWS = 32 * 499  # the encoder's rows at 32 x 10 s
+# benchmarks/quant_ab.py's measures against the exact bf16 forward
+QUANT_TV_REL_TOL = 0.05
+QUANT_AGREE_MIN = 0.99
+
+
+def int8_bound(m, k, n, nbytes):
+    """(least ms for an int8 product of (M, K) by (K, N) moving ``nbytes``,
+    what bounds it)."""
+    t_ops, t_bytes = 2 * m * k * n / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit (bf16 or float32 by their integer views)."""
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    if a.dtype in view:
+        a, b = a.view(view[a.dtype]), b.view(view[b.dtype])
+    return a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+
+
+def quant_gemm_case(gen, m, k, n, card):
+    """12a at one shape: the int8 product exact, the card's quantize and
+    W8A8 products (both dequantization orders) bit for bit the CPU's on
+    the first 256 rows, and the times."""
+    from aptai_tpu_torch.ops import quant
+    import torch.nn.functional as F
+
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(n, k, generator=gen, device="cuda") / k ** 0.5
+    xq, wq = quant.quantize_rows(x), quant.quantize_weight(w)
+    y = quant.int8_mm(xq.codes, wq.codes.t())
+    exact = torch.equal(y, quant.int8_mm_plain(xq.codes, wq.codes.t()))
+    r = min(m, 256)
+    xc, wc = quant.quantize_rows(x[:r].cpu()), quant.quantize_weight(w.cpu())
+    same = (torch.equal(xq.codes[:r].cpu(), xc.codes)
+            and same_bits(xq.scale[:r], xc.scale)
+            and torch.equal(wq.codes.cpu(), wc.codes)
+            and same_bits(wq.scale, wc.scale))
+    for fold in (False, True):
+        same = same and same_bits(
+            quant.w8a8_linear(xq, wq, fold, torch.bfloat16)[:r],
+            quant.w8a8_linear(xc, wc, fold, torch.bfloat16))
+    if not (exact and same):
+        raise AssertionError(f"12a ({m}, {k}) x ({k}, {n}): int8 product "
+                             f"exact {exact}, card = CPU {same}")
+    wb = w.to(torch.bfloat16)
+    w_kn = wq.codes.t().contiguous()  # the other layout: (K, N) row-major
+    a = xq.codes if m > quant.INT_MM_MIN_ROWS else F.pad(
+        xq.codes, (0, 0, 0, quant.INT_MM_MIN_ROWS + 1 - m))
+    iters = 20 if m > 64 else 200
+    t = {"linear_bf16": cuda_ms(lambda: F.linear(x, wb), iters),
+         "int_mm": cuda_ms(lambda: torch._int_mm(a, wq.codes.t()), iters),
+         "int_mm_kn": cuda_ms(lambda: torch._int_mm(a, w_kn), iters),
+         "quantize_rows": cuda_ms(lambda: quant.quantize_rows(x), iters),
+         "w8a8_op": cuda_ms(lambda: quant.w8a8_linear(
+             quant.quantize_rows(x), wq, False, torch.bfloat16), iters)}
+    b_bf16 = bound(2 * m * k * n, 2 * (m * k + k * n + m * n))
+    b_int8 = int8_bound(m, k, n, m * k + k * n + 4 * m * n)
+    # the whole op reads x (bf16) and the weight codes and scales, writes
+    # the bf16 output
+    b_op = int8_bound(m, k, n, 2 * m * k + k * n + 4 * n + 2 * m * n)
+    log(f"  12a M {m}, K {k}, N {n}: int8 product exact, card = CPU bit "
+        f"for bit (codes, scales, both orders, {r} rows); bf16 F.linear "
+        f"{t['linear_bf16'] * 1e3:.1f} µs (bound {b_bf16[0] * 1e3:.1f}, "
+        f"{b_bf16[1]}); _int_mm {t['int_mm'] * 1e3:.1f} µs with the (N, K)"
+        f" codes transposed, {t['int_mm_kn'] * 1e3:.1f} µs with (K, N) "
+        f"row-major (bound {b_int8[0] * 1e3:.1f}, {b_int8[1]}); "
+        f"quantize_rows {t['quantize_rows'] * 1e3:.1f} µs; the whole W8A8 "
+        f"op {t['w8a8_op'] * 1e3:.1f} µs (bound {b_op[0] * 1e3:.1f}, "
+        f"{b_op[1]}) on {card}")
+    return {"m": m, "k": k, "n": n, **{f"{k_}_ms": v for k_, v in t.items()},
+            "bound_bf16_ms": b_bf16[0], "bound_int8_ms": b_int8[0],
+            "bound_op_ms": b_op[0]}
+
+
+def phase_quant_gemms(card):
+    """12a: each encoder GEMM shape at 32 x 10 s, and one padded row
+    count."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cases = [(SERVING_ROWS, k, n) for k, n in QUANT_GEMMS] + [(5, 1024, 4096)]
+    return [quant_gemm_case(gen, m, k, n, card) for m, k, n in cases]
+
+
+def with_quantize_rows(fn, hook):
+    """``fn()`` with every quantized layer's ``quantize_rows(x)`` replaced
+    by ``hook(x, rows)`` (``rows`` the layer's own quantization)."""
+    quantize_rows = w2v.quantize_rows
+    w2v.quantize_rows = lambda x: hook(x, quantize_rows(x))
+    try:
+        return fn()
+    finally:
+        w2v.quantize_rows = quantize_rows
+
+
+def check_small_quant_reference(device: str = "cuda"):
+    """12b: a small float32 W8A8 APTAI (head dim 64) on the card against
+    the same weights on the CPU. Dynamic quantization is discontinuous: a
+    value at a rounding tie gets codes one step apart on the two devices
+    when their float32 activations differ in the last bits, and each such
+    flip moves the later activations by far more than float32 rounding,
+    which flips more codes. So the CPU runs twice: with each quantized
+    layer given the card's codes and scales for its input (every other op
+    its own), under phase 3's small-model gates, its own codes differing
+    from the card's by one step at most; and free, its codes that differ
+    from the card's counted and its outputs held to 12c's deviation gates
+    against the card's."""
+    cfg = tiny_config(hidden_size=128, num_attention_heads=2,
+                      intermediate_size=256, quant="w8a8")
+    model = random_aptai(cfg, seed=1, num_phonemes=46)
+    rng = np.random.default_rng(1)
+    wavs = [(rng.standard_normal(n) * 0.1).astype(np.float32)
+            for n in (20_000, 31_000, 9_000)]
+    card_rows = []
+
+    def record(x, rows):
+        card_rows.append(quant.QuantizedRows(rows.codes.cpu(),
+                                             rows.scale.cpu()))
+        return rows
+
+    gpu = with_quantize_rows(lambda: APTAIPredictor(
+        model, device=device).predict_batch(wavs), record)
+    gpu = {k: v.cpu() for k, v in gpu.items()}
+    cpu_pred = APTAIPredictor(model, device="cpu")
+    counts = {"forced": [], "free": []}
+
+    def compare(run):
+        def hook(x, rows):
+            want = card_rows[len(counts[run])]
+            diff = (rows.codes.int() - want.codes.int()).abs()
+            counts[run].append((int((diff != 0).sum()), int(diff.max())))
+            return want if run == "forced" else rows
+        return hook
+
+    out = {run: with_quantize_rows(
+        lambda: {k: v.clone() for k, v in cpu_pred.predict_batch(
+            wavs).items()}, compare(run)) for run in counts}
+    forced, free = out["forced"], out["free"]
+    err_tv = float((gpu["tvs_pred"] - forced["tvs_pred"]).abs().max())
+    err_p = float((gpu["phn_fc_probs"] - forced["phn_fc_probs"]).abs().max())
+    rel, agree = quant_deviation(free, gpu)
+    total = sum(r.codes.numel() for r in card_rows)
+    log(f"  12b small f32 W8A8 model, card vs CPU given the card's codes: "
+        f"tvs max_abs_err {err_tv:.2e}, probs max_abs_err {err_p:.2e}; the "
+        f"CPU's own codes differ from the card's in {[c for c, _ in counts['forced']]}"
+        f" of {total} (by one step at most: "
+        f"{max(m for _, m in counts['forced'])}); free, the codes that "
+        f"differ by quantization {[c for c, _ in counts['free']]}, TV RMS "
+        f"relative error {rel:.5f}, frame-phoneme agreement {agree:.4%}")
+    n = 4 * cfg.num_hidden_layers
+    if not (len(card_rows) == len(counts["forced"]) == len(counts["free"])
+            == n and np.array_equal(gpu["frame_lengths"],
+                                    forced["frame_lengths"])
+            and err_tv <= 1e-3 and err_p <= 1e-4
+            and max(m for _, m in counts["forced"]) <= 1
+            and rel <= QUANT_TV_REL_TOL and agree >= QUANT_AGREE_MIN):
+        raise AssertionError("12b: the card disagrees with the CPU reference")
+
+
+def quant_deviation(got, want):
+    """``benchmarks/quant_ab.py``'s measures: the TVs' RMS error relative
+    to the exact forward's, and the frame phonemes' agreement."""
+    tv_g, tv_w = got["tvs_pred"].float(), want["tvs_pred"].float()
+    rel = float(torch.linalg.vector_norm(tv_g - tv_w)
+                / torch.linalg.vector_norm(tv_w))
+    return rel, float((got["phn_fc_pred"] == want["phn_fc_pred"])
+                      .float().mean())
+
+
+QUANT_BUILD_DEVICE = "cuda"
+
+
+def quant_copy(model, cls, mode):
+    """``model``'s weights in a new ``cls`` under ``quant=mode``, built on
+    the card, where its own init (overwritten) is quick."""
+    cfg = model.cfg
+    with torch.device(QUANT_BUILD_DEVICE):
+        out = cls(dataclasses.replace(cfg, quant=mode))
+    out.load_state_dict(model.state_dict())
+    return out
+
+
+def one_batch(fn):
+    """The launch counts and the peak memory (GiB) of one ``fn()``."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts(), torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_quant_serving(card):
+    """12c: full-width APTAI at 32 x 10 s in each mode (the same weights),
+    alternated none, w8a8_ffn, w8a8, w8a8, w8a8_ffn, none; the deviation
+    gates against the exact forward; W2V2PR with the fused feature
+    extractor and FORCE greedy, one w8a8 batch each; launches and peak
+    memory of one batch in each; a profile of one w8a8_ffn batch."""
+    cfg = Wav2Vec2Config(dtype="bfloat16")
+    layers = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    exact = random_aptai(cfg, seed=0)
+    preds = {"none": APTAIPredictor(exact)}
+    for mode in QUANT_MODES:
+        preds[mode] = APTAIPredictor(quant_copy(exact, APTAI, mode))
+    del exact
+    log(f"  full-width APTAI (bf16, seed 0) in three modes on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(2)
+    wavs = [(rng.standard_normal(10 * SAMPLE_RATE) * 0.1).astype(np.float32)
+            for _ in range(32)]
+    outs, launches, peaks = {}, {}, {}
+    for mode, pred in preds.items():
+        pred.predict_batch(wavs)  # weight codes made and cached
+        outs[mode], launches[mode], peaks[mode] = one_batch(
+            lambda: pred.predict_batch(wavs, fields=("tvs_pred",
+                                                     "phn_fc_pred")))
+        if launches[mode] != {**{k: 0 for k in COUNTED},
+                              "flash_attn_fwd": layers}:
+            raise AssertionError(f"12c: an APTAI {mode} batch launched "
+                                 f"{launches[mode]}")
+    legs = []
+    for mode in ("none", "w8a8_ffn", "w8a8", "w8a8", "w8a8_ffn", "none"):
+        sec = float(np.median(timed_batches(
+            lambda: preds[mode].predict_batch(wavs))))
+        legs.append((mode, 32 * 10 / sec))
+        log(f"  {mode}: {32 * 10 / sec:.1f} audio-s/s, {sec * 1e3:.2f} ms "
+            f"per batch")
+    speed = {m: float(np.mean([v for n, v in legs if n == m])) for m in preds}
+    dev = {m: quant_deviation(outs[m], outs["none"]) for m in QUANT_MODES}
+    for mode in preds:
+        rel, agree = dev.get(mode, (0.0, 1.0))
+        log(f"  12c APTAI {mode}: mean {speed[mode]:.1f} audio-s/s "
+            f"({speed[mode] / speed['none']:.3f}x exact), TV RMS relative "
+            f"error {rel:.5f}, frame-phoneme agreement {agree:.4%} against "
+            f"exact bf16, launches a batch {launches[mode]}, peak memory "
+            f"{peaks[mode]:.2f} GiB on {card}")
+        if rel > QUANT_TV_REL_TOL or agree < QUANT_AGREE_MIN:
+            raise AssertionError(f"12c: APTAI {mode} deviates from the "
+                                 f"exact forward beyond the gates")
+    profile_breakdown(lambda: preds["w8a8_ffn"].predict_batch(wavs),
+                      "one w8a8_ffn APTAI batch at 32 x 10 s", top=20)
+    del preds, outs
+    torch.cuda.empty_cache()
+
+    pr_cfg = dataclasses.replace(cfg, fused_feature_extractor=True)
+    exact = random_w2v2_pr(pr_cfg, seed=0)
+    pr = {"none": W2V2PRPredictor(exact),
+          "w8a8": W2V2PRPredictor(quant_copy(exact, W2V2PR, "w8a8"))}
+    del exact
+    out = {}
+    for mode, pred in pr.items():
+        pred.encode_batch(wavs)
+        out[mode], counts, peak = one_batch(
+            lambda: pred.encode_batch(wavs, fields=("phoneme_logits",)))
+    logits = {m: o["phoneme_logits"].float() for m, o in out.items()}
+    rel = float(torch.linalg.vector_norm(logits["w8a8"] - logits["none"])
+                / torch.linalg.vector_norm(logits["none"]))
+    agree = float((logits["w8a8"].argmax(-1) == logits["none"].argmax(-1))
+                  .float().mean())
+    log(f"  12c W2V2PR fused FE, w8a8: logits RMS relative error {rel:.5f},"
+        f" frame argmax agreement {agree:.4%} against exact bf16; launches "
+        f"{counts}, peak memory {peak:.2f} GiB")
+    want = {**{k: 0 for k in COUNTED}, "flash_attn_fwd": layers,
+            "fused_conv_ln_gelu": 6}
+    if counts != want or not torch.isfinite(logits["w8a8"]).all():
+        raise AssertionError(f"12c: a W2V2PR w8a8 batch launched {counts}"
+                             f" (want {want}) or gave non-finite logits")
+    w2v2_pr_counts = counts
+    del pr, out, logits
+    torch.cuda.empty_cache()
+
+    exact = random_force_aptai(cfg, seed=0)
+    force = {"none": ForceAPTAIPredictor(exact),
+             "w8a8": ForceAPTAIPredictor(quant_copy(exact, ForceAPTAI,
+                                                    "w8a8"))}
+    del exact
+    fields = ("tvs_pred", "pred_ctc_phn_seq", "phn_seq_lengths")
+    out = {}
+    for mode, pred in force.items():
+        pred.predict_batch(wavs)
+        out[mode], counts, peak = one_batch(
+            lambda: pred.predict_batch(wavs, fields=fields))
+    host = {m: fetch_outputs(o) for m, o in out.items()}
+    tv_w = host["none"]["tvs_pred"].astype(np.float64)
+    rel = float(np.linalg.norm(host["w8a8"]["tvs_pred"] - tv_w)
+                / np.linalg.norm(tv_w))
+    seqs = {m: [tuple(h["pred_ctc_phn_seq"][i, :h["phn_seq_lengths"][i]])
+                for i in range(len(wavs))] for m, h in host.items()}
+    same = sum(a == b for a, b in zip(seqs["w8a8"], seqs["none"]))
+    log(f"  12c FORCE greedy, w8a8: TV RMS relative error {rel:.5f} against "
+        f"exact bf16, decoded sequences identical {same}/{len(wavs)}; "
+        f"launches {counts}, peak memory {peak:.2f} GiB")
+    want = {**{k: 0 for k in COUNTED}, "flash_attn_fwd": layers}
+    if counts != want or rel > QUANT_TV_REL_TOL:
+        raise AssertionError(f"12c: a FORCE w8a8 batch launched {counts} "
+                             f"or its TVs deviate beyond the gate")
+    del force, out
+    torch.cuda.empty_cache()
+    return ({m: (launches[m], speed[m], dev.get(m), peaks[m]) for m in
+             ("none",) + QUANT_MODES}, w2v2_pr_counts, counts)
+
+
+def phase_quant_http(aptai_ckpt, card):
+    """12d: ``build_app(quant="w8a8_ffn")`` over phase 8's APTAI run behind
+    the native transport: 8 ``/v1/predict`` requests against
+    ``ServingApp.handle`` over ``load_predictor(quant="w8a8_ffn")`` (the
+    same batches: byte for byte, and phase 9b's gates). Returns the
+    launches of one request alone."""
+    from aptai_tpu_torch.infer.serve import KIND_FIELDS, ServingApp
+
+    t0 = time.perf_counter()
+    app = build_app(str(aptai_ckpt), quant="w8a8_ffn")
+    build_s = time.perf_counter() - t0
+    model = app.batcher.predict_batch.__self__.model
+    direct = ServingApp(MicroBatcher(
+        load_predictor(aptai_ckpt, quant="w8a8_ffn").predict_batch,
+        max_batch_size=16, fields=KIND_FIELDS["aptai"]).start(), "aptai",
+        vocab=app.vocab)
+    layers = Wav2Vec2Config().num_hidden_layers
+    srv = make_native_server(app, "127.0.0.1", 0)
+    try:
+        reqs = [(w.tobytes(), {"Content-Type": "application/octet-stream"})
+                for w in export_requests(19, 8)]
+        reset_counts()
+        results = [request_once(srv.port, "POST", "/v1/predict",
+                                *reqs[0])[::2]]
+        one = read_counts()
+        results += [request_once(srv.port, "POST", "/v1/predict", *r)[::2]
+                    for r in reqs[1:]]
+        want = [direct.handle("POST", "/v1/predict", r[1], r[0])
+                for r in reqs]
+        r, a, single = check_http_answers(results, want, "w8a8_ffn")
+        same = sum(g[1] == w[1] for g, w in zip(results, want))
+        health = request_once(srv.port, "GET", "/healthz", None, {})
+        log(f"  12d build_app(quant='w8a8_ffn') over phase 8's APTAI run "
+            f"(warm-up included) in {build_s:.1f} s, native transport: 8 "
+            f"/v1/predict requests against the quantized predictor's "
+            f"ServingApp.handle: {same}/8 byte for byte, per-TV Pearson min "
+            f"{r:.6f} (one response's min {single:.6f}), frame agreement "
+            f"{a:.4%}; one request alone launched {one}; /healthz "
+            f"{health[0]} on {card}")
+        if not (model.cfg.quant == "w8a8_ffn"
+                and app.streamer.model is model and health[0] == 200
+                and one["flash_attn_fwd"] == layers
+                and sum(one.values()) == layers):
+            raise AssertionError("12d: the quantized app's model, streamer, "
+                                 "/healthz or launches are wrong")
+        return one
+    finally:
+        srv.shutdown()
+        app.batcher.stop()
+        direct.batcher.stop()
+
+
+def phase_quant(aptai_ckpt, card):
+    log("== phase 12: W8A8 int8 serving")
+    t_phase = time.perf_counter()
+    phase_quant_gemms(card)
+    check_small_quant_reference()
+    aptai, w2v2_pr, force = phase_quant_serving(card)
+    launches = {f"serving_{m}": aptai[m][0] for m in QUANT_MODES}
+    launches["w2v2_pr_serving_w8a8_fused_fe"] = w2v2_pr
+    launches["force_serving_w8a8"] = force
+    launches["http_serving_w8a8_ffn"] = phase_quant_http(aptai_ckpt, card)
+    log(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4580,8 +4987,9 @@ def main() -> int:
             pretrain_step, pretrain_step15, (pretrain_epoch,
                                              pretrain_steps) = \
                 phase_pretrain(card, Path(tmp10))
-        # phase 8's checkpoints stay for the export
-        bundles = phase_export(Path(tmp), aptai_ckpt, force_ckpt, card)
+        # phase 8's checkpoints stay for the export and the W8A8 app
+        late = phase_export(Path(tmp), aptai_ckpt, force_ckpt, card)
+        late.update(phase_quant(aptai_ckpt, card))
     for rec in records:
         name = rec["name"]
         rec["launches"] = (pr_serving if name == "fused_conv_ln_gelu"
@@ -4624,7 +5032,7 @@ def main() -> int:
             "pretrain_trainer_epoch": {"steps": pretrain_steps,
                                        "launches": pretrain_epoch[name]},
             **{path: {"batches": 1, "launches": counts[name]}
-               for path, counts in bundles.items()}}
+               for path, counts in late.items()}}
 
     print(json.dumps({"kernels": records}))
     print(card)

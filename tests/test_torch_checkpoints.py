@@ -299,8 +299,15 @@ def test_backbone_dicts_cross_and_unported_fields_raise(jax_experiments):
             == dataclasses.asdict(tcfg.tiny_config(**STACK)))
     with pytest.raises(NotImplementedError, match="fused_qkv"):
         backbone_from_dict(dict(d, fused_qkv=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        load_model(jax_experiments["aptai"], quant="w8a8")
+    # quant replaces the backbone's field; the parameters do not change
+    _, exact, _ = load_model(jax_experiments["aptai"])
+    _, model, _ = load_model(jax_experiments["aptai"], quant="w8a8")
+    assert model.cfg.quant == "w8a8" and exact.cfg.quant == "none"
+    assert (dataclasses.replace(model.cfg, quant="none") == exact.cfg)
+    want = exact.state_dict()
+    got = model.state_dict()
+    assert list(got) == list(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         load_predictor(jax_experiments["aptai"], device="cpu", mesh=object())
 

@@ -37,7 +37,7 @@ def test_config_fields_and_defaults_match_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("quant", "w8a8_ffn"), ("fused_qkv", True),
+    ("fused_qkv", True),
     ("attention_layout", "bthd"),
     ("activation_partition", ("data", "model", None)),
     ("do_stable_layer_norm", False),
@@ -45,6 +45,16 @@ def test_config_fields_and_defaults_match_jax():
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         tcfg.Wav2Vec2Config(**{field: value})
+
+
+def test_quant_modes_cross_and_unknown_ones_raise():
+    """The W8A8 modes are the JAX package's; an unknown string raises where
+    the JAX package would serve it as "none"."""
+    for mode in ("none", "w8a8_ffn", "w8a8"):
+        assert (dataclasses.asdict(tcfg.tiny_config(quant=mode))
+                == dataclasses.asdict(jcfg.tiny_config(quant=mode)))
+    with pytest.raises(ValueError, match="quant must be one of"):
+        tcfg.Wav2Vec2Config(quant="w8a8_all")
 
 
 def test_feat_extract_output_lengths_match_jax():

@@ -16,8 +16,10 @@ package's, float32 on the CPU, with the same weights:
 * a small seeded fuzz of garbage requests over raw sockets leaves both of
   the port's transports answering ``/healthz``;
 * ``build_app`` over a checkpoint on the CPU (a ``beam_host`` FORCE model
-  serves with ``/v1/stream`` off); ``--quant`` raises, and so does a JAX
-  serving bundle, with a message naming ``aptai-torch-export``;
+  serves with ``/v1/stream`` off); with ``quant="w8a8"`` ``/v1/predict``
+  answers as the quantized predictor does and ``/v1/stream`` serves the
+  same model; a JAX serving bundle raises, with a message naming
+  ``aptai-torch-export``;
 * ``aptai-torch-export`` over a checkpoint of either package, then
   ``build_app`` over the bundle: ``/v1/predict`` as the live app answers,
   the bundle's cap enforced with a 400, no ``/v1/stream``; a bundle without
@@ -48,6 +50,7 @@ from aptai_tpu_torch.infer import (APTAIPredictor, MicroBatcher,
                                    W2V2PRPredictor)
 from aptai_tpu_torch.infer import native_transport
 from aptai_tpu_torch.infer import serve as tserve
+from aptai_tpu_torch.infer.loader import load_predictor
 from aptai_tpu_torch.models import configs as tcfg
 
 from _http_client import (body_json, healthy, raw_exchange, request,
@@ -411,8 +414,27 @@ def test_build_app_over_checkpoints(tmp_path, monkeypatch):
     finally:
         app.batcher.stop()
 
-    with pytest.raises(NotImplementedError, match="quant"):
-        tserve.build_app(aptai, device="cpu", quant="w8a8", warmup=False)
+    # quantized: /v1/predict answers as the quantized predictor does, and
+    # the streamer serves the same quantized model
+    app = tserve.build_app(aptai, device="cpu", quant="w8a8",
+                           max_batch_size=2, warmup=False, **STREAM)
+    direct = tserve.ServingApp(MicroBatcher(
+        load_predictor(aptai, device="cpu", quant="w8a8").predict_batch,
+        max_batch_size=2, fields=tserve.KIND_FIELDS["aptai"]).start(),
+        "aptai", vocab=VOCAB)
+    try:
+        model = app.batcher.predict_batch.__self__.model
+        assert app.streamer.model is model and model.cfg.quant == "w8a8"
+        body = _wav(12_000, 70).tobytes()
+        got = app.handle("POST", "/v1/predict", {}, body)
+        assert got[0] == 200
+        assert got == direct.handle("POST", "/v1/predict", {}, body)
+        status, data, _ = app.handle("POST", "/v1/stream", {},
+                                     _wav(20_000, 71).tobytes())
+        assert status == 200 and json.loads(data)["frames"] > 0
+    finally:
+        app.batcher.stop()
+        direct.batcher.stop()
     bundle = tmp_path / "bundle"
     bundle.mkdir()
     (bundle / "forward.stablehlo").write_bytes(b"")
