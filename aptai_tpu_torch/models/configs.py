@@ -18,6 +18,10 @@ from typing import Optional, Tuple
 # dynamic W8A8 int8 inference GEMMs (ops/quant.py): none, the FFN's two
 # Linears, or those and the attention's four projections
 QUANT_MODES = ("none", "w8a8_ffn", "w8a8")
+# the JAX package's attention layouts: head projections straight to
+# (B, H, T, D), or (B, T, C) projections split into heads. This package
+# computes both alike; they differ only in what "w8a8" quantizes
+ATTENTION_LAYOUTS = ("bhtd", "bthd")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,7 +31,9 @@ class Wav2Vec2Config:
     num_hidden_layers: int = 24
     num_attention_heads: int = 16
     intermediate_size: int = 4096
-    do_stable_layer_norm: bool = True  # pre-norm ("stable") variant
+    # the encoder's LayerNorm after the layer stack (True) or after the
+    # positional conv, before it (False); the layers are pre-norm either way
+    do_stable_layer_norm: bool = True
 
     # conv feature extractor (~49 frames/s)
     conv_dim: Tuple[int, ...] = (512,) * 7
@@ -83,17 +89,15 @@ class Wav2Vec2Config:
     fused_feature_extractor: bool = False
 
     def __post_init__(self):
-        unported = {
-            "fused_qkv": self.fused_qkv,
-            "attention_layout": self.attention_layout != "bhtd",
-            "activation_partition": self.activation_partition is not None,
-            "do_stable_layer_norm": not self.do_stable_layer_norm,
-        }
-        bad = sorted(k for k, v in unported.items() if v)
-        if bad:
+        if self.activation_partition is not None:
             raise NotImplementedError(
-                f"config field(s) {bad} are not implemented in aptai_tpu_torch "
-                "yet; leave them at their defaults")
+                "activation_partition is not implemented in aptai_tpu_torch "
+                "yet (ROADMAP Queue 1 item 8e); leave it None")
+        if self.attention_layout not in ATTENTION_LAYOUTS:
+            # the JAX package runs any other string as "bthd"
+            raise ValueError(f"attention_layout must be one of "
+                             f"{list(ATTENTION_LAYOUTS)}, got "
+                             f"{self.attention_layout!r}")
         if self.quant not in QUANT_MODES:
             # the JAX package serves an unknown string as "none"
             raise ValueError(f"quant must be one of {list(QUANT_MODES)}, "

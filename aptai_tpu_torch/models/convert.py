@@ -10,10 +10,13 @@ the JAX package's ``export_w2v2_pr``),
 :func:`force_aptai_state_dict_from_jax` for ``ForceAPTAI`` (the tower under
 ``w2v2_pr.``, then the head) and :func:`pretrain_state_dict_from_jax` for
 ``Wav2Vec2Pretrain`` (``{"encoder", "quantizer", "project_hid",
-"project_q"}`` → HF ``Wav2Vec2ForPreTraining`` names). Layouts:
+"project_q"}`` → HF ``Wav2Vec2ForPreTraining`` names).
+:func:`fuse_qkv_state_dict` turns HF q/k/v names into a ``fused_qkv``
+encoder's ``qkv_proj``. Layouts:
 
 * conv kernel (k, Cin, Cout) → (Cout, Cin, k)
-* Dense kernel (in, out) → (out, in); LayerNorm ``scale`` → ``weight``
+* Dense kernel (in, out) → (out, in), ``fused_qkv``'s ``qkv_proj`` too;
+  LayerNorm ``scale`` → ``weight``
 * weight-norm ``weight_v`` (k, in/g, C) → (C, in/g, k) and
   ``weight_g`` (k, 1, 1) → (1, 1, k)
 * LSTM ``w_ih_fwd``, ``w_hh_fwd``, ``b_ih_fwd``, ``b_hh_fwd`` (torch layout
@@ -28,6 +31,7 @@ parameters (the tests compare ``.grad`` with it).
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -85,7 +89,8 @@ def encoder_state_dict_from_jax(enc: Mapping) -> Dict[str, torch.Tensor]:
         layer, p = enc[f"layers_{i}"], f"encoder.layers.{i}"
         ln(f"{p}.layer_norm", layer["layer_norm"])
         ln(f"{p}.final_layer_norm", layer["final_layer_norm"])
-        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        # fused_qkv: one qkv_proj Dense, kernel (C, 3C) → weight (3C, C)
+        for name in layer["attention"]:
             _dense(sd, f"{p}.attention.{name}", layer["attention"][name])
         _dense(sd, f"{p}.feed_forward.intermediate_dense",
                layer["feed_forward"]["intermediate_dense"])
@@ -95,6 +100,27 @@ def encoder_state_dict_from_jax(enc: Mapping) -> Dict[str, torch.Tensor]:
 
     ln("encoder.layer_norm", enc["layer_norm"])
     return sd
+
+
+_Q_PROJ = re.compile(
+    r"(.*encoder\.layers\.\d+\.attention\.)q_proj\.(weight|bias)")
+
+
+def fuse_qkv_state_dict(sd: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """An encoder state dict with HF names (bare or under a prefix) for a
+    ``fused_qkv`` encoder: each layer's ``q_proj``, ``k_proj`` and
+    ``v_proj`` weights and biases concatenated, in that order, into its
+    ``qkv_proj``, as the JAX package's
+    ``convert_wav2vec2_encoder(fused_qkv=True)`` builds its kernel."""
+    out = dict(sd)
+    for k in sd:
+        m = _Q_PROJ.fullmatch(k)
+        if m:
+            base, leaf = m.groups()
+            parts = [out.pop(f"{base}{n}_proj.{leaf}") for n in "qkv"]
+            out[f"{base}qkv_proj.{leaf}"] = torch.cat(parts)
+    return out
 
 
 def _model_state_dict(params: Mapping, heads) -> Dict[str, torch.Tensor]:

@@ -96,7 +96,7 @@ class W2V2PR(nn.Module):
                       latter_hidden: int = 20) -> Dict[str, torch.Tensor]:
         """CTC logits from the final, an intermediate and a latter layer's
         hidden states (HF ``hidden_states`` indexing: entry 0 is the first
-        layer's input, entry N the final LayerNorm's output)."""
+        layer's input, entry N the encoder's output)."""
         hidden, frame_lengths, feats, all_hidden = self.wav2vec2(
             input_values, input_lengths, output_hidden_states=True)
         inter = all_hidden[intermediate_hidden]

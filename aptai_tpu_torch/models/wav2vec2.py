@@ -15,13 +15,15 @@
     → pad frames zeroed
     → + weight-normed grouped positional conv (k, groups; trailing frame
       dropped for even k) → GELU, then dropout
-    → pre-norm transformer layers (length-masked attention through
+    → [``do_stable_layer_norm=False``] LayerNorm, whose output is float32
+    → pre-norm transformer layers (q, k and v from three Linears or, with
+      ``cfg.fused_qkv``, as views of one; length-masked attention through
       ``ops.attention``, dropout on the out-projection output; GELU FFN with
       dropout after the GELU and after the FFN), each under
       ``torch.utils.checkpoint`` with ``remat_policy="full"`` (the layer's
       input saved, the rest recomputed) or ``"dots"`` (the dense products'
       outputs saved, the rest recomputed, attention included)
-    → final LayerNorm
+    → [``do_stable_layer_norm=True``, the default] final LayerNorm
 
 Dropouts sit where the JAX package puts them, not where HF does: attention
 dropout acts on the out-projection's output, so the attention kernels need
@@ -35,14 +37,20 @@ Dtype policy (the JAX package's): every parameter is float32, and with
 and biases to the activation dtype (bf16) inside the op, so activations
 flow in bf16 while Adam updates float32 masters. LayerNorm statistics are
 taken in float32 with float32 parameters, and the weight-normed kernel is
-composed in float32 before its cast. For serving,
+composed in float32 before its cast. With ``do_stable_layer_norm=False``
+the LayerNorm after the positional conv returns float32, as the JAX
+package's (which has no ``dtype``) does, so the residual stream and the
+encoder's output are float32 while the layers' sublayers still compute in
+the compute dtype. For serving,
 :func:`cast_matmul_weights` turns a copy's Linear and Conv1d parameters to
 bf16 once, and the in-op casts become no-ops.
 
 ``cfg.quant`` (inference only) runs the FFN's two Linears (``"w8a8_ffn"``),
-or those and the attention's four projections (``"w8a8"``), as
-:class:`QuantLinear`: dynamic W8A8 int8 products (``ops/quant.py``) with
-the same parameters, which a serving copy keeps in float32.
+or those and the attention's four projections (``"w8a8"``, where the JAX
+package quantizes them: with ``attention_layout="bhtd"`` and without
+``fused_qkv``), as :class:`QuantLinear`: dynamic W8A8 int8 products
+(``ops/quant.py``) with the same parameters, which a serving copy keeps in
+float32.
 """
 
 from __future__ import annotations
@@ -77,11 +85,12 @@ def _gelu(x: torch.Tensor, cfg: Wav2Vec2Config) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if mode == "tanh" else "none")
 
 
-def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """LayerNorm over the last dim with float32 statistics and parameters;
-    the result returns to the activation dtype."""
+    the result in ``dtype`` (None: the activation dtype)."""
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
-                        ln.eps).to(x.dtype)
+                        ln.eps).to(dtype or x.dtype)
 
 
 def _dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
@@ -315,27 +324,37 @@ class SelfAttention(nn.Module):
         self.cfg = cfg
         self.heads = cfg.num_attention_heads
         c = cfg.hidden_size
-        # "w8a8_ffn" leaves the projections exact
-        self.quant = cfg.quant == "w8a8"
+        # "w8a8_ffn" leaves the projections exact, and so does "w8a8" where
+        # the JAX package's projections are plain Dense layers
+        self.quant = (cfg.quant == "w8a8" and cfg.attention_layout == "bhtd"
+                      and not cfg.fused_qkv)
         linear = (functools.partial(QuantLinear, fold_scales=True)
                   if self.quant else Linear)
-        self.q_proj = linear(c, c)
-        self.k_proj = linear(c, c)
-        self.v_proj = linear(c, c)
+        if cfg.fused_qkv:
+            self.qkv_proj = Linear(c, 3 * c)  # q, k and v weights stacked
+        else:
+            self.q_proj = linear(c, c)
+            self.k_proj = linear(c, c)
+            self.v_proj = linear(c, c)
         self.out_proj = linear(c, c)
 
     def forward(self, x, lengths):  # (B, T, C)
         b, t, c = x.shape
         d = c // self.heads
-        # q, k and v quantize x to the same codes: once, shared
-        shared = {"x_codes": quantize_rows(x)} if self.quant else {}
 
-        def to_heads(proj):  # a (B, H, T, D) view, no copy
-            return proj(x, **shared).view(b, t, self.heads, d).transpose(1, 2)
+        def to_heads(y):  # (B, T, C) -> a (B, H, T, D) view, no copy
+            return y.view(b, t, self.heads, d).transpose(1, 2)
 
-        ctx = multi_head_attention_bhtd(to_heads(self.q_proj),
-                                        to_heads(self.k_proj),
-                                        to_heads(self.v_proj), lengths)
+        if self.cfg.fused_qkv:
+            # views of one (B, T, 3C) product: the kernels read its 3C time
+            # stride, and autograd stacks dq, dk and dv into its gradient
+            q, k, v = (to_heads(y) for y in self.qkv_proj(x).split(c, -1))
+        else:
+            # q, k and v quantize x to the same codes: once, shared
+            shared = {"x_codes": quantize_rows(x)} if self.quant else {}
+            q, k, v = (to_heads(proj(x, **shared))
+                       for proj in (self.q_proj, self.k_proj, self.v_proj))
+        ctx = multi_head_attention_bhtd(q, k, v, lengths)
         # free when the kernel wrote its (B, T, H, D) buffer
         out = self.out_proj(ctx.transpose(1, 2).reshape(b, t, c))
         return _dropout(out, self.cfg.attention_dropout, self.training)
@@ -359,10 +378,14 @@ class FeedForward(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    """Pre-norm ("stable layer norm") transformer layer."""
+    """Pre-norm transformer layer. Its sublayers compute in the compute
+    dtype; the residual adds keep the stream's dtype (float32 under
+    ``do_stable_layer_norm=False``), as the JAX package's type promotion
+    does."""
 
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
+        self.dtype = compute_dtype(cfg)
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.attention = SelfAttention(cfg)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size,
@@ -370,8 +393,10 @@ class EncoderLayer(nn.Module):
         self.feed_forward = FeedForward(cfg)
 
     def forward(self, x, lengths):
-        x = x + self.attention(_layer_norm(self.layer_norm, x), lengths)
-        return x + self.feed_forward(_layer_norm(self.final_layer_norm, x))
+        x = x + self.attention(_layer_norm(self.layer_norm, x, self.dtype),
+                               lengths)
+        return x + self.feed_forward(
+            _layer_norm(self.final_layer_norm, x, self.dtype))
 
 
 # the dense products F.linear and torch.matmul dispatch to: the ops whose
@@ -406,7 +431,13 @@ class Encoder(nn.Module):
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
     def forward(self, h, frame_lengths, output_hidden_states: bool = False):
+        stable = self.cfg.do_stable_layer_norm
         h = h + self.pos_conv_embed(h)
+        if not stable:
+            # the JAX package's LayerNorm here has no dtype: its float32
+            # parameters promote its output, and so the residual stream,
+            # to float32
+            h = _layer_norm(self.layer_norm, h, torch.float32)
         h = _dropout(h, self.cfg.hidden_dropout, self.training)
         # per-layer recomputation in the backward, like the JAX package's
         # nn.remat (with jax.checkpoint_policies.dots_saveable for "dots");
@@ -424,10 +455,11 @@ class Encoder(nn.Module):
                 h = layer(h, frame_lengths)
             if output_hidden_states and i < len(self.layers) - 1:
                 all_hidden.append(h)
-        h = _layer_norm(self.layer_norm, h)
+        if stable:
+            h = _layer_norm(self.layer_norm, h)
         if output_hidden_states:
-            # HF indexing: entry N (the number of layers) is the final
-            # post-LayerNorm state, the encoder's output
+            # HF indexing: entry N (the number of layers) is the encoder's
+            # output (after the final LayerNorm when there is one)
             all_hidden.append(h)
         return h, all_hidden
 
@@ -491,11 +523,12 @@ class Wav2Vec2Model(nn.Module):
     """Backbone: feature extractor → projection → transformer stack.
 
     ``forward(input_values, input_lengths)`` returns ``(hidden_states,
-    frame_lengths, extract_features)``: the final-LayerNorm output
-    (B, T, hidden), the int32 valid frame count per item, and the conv
-    features (B, T, conv_dim[-1]); with ``output_hidden_states`` a fourth
-    item, the list of ``num_hidden_layers + 1`` hidden states in HF
-    indexing.
+    frame_lengths, extract_features)``: the encoder's output (B, T,
+    hidden; the final LayerNorm's, or under ``do_stable_layer_norm=False``
+    the last layer's, in float32), the int32 valid frame count per item,
+    and the conv features (B, T, conv_dim[-1]); with
+    ``output_hidden_states`` a fourth item, the list of
+    ``num_hidden_layers + 1`` hidden states in HF indexing.
     """
 
     def __init__(self, cfg: Wav2Vec2Config,

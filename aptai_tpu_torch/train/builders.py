@@ -21,7 +21,8 @@ from torch import nn
 from aptai_tpu_torch.models import (APTAI, W2V2PR, ForceAPTAI,
                                     Wav2Vec2Config, random_aptai,
                                     random_force_aptai, random_w2v2_pr)
-from aptai_tpu_torch.models.convert import encoder_state_dict_from_jax
+from aptai_tpu_torch.models.convert import (encoder_state_dict_from_jax,
+                                            fuse_qkv_state_dict)
 from aptai_tpu_torch.train.checkpoints import (FLAX_PARAMS, PARAMS,
                                                load_flax_params, load_json,
                                                load_state, read_params)
@@ -80,12 +81,16 @@ def _load_hf_encoder(encoder: nn.Module,
     """Load an HF checkpoint's encoder into ``encoder`` (this package's
     ``Wav2Vec2Model``): every tensor the encoder has must be there; layers
     past its depth and ``masked_spec_embed`` when it has none are left out
-    (the reference truncates the stack with ``--num_hidden_layers``)."""
+    (the reference truncates the stack with ``--num_hidden_layers``). A
+    ``fused_qkv`` encoder takes q, k and v concatenated."""
     own = encoder.state_dict()
     layer = re.compile(r"encoder\.layers\.(\d+)\.")
     depth = encoder.cfg.num_hidden_layers
+    sd = _hf_encoder_names(sd)
+    if encoder.cfg.fused_qkv:
+        sd = fuse_qkv_state_dict(sd)
     keep = {}
-    for k, v in _hf_encoder_names(sd).items():
+    for k, v in sd.items():
         m = layer.match(k)
         if (m and int(m.group(1)) >= depth) or k not in own:
             continue

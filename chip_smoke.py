@@ -227,6 +227,26 @@ Phases (any failure ends the run with a non-zero exit code):
    native transport: 8 requests against ``ServingApp.handle`` over
    ``load_predictor(quant="w8a8_ffn")``, byte for byte counted and under
    phase 9b's gates, the streamer on the same model.
+13. The encoder's config variants (``fused_qkv``, ``attention_layout=
+   "bthd"``, ``do_stable_layer_norm=False``): (13a) the flash forward, dq
+   and dk/dv on q, k and v split from one bf16 (B, T, 3C) tensor (the
+   views ``fused_qkv`` hands them, time stride 3C) at the serving (32 x
+   499) and training (8 x 249) shapes, ragged, against their plain
+   versions under phase 2's gates and bit for bit against the same
+   kernels on contiguous copies, with the forward's time on each; (13b) a
+   small float32 APTAI in all three variants on the card against the CPU;
+   full-width bf16 APTAI (the weights of seed 0's default model, q, k and
+   v concatenated for ``fused_qkv``) at 32 x 10 s in the default and each
+   variant alone and together: audio-s/s, 24 flash launches a batch, the
+   encoder output's dtype (float32 when non-stable), ``"bthd"`` bit for
+   bit the default, ``fused_qkv`` within phase 3's serving gates of the
+   default and all three within them of non-stable; (13c) one APTAI train
+   step at 8 x 5 s in ``fused_qkv`` + non-stable (24 / 24 / 24 launches, a
+   finite loss, step ms), its encoder gradients through the kernels
+   against plain attention under phase 5's gates; (13d) one ``w8a8``
+   batch in ``"bthd"`` and one in ``fused_qkv``: the FFN's two Linears a
+   layer quantized and no projection, 12c's deviation gates against the
+   exact default.
 
 Output: the phases' lines, then one JSON line of kernel records, the card
 line, and last ``{"ok": true, "device": {...}}``. A flash kernel record's
@@ -242,9 +262,20 @@ the FE cache, the three streams of 9a, one batch served over HTTP in 9b,
 the pretraining step at 8 x 5 s and at 4 x 15 s, the pretraining
 trainer's epoch, one batch of each bundle of 11c, one request to the
 bundle app of 11d, one APTAI batch in ``w8a8_ffn`` and in ``w8a8``, one
-W2V2PR and one FORCE batch in ``w8a8`` and one request to the
-``w8a8_ffn`` app of 12d), each read with the counts set to 0 just before
-it.
+W2V2PR and one FORCE batch in ``w8a8``, one request to the
+``w8a8_ffn`` app of 12d, one APTAI batch in each encoder variant of 13b,
+the train step of 13c and the two ``w8a8`` batches of 13d), each read
+with the counts set to 0 just before it.
+
+Phase 13 alone, from the repository root (the kernels build at first
+use; ``main`` also turns TF32 off, which the small float32 models' gates
+need):
+
+    python3 -c "import torch, chip_smoke as cs; \
+    torch.backends.cudnn.allow_tf32 = False; \
+    cs.phase_variants(cs.card_line())"
+
+The other phases' functions run alone the same way.
 """
 
 from __future__ import annotations
@@ -294,6 +325,7 @@ from aptai_tpu_torch.models import (APTAI, W2V2PR, ForceAPTAI, Wav2Vec2Config,
                                     random_w2v2_pr, tiny_config)
 from aptai_tpu_torch.models import w2v2_pr
 from aptai_tpu_torch.models import wav2vec2 as w2v
+from aptai_tpu_torch.models.convert import fuse_qkv_state_dict
 from aptai_tpu_torch.models.pretrain import (negative_indices_from_uniform,
                                              random_wav2vec2_pretrain,
                                              sample_negative_indices)
@@ -928,26 +960,29 @@ def pearson(a, b):
     return float((a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum()))
 
 
-def check_small_reference():
-    """A small float32 model (head dim 64) on the card against the same
-    weights on the CPU, which runs the plain attention."""
+def check_small_reference(device="cuda", what="small f32 model",
+                          **overrides):
+    """A small float32 model (head dim 64; ``overrides`` of its config)
+    on ``device`` against the same weights on the CPU, which runs the
+    plain attention."""
     cfg = tiny_config(hidden_size=128, num_attention_heads=2,
-                      intermediate_size=256)
+                      intermediate_size=256, **overrides)
     model = random_aptai(cfg, seed=1, num_phonemes=46)
     rng = np.random.default_rng(1)
     wavs = [(rng.standard_normal(n) * 0.1).astype(np.float32)
             for n in (20_000, 31_000, 9_000)]
     cpu = APTAIPredictor(model, device="cpu").predict_batch(wavs)
     cpu = {k: v.numpy().copy() for k, v in cpu.items()}
-    gpu = APTAIPredictor(model, device="cuda").predict_batch(wavs)
+    gpu = APTAIPredictor(model, device=device).predict_batch(wavs)
     gpu = {k: v.cpu().numpy() for k, v in gpu.items()}
     err_tv = float(np.abs(gpu["tvs_pred"] - cpu["tvs_pred"]).max())
     err_p = float(np.abs(gpu["phn_fc_probs"] - cpu["phn_fc_probs"]).max())
-    log(f"  small f32 model, card vs CPU: tvs max_abs_err {err_tv:.2e}, "
+    log(f"  {what}, card vs CPU: tvs max_abs_err {err_tv:.2e}, "
         f"probs max_abs_err {err_p:.2e}")
     if not (np.array_equal(gpu["frame_lengths"], cpu["frame_lengths"])
             and err_tv <= 1e-3 and err_p <= 1e-4):
-        raise AssertionError("the card disagrees with the CPU reference")
+        raise AssertionError(f"{what}: the card disagrees with the CPU "
+                             f"reference")
 
 
 def check_result(res, n_samples, cfg):
@@ -4928,6 +4963,243 @@ def phase_quant(aptai_ckpt, card):
     return launches
 
 
+# -- phase 13 -----------------------------------------------------------------
+
+# the encoder's three config variants, alone and together
+ENCODER_VARIANTS = {
+    "fused_qkv": dict(fused_qkv=True),
+    "bthd": dict(attention_layout="bthd"),
+    "non_stable": dict(do_stable_layer_norm=False),
+    "all_three": dict(fused_qkv=True, attention_layout="bthd",
+                      do_stable_layer_norm=False),
+}
+# where 13b-13d build and run their models ("cpu" rehearses them)
+VARIANT_DEVICE = "cuda"
+
+
+def split_qkv(gen, b, t, h):
+    """bf16 q, k and v as ``fused_qkv`` hands them to the kernels: (B, H,
+    T, 64) views of one (B, T, 3C) tensor, whose time stride is 3C."""
+    c = h * 64
+    qkv = torch.randn((b, t, 3 * c), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    return [x.view(b, t, h, 64).transpose(1, 2) for x in qkv.split(c, -1)]
+
+
+def check_split_views(gen, name, b, t, lengths, card):
+    """13a: the flash forward, dq and dk/dv on split qkv views against
+    their plain versions under phase 2's gates, and bit for bit against
+    the same kernels on contiguous copies (the same arithmetic, other
+    addresses); the forward's time on the views and on the copies.
+    Returns the max abs errors {kernel: err}."""
+    h = 16
+    q, k, v = split_qkv(gen, b, t, h)
+    dout = _qkv(gen, b, h, t, torch.bfloat16, True, n=1)[0]
+    if q.stride(2) != 3 * h * 64 or q.is_contiguous():
+        raise AssertionError(f"13a: not a split view: {q.stride()}")
+    errs = check_kernel_case(name, q, k, v, dout, lengths)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+    def run(q, k, v):
+        out, lse = attention.flash_attention_bhtd_cuda(q, k, v, lens,
+                                                       return_lse=True)
+        dq, delta = attention.flash_attention_bwd_dq_cuda(q, k, v, out, lse,
+                                                          dout, lens)
+        dk, dv = attention.flash_attention_bwd_dkv_cuda(q, k, v, dout, lse,
+                                                        delta, lens)
+        return out, lse, dq, delta, dk, dv
+
+    copies = [x.contiguous() for x in (q, k, v)]
+    same = all(torch.equal(a, c) for a, c in zip(run(q, k, v), run(*copies)))
+    fwd = {what: cuda_ms(lambda: attention.flash_attention_bhtd_cuda(
+        *xs, lens), 20) for what, xs in (("views", (q, k, v)),
+                                         ("copies", copies))}
+    log(f"  {name}: views bit for bit the contiguous copies' outputs, "
+        f"logsumexp, dq, delta, dk and dv: {same}; forward "
+        f"{fwd['views'] * 1e3:.1f} us on the views, "
+        f"{fwd['copies'] * 1e3:.1f} us on the copies, on {card}")
+    if not same:
+        raise AssertionError(f"13a: the kernels read split views unlike "
+                             f"contiguous copies ({name})")
+    return errs
+
+
+def variant_model(base_sd, cfg, **kw):
+    """Full-width APTAI in the variant ``kw`` holding the weights of
+    ``base_sd`` (the default model's; q, k and v concatenated for
+    ``fused_qkv``), built on :data:`VARIANT_DEVICE`."""
+    cfg = dataclasses.replace(cfg, **kw)
+    with torch.device(VARIANT_DEVICE):
+        model = APTAI(cfg)
+    model.load_state_dict(fuse_qkv_state_dict(base_sd) if cfg.fused_qkv
+                          else base_sd, strict=True)
+    return model
+
+
+def served_batch(pred, wavs, layers, what):
+    """One ``predict_batch`` after a warm-up: its outputs on the host,
+    launches (``layers`` forward launches and nothing else), the encoder
+    output's dtype, peak memory; then audio-s/s over 5 timed batches."""
+    pred.predict_batch(wavs)
+    dtypes = []
+    hook = pred.model.wav2vec2.register_forward_hook(
+        lambda m, args, out: dtypes.append(out[0].dtype))
+    try:
+        out, counts, peak = one_batch(lambda: pred.predict_batch(
+            wavs, fields=("tvs_pred", "phn_fc_probs", "phn_fc_pred")))
+    finally:
+        hook.remove()
+    if counts != {**{k: 0 for k in COUNTED}, "flash_attn_fwd": layers}:
+        raise AssertionError(f"13: a {what} batch launched {counts}")
+    out = {k: v.cpu() for k, v in out.items()}
+    if not all(torch.isfinite(out[k].float()).all()
+               for k in ("tvs_pred", "phn_fc_probs")):
+        raise AssertionError(f"13: a {what} batch gave non-finite outputs")
+    sec = float(np.median(timed_batches(lambda: pred.predict_batch(wavs))))
+    audio_s = sum(len(w) for w in wavs) / SAMPLE_RATE
+    return out, counts, dtypes[0], peak, audio_s / sec
+
+
+def phase_variant_serving(cfg, base_sd, wavs, card):
+    """13b: full-width APTAI at 32 x 10 s in the default and each variant
+    (the default's weights): "bthd" equal to the default bit for bit,
+    ``fused_qkv`` within phase 3's serving gates of it (its one
+    (C, 3C) GEMM may take another cuBLAS kernel than three (C, C) ones),
+    the non-stable encoder's output float32 and "all_three" within the
+    same gates of "non_stable"."""
+    layers = cfg.num_hidden_layers
+    outs, launches = {}, {}
+    for name in ("default",) + tuple(ENCODER_VARIANTS):
+        pred = APTAIPredictor(variant_model(
+            base_sd, cfg, **ENCODER_VARIANTS.get(name, {})),
+            device=VARIANT_DEVICE)
+        outs[name], launches[name], dtype, peak, speed = served_batch(
+            pred, wavs, layers, name)
+        del pred
+        torch.cuda.empty_cache()
+        log(f"  13b {name}: {speed:.1f} audio-s/s, launches a batch "
+            f"{launches[name]}, encoder output {dtype}, peak memory "
+            f"{peak:.2f} GiB on {card}")
+        want = (torch.float32 if name in ("non_stable", "all_three")
+                else torch.bfloat16)
+        if dtype != want:
+            raise AssertionError(f"13b: the {name} encoder gave {dtype}")
+    same = all(torch.equal(outs["bthd"][k], outs["default"][k])
+               for k in outs["default"])
+    log(f"  13b bthd bit for bit the default: {same}")
+    if not same:
+        raise AssertionError("13b: bthd differs from the default")
+    def frames(out):  # every frame of the batch, as one recording's
+        return {"tvs_pred": out["tvs_pred"].float().reshape(-1, 9).numpy(),
+                "phn_fc_pred": out["phn_fc_pred"].reshape(-1).numpy()}
+
+    for name, ref in (("fused_qkv", "default"), ("all_three", "non_stable")):
+        r, agree = served_agreement(frames(outs[name]), frames(outs[ref]))
+        equal = all(torch.equal(outs[name][k], outs[ref][k])
+                    for k in outs[ref])
+        err = float((outs[name]["tvs_pred"].float()
+                     - outs[ref]["tvs_pred"].float()).abs().max())
+        log(f"  13b {name} vs {ref}: per-TV Pearson min {r:.6f}, "
+            f"frame-phoneme agreement {agree:.4%}, TV max_abs_err "
+            f"{err:.3e}, bit for bit {equal}")
+        if r < 0.999 or agree < 0.99:
+            raise AssertionError(f"13b: {name} disagrees with {ref}")
+    return outs["default"], {f"serving_{n}": launches[n]
+                             for n in ENCODER_VARIANTS}
+
+
+def phase_variant_train(cfg, base_sd, card):
+    """13c: one APTAI train step at 8 x 5 s in ``fused_qkv`` + non-stable
+    (bf16 compute, float32 masters, dropout and SpecAugment on): a finite
+    loss, 24 launches of each flash kernel; step ms; then the gradients of
+    every encoder tensor (``qkv_proj``'s among them) through the kernels
+    against plain attention under phase 5's gates."""
+    layers = cfg.num_hidden_layers
+    model = variant_model(base_sd, cfg, fused_qkv=True,
+                          do_stable_layer_norm=False)
+    batch = train_batch(cfg)
+    b, samples = batch["audio"].shape
+    step = TrainStep(model, torch_adam(model), device=VARIANT_DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    _, counts = checked_first_step(step, batch, layers)
+    times, m = timed_steps(step, batch, 3)
+    sec = float(np.median(times))
+    log(f"  13c fused_qkv + non-stable step: times (s) "
+        f"{[round(x, 5) for x in times]}, {sec * 1e3:.2f} ms a step, "
+        f"{b * samples / SAMPLE_RATE / sec:.1f} train audio-s/s, last loss "
+        f"{m['loss'].item():.5f}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+    model.eval()
+    grads = grads_kernels_vs_plain(model, [
+        torch.as_tensor(batch[k]).to(VARIANT_DEVICE) for k in (
+            "audio", "audio_lengths", "phn_frames", "tv_targets")], layers,
+        "13c fused_qkv + non-stable encoder gradients, kernels vs plain")
+    if not all(f"wav2vec2.encoder.layers.{i}.attention.qkv_proj.weight"
+               in grads for i in range(layers)):
+        raise AssertionError("13c: qkv_proj got no gradient")
+    del step, model, grads
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_variant_quant(cfg, base_sd, wavs, exact, card):
+    """13d: one ``quant="w8a8"`` batch in "bthd" and one in ``fused_qkv``:
+    the FFN's two Linears a layer are the quantized ones, as in the JAX
+    package; 12c's deviation gates against the exact default."""
+    layers = cfg.num_hidden_layers
+    launches = {}
+    for layout in ("bthd", "fused_qkv"):
+        model = variant_model(base_sd, cfg, quant="w8a8",
+                              **ENCODER_VARIANTS[layout])
+        quantized = [n for n, mod in model.named_modules()
+                     if isinstance(mod, w2v.QuantLinear)]
+        if (len(quantized) != 2 * layers
+                or not all(".feed_forward." in n for n in quantized)):
+            raise AssertionError(f"13d: {layout} w8a8 quantizes {quantized}")
+        pred = APTAIPredictor(model, device=VARIANT_DEVICE)
+        out, counts, _, peak, speed = served_batch(pred, wavs, layers,
+                                                   f"{layout} w8a8")
+        del pred, model
+        torch.cuda.empty_cache()
+        rel, agree = quant_deviation(out, exact)
+        log(f"  13d {layout} w8a8: {len(quantized)} quantized Linears (the "
+            f"FFN's), {speed:.1f} audio-s/s, TV RMS relative error "
+            f"{rel:.5f}, frame-phoneme agreement {agree:.4%} against exact "
+            f"bf16, launches {counts}, peak memory {peak:.2f} GiB on {card}")
+        if rel > QUANT_TV_REL_TOL or agree < QUANT_AGREE_MIN:
+            raise AssertionError(f"13d: {layout} w8a8 deviates beyond 12c's "
+                                 f"gates")
+        launches[f"serving_w8a8_{layout}"] = counts
+    return launches
+
+
+def phase_variants(card):
+    log("== phase 13: the encoder's config variants")
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rng = np.random.default_rng(13)
+    check_split_views(gen, "13a split qkv views, serving shape", 32, 499,
+                      [0, 1, 499] + rng.integers(2, 500, 29).tolist(), card)
+    check_split_views(gen, "13a split qkv views, training shape", 8, 249,
+                      [0, 1, 249] + rng.integers(2, 250, 5).tolist(), card)
+    check_small_reference(VARIANT_DEVICE,
+                          "13b small f32 APTAI in all three variants",
+                          **ENCODER_VARIANTS["all_three"])
+    cfg = Wav2Vec2Config(dtype="bfloat16")
+    t0 = time.perf_counter()
+    base_sd = random_aptai(cfg, seed=0).state_dict()
+    log(f"  the default full-width APTAI's weights (bf16, seed 0) drawn on "
+        f"the host in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(2)
+    wavs = [(rng.standard_normal(10 * SAMPLE_RATE) * 0.1).astype(np.float32)
+            for _ in range(32)]
+    exact, launches = phase_variant_serving(cfg, base_sd, wavs, card)
+    step = phase_variant_train(cfg, base_sd, card)
+    launches.update(phase_variant_quant(cfg, base_sd, wavs, exact, card))
+    log(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches, step
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4990,6 +5262,8 @@ def main() -> int:
         # phase 8's checkpoints stay for the export and the W8A8 app
         late = phase_export(Path(tmp), aptai_ckpt, force_ckpt, card)
         late.update(phase_quant(aptai_ckpt, card))
+    variants, variant_step = phase_variants(card)
+    late.update(variants)
     for rec in records:
         name = rec["name"]
         rec["launches"] = (pr_serving if name == "fused_conv_ln_gelu"
@@ -5031,6 +5305,8 @@ def main() -> int:
                                     "launches": pretrain_step15[name]},
             "pretrain_trainer_epoch": {"steps": pretrain_steps,
                                        "launches": pretrain_epoch[name]},
+            "train_step_fused_qkv_non_stable": {
+                "steps": 1, "launches": variant_step[name]},
             **{path: {"batches": 1, "launches": counts[name]}
                for path, counts in late.items()}}
 

@@ -8,6 +8,8 @@ avoids tracing a JAX ``init``. The port then loads the JAX tree back through
 its bridge (``state_dict_from_jax``), which is what the tests hold it to.
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import torch
@@ -34,10 +36,13 @@ def _noisy_state_dict(model, seed: int):
 
 def random_jax_aptai_params(cfg_t, num_phonemes: int, seed: int):
     """A JAX ``APTAI`` parameter tree of numpy arrays for the port config
-    ``cfg_t``, drawn from ``seed``."""
-    sd = _noisy_state_dict(APTAI(cfg_t, num_phonemes=num_phonemes), seed)
+    ``cfg_t``, drawn from ``seed``; under ``fused_qkv`` the same draws as
+    without it, q, k and v concatenated by the JAX converter."""
+    hf_cfg = dataclasses.replace(cfg_t, fused_qkv=False)  # HF names
+    sd = _noisy_state_dict(APTAI(hf_cfg, num_phonemes=num_phonemes), seed)
     enc = convert_wav2vec2_encoder(sd, cfg_t.num_hidden_layers,
-                                   prefix="wav2vec2.")
+                                   prefix="wav2vec2.",
+                                   fused_qkv=cfg_t.fused_qkv)
     head = lambda n: {"kernel": sd[f"{n}.weight"].T.copy(),
                       "bias": sd[f"{n}.bias"]}
     return {"encoder": enc, "tv_linear": head("tv_linear"),
@@ -66,7 +71,6 @@ def random_jax_force_params(cfg_j, vocab_size: int, seed: int):
     config ``cfg_j``: head leaves of ``init``'s shapes (traced, not run)
     drawn from ``seed``, and the tower of :func:`random_jax_w2v2_pr_params`
     for the matching port config."""
-    import dataclasses
     import functools
 
     from aptai_tpu.models import ForceAPTAI as JaxForceAPTAI

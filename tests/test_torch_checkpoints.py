@@ -13,7 +13,8 @@
 * ``load_model`` / ``load_predictor`` on experiment directories the JAX
   ``CheckpointManager`` wrote, for each model kind: the port's predictor
   outputs equal the JAX predictor's (float32, within 1e-4 of the largest
-  magnitude; decoded sequences equal);
+  magnitude; decoded sequences equal), and for an APTAI run whose
+  backbone has ``fused_qkv`` and ``do_stable_layer_norm=False``;
 * a JAX run's optax Adam state: the masked FORCE state (the tower frozen,
   weight decay on) puts the head's moments on their parameters by name and
   ``count`` in ``step``; a state other than the trainers' Adam, or a
@@ -56,6 +57,8 @@ STACK = dict(conv_dim=(16,) * 7, conv_kernel=(10, 3, 3, 3, 3, 2, 2),
 V = 11
 VOCAB = {f"p{i}": i for i in range(V)}
 TOL = 1e-4
+VARIANTS = dict(fused_qkv=True, attention_layout="bthd",
+                do_stable_layer_norm=False)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -297,8 +300,13 @@ def test_backbone_dicts_cross_and_unported_fields_raise(jax_experiments):
                     / "model_cfg.json").read_text())["backbone"]
     assert (dataclasses.asdict(backbone_from_dict(d))
             == dataclasses.asdict(tcfg.tiny_config(**STACK)))
-    with pytest.raises(NotImplementedError, match="fused_qkv"):
-        backbone_from_dict(dict(d, fused_qkv=True))
+    variants = dict(d, fused_qkv=True, attention_layout="bthd",
+                    do_stable_layer_norm=False)
+    assert (dataclasses.asdict(backbone_from_dict(variants))
+            == dataclasses.asdict(tcfg.tiny_config(**STACK, **VARIANTS)))
+    with pytest.raises(NotImplementedError, match="activation_partition"):
+        backbone_from_dict(dict(d, activation_partition=["data", None,
+                                                         None]))
     # quant replaces the backbone's field; the parameters do not change
     _, exact, _ = load_model(jax_experiments["aptai"])
     _, model, _ = load_model(jax_experiments["aptai"], quant="w8a8")
@@ -310,6 +318,39 @@ def test_backbone_dicts_cross_and_unported_fields_raise(jax_experiments):
     assert all(torch.equal(got[k], want[k]) for k in want)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         load_predictor(jax_experiments["aptai"], device="cpu", mesh=object())
+
+
+def test_load_model_on_a_jax_experiment_with_the_encoder_variants(tmp_path):
+    """A JAX APTAI run whose backbone has ``fused_qkv`` and
+    ``do_stable_layer_norm=False``: ``load_model`` builds that encoder
+    (``qkv_proj`` through the bridge) and ``load_predictor`` predicts as
+    the JAX predictor does."""
+    backbone = jcfg.tiny_config(**STACK, fused_qkv=True,
+                                do_stable_layer_norm=False)
+    params = random_jax_aptai_params(
+        tcfg.tiny_config(**STACK, fused_qkv=True,
+                         do_stable_layer_norm=False), V, 6)
+    manager = jckpt.CheckpointManager(tmp_path / "aptai", "m")
+    manager.update(0, {"m": 1.0}, params, model_cfg={
+        "backbone": dataclasses.asdict(backbone), "vocab": VOCAB,
+        "kind": "aptai"})
+    kind, model, _ = load_model(tmp_path / "aptai")
+    assert kind == "aptai" and model.cfg.fused_qkv
+    assert not model.cfg.do_stable_layer_norm
+    assert "wav2vec2.encoder.layers.0.attention.qkv_proj.weight" \
+        in model.state_dict()
+    wavs = _wavs()
+    got = load_predictor(tmp_path / "aptai", device="cpu").predict_batch(
+        wavs)
+    want = japi.APTAIPredictor(JaxAPTAI(backbone, num_phonemes=V),
+                               params).predict_batch(wavs)
+    for k in ("tvs_pred", "phn_fc_probs"):
+        w = np.asarray(want[k], np.float32)
+        g = got[k].float().numpy()
+        assert g.shape == w.shape, k
+        assert np.abs(g - w).max() <= TOL * np.abs(w).max(), k
+    np.testing.assert_array_equal(got["phn_fc_pred"].numpy(),
+                                  np.asarray(want["phn_fc_pred"]))
 
 
 # -- a JAX run's optax Adam state ---------------------------------------------

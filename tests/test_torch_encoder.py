@@ -37,10 +37,7 @@ def test_config_fields_and_defaults_match_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("fused_qkv", True),
-    ("attention_layout", "bthd"),
     ("activation_partition", ("data", "model", None)),
-    ("do_stable_layer_norm", False),
 ])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):

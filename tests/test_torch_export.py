@@ -8,9 +8,12 @@
   attention or packing: the flash forward once a layer, the fused conv in
   W2V2PR with the fused feature extractor, the packed BiLSTM in FORCE and
   the device beam under ``beam_device``;
-* a bundle round trip per family (3 wavs through ``batch=2``: two chunks)
-  against the live predictor on the same padded batches, equal, with the
-  float32, int16 and μ-law transfers;
+* a bundle round trip per family, and for APTAI with the encoder's three
+  config variants (``fused_qkv``, ``"bthd"``, non-stable) together (3
+  wavs through ``batch=2``: two chunks) against the live predictor on the
+  same padded batches, equal, with the float32, int16 and μ-law
+  transfers; that variant's checkpoint through ``aptai-torch-export``,
+  served by ``build_app`` as the checkpoint is;
 * parity with the JAX package: the same weights exported by both
   packages, the same wavs through both bundles (TVs and logits within
   rtol 1e-4 / atol 1e-5, argmax and sequences equal);
@@ -20,6 +23,7 @@
   process that imports no model code.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -40,7 +44,8 @@ from aptai_tpu_torch.infer import (APTAIPredictor, ForceAPTAIPredictor,
 from aptai_tpu_torch.infer import export as texport
 from aptai_tpu_torch.models import (ForceAPTAI,
                                     force_aptai_state_dict_from_jax,
-                                    random_force_aptai, random_w2v2_pr)
+                                    random_aptai, random_force_aptai,
+                                    random_w2v2_pr)
 from aptai_tpu_torch.models import configs as tcfg
 from aptai_tpu_torch.ops import attention as tatt
 from aptai_tpu_torch.ops.fused_conv import fused_conv_ln_gelu_op
@@ -55,6 +60,9 @@ REPO = Path(__file__).resolve().parent.parent
 CONVS = dict(conv_kernel=(10, 3, 3, 3, 3, 2, 2),
              conv_stride=(5, 2, 2, 2, 2, 2, 2))
 STACK = dict(NO_DROP, conv_dim=(16,) * 7, **CONVS)
+# the encoder's three config variants together
+VARIANTS = dict(STACK, fused_qkv=True, attention_layout="bthd",
+                do_stable_layer_norm=False)
 # C 128: the mid-stack layers qualify for the fused conv
 FUSED = dict(NO_DROP, conv_dim=(128,) * 7, fused_feature_extractor=True,
              **CONVS)
@@ -152,6 +160,9 @@ def _port_models():
     return {
         "aptai": (p_a, JaxAPTAI(cfg_j, num_phonemes=V),
                   port_aptai_from_jax(cfg_t, p_a, V), "predict"),
+        "aptai_variants": (None, None, random_aptai(
+            tcfg.tiny_config(**VARIANTS), seed=74, num_phonemes=V).eval(),
+            "predict"),
         "w2v2_pr": (p_w, JaxW2V2PR(cfg_j), port_w2v2_pr_from_jax(cfg_t, p_w),
                     "encode"),
         "w2v2_pr_fused": (None, None, random_w2v2_pr(
@@ -175,7 +186,8 @@ def models():
 
 # each bundle's wire encoding: int16 and μ-law are held to the live
 # predictor with the same transfer, as float32 is
-TRANSFER = {"aptai": "float32", "w2v2_pr_fused": "int16",
+TRANSFER = {"aptai": "float32", "aptai_variants": "float32",
+            "w2v2_pr_fused": "int16",
             "force_aptai": "float32", "force_beam_device": "uint8_mulaw"}
 
 
@@ -201,8 +213,8 @@ def _graph_ops(program):
             if n.op == "call_function"]
 
 
-@pytest.mark.parametrize("name", ["aptai", "w2v2_pr_fused", "force_aptai",
-                                  "force_beam_device"])
+@pytest.mark.parametrize("name", ["aptai", "aptai_variants", "w2v2_pr_fused",
+                                  "force_aptai", "force_beam_device"])
 def test_exported_graph_holds_the_ops(bundles, models, name):
     ops = _graph_ops(bundles[name][1].program)
     layers = models[name][2].cfg.num_hidden_layers
@@ -230,8 +242,8 @@ def _live_entry(model, method, transfer):
     return cls(model, **kw).predict_batch
 
 
-@pytest.mark.parametrize("name", ["aptai", "w2v2_pr_fused", "force_aptai",
-                                  "force_beam_device"])
+@pytest.mark.parametrize("name", ["aptai", "aptai_variants", "w2v2_pr_fused",
+                                  "force_aptai", "force_beam_device"])
 def test_bundle_round_trip_matches_live_predictor(bundles, models, name):
     _, bundle = bundles[name]
     wavs = _wavs()
@@ -284,6 +296,36 @@ def test_bundle_matches_the_jax_packages_bundle(models, bundles, name,
                                            err_msg=k)
             else:
                 np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+def test_variant_checkpoint_exports_and_serves(models, tmp_path, capsys):
+    """A port checkpoint of the ``fused_qkv`` + ``"bthd"`` + non-stable
+    APTAI through ``aptai-torch-export``: ``build_app`` over the bundle
+    answers ``/v1/predict`` as ``build_app`` over the checkpoint does (the
+    same padded batch)."""
+    from aptai_tpu_torch.infer import serve as tserve
+    from aptai_tpu_torch.train import checkpoints as tckpt
+
+    model = models["aptai_variants"][2]
+    ckpt = tmp_path / "run"
+    tckpt.CheckpointManager(ckpt, "m").update(
+        0, {"m": 1.0}, model.state_dict(), model_cfg={
+            "backbone": dataclasses.asdict(model.cfg),
+            "vocab": {f"p{i}": i for i in range(V)}, "kind": "aptai"})
+    out = tmp_path / "bundle"
+    assert texport.main([str(ckpt), str(out), "--batch", "2", "--seconds",
+                         "1", "--platforms", "cpu"]) == 0
+    capsys.readouterr()
+    wav = _wavs(1, seed=4)[0].tobytes()
+    answers = []
+    for path in (ckpt, out):
+        app = tserve.build_app(str(path), device="cpu", max_batch_size=2,
+                               warmup=False, streaming=False)
+        try:
+            answers.append(app.handle("POST", "/v1/predict", {}, wav))
+        finally:
+            app.batcher.stop()
+    assert answers[0][0] == 200 and answers[1] == answers[0]
 
 
 # -- the bundle's contract -----------------------------------------------------
