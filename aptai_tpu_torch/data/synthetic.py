@@ -4,6 +4,8 @@ same files the real datasets read, so tests and smoke runs exercise the
 production IO path. The same seed gives the same audio, TVs, labels and
 manifest rows as the JAX generators; the mel spectrogram and MFCCs come
 from the port's signal ops on the card (or on the device named).
+:func:`make_synthetic_hprc_raw` writes the input of the HPRC preparation,
+a raw ``.mat`` release, which the JAX package has no generator for.
 """
 
 from __future__ import annotations
@@ -17,9 +19,6 @@ import torch
 from aptai_tpu_torch import SAMPLE_RATE, TV_ORDER
 from aptai_tpu_torch.data.audio_io import save_wav
 from aptai_tpu_torch.data.hprc import HPRC_SPEAKERS
-from aptai_tpu_torch.data.hprc_prep import (interpolate_tvs_to_frames,
-                                            phoneme_frame_labels,
-                                            zscore_utterance)
 from aptai_tpu_torch.data.manifest import write_rows
 from aptai_tpu_torch.data.vocab import build_vocab, phonemes_to_ids
 from aptai_tpu_torch.ops.signal import melspectrogram, mfcc
@@ -113,6 +112,11 @@ def make_synthetic_hprc(root, utts_per_speaker=2, speakers=None, seed=0,
     variants, mspec and mfcc pickles, the ``phn_frames_49hz`` column);
     returns the csv path. ``device``: where the spectrograms are computed
     (``cuda`` by default; without a card it raises unless ``"cpu"``)."""
+    # imported here: ``python -m aptai_tpu_torch.data.hprc_prep`` then runs
+    # a module that importing the package has not imported already
+    from aptai_tpu_torch.data.hprc_prep import (interpolate_tvs_to_frames,
+                                                phoneme_frame_labels,
+                                                zscore_utterance)
     from aptai_tpu_torch.infer.api import resolve_device
 
     dev = resolve_device(device)
@@ -182,3 +186,97 @@ def make_synthetic_hprc(root, utts_per_speaker=2, speakers=None, seed=0,
                 })
                 idx += 1
     return write_rows(root / "hprc.csv", rows)
+
+
+_WORDS = ("Haskins", "rate", "tongue", "palate", "lips", "jaw", "speech",
+          "fast", "normal", "sentence")
+
+
+def _mat_cell(name: str, srate: int, signal: np.ndarray) -> np.ndarray:
+    cell = np.empty((3,), dtype=object)
+    cell[0], cell[1], cell[2] = name, np.array([[srate]]), signal
+    return cell
+
+
+def _ema_trajectory(rng, n: int) -> np.ndarray:
+    """(n, 6) sensor samples (x, y, z and three angles): a random walk
+    inside the palate's x range [−50, 0)."""
+    walk = np.cumsum(rng.normal(0.0, 0.3, (n, 6)), axis=0)
+    return np.clip(-25.0 + walk, -49.0, -1.0)
+
+
+def make_synthetic_hprc_raw(root, speakers=None, texts=2,
+                            repetitions=("R01", "R02"), seconds=(2.0, 4.0),
+                            fs=44_100, seed=0, phonemes_root=None):
+    """A raw HPRC release in its ``.mat`` layout, the input of
+    :func:`aptai_tpu_torch.data.hprc_prep.prepare_hprc`: per speaker
+    ``<root>/<spk>/data/<spk>_palate.mat`` (60 × 3) and, for each text,
+    rate (N, F) and repetition, ``<spk>_B<text>_S01_<rep>_<rate>.mat``
+    (audio at ``fs``, 100 Hz EMA of eight sensors, F02 without ML, with
+    NaN dropouts) and its ``TextGrids/<key>.TextGrid`` word tier;
+    utterances last ``seconds`` (uniform between the two). With
+    ``phonemes_root``, the MAUS phoneme TextGrids that the alignment step
+    would download are written to ``<phonemes_root>/<spk>/phonemes/``.
+    Returns ``{speaker: [keys]}``."""
+    import scipy.io
+
+    from aptai_tpu_torch.data.textgrid import Interval, write_textgrid
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    keys = {}
+    for spk in speakers or HPRC_SPEAKERS:
+        data_dir, tg_dir = root / spk / "data", root / spk / "TextGrids"
+        data_dir.mkdir(parents=True, exist_ok=True)
+        tg_dir.mkdir(exist_ok=True)
+        palate = np.column_stack([np.arange(-60, 0, dtype=np.float64),
+                                  np.zeros(60), rng.uniform(-2, 2, 60)])
+        scipy.io.savemat(data_dir / f"{spk}_palate.mat",
+                         {f"{spk}_palate": palate})
+        sensors = [s for s in ("TR", "TB", "TT", "UL", "LL", "ML", "JAW",
+                               "JAWL") if not (spk == "F02" and s == "ML")]
+        keys[spk] = []
+        for b in range(1, texts + 1):
+            words = [_WORDS[(b + i) % len(_WORDS)] for i in range(3)]
+            for rate in ("N", "F"):
+                for rep in repetitions:
+                    key = f"{spk}_B{b:02d}_S01_{rep}_{rate}"
+                    total = rng.uniform(*seconds)
+                    phones = (["(...)"] + list(rng.choice(_PHONES[1:],
+                                                          size=8))
+                              + ["(...)"])
+                    cuts = np.sort(rng.uniform(0.1, 0.9, len(phones) - 1))
+                    ends = np.append(np.round(cuts * total, 3), total)
+                    starts = np.append(0.0, ends[:-1])
+                    n = int(total * fs)
+                    t = np.arange(n) / fs
+                    audio = 0.02 * rng.standard_normal(n)
+                    for p, s, e in zip(phones, starts, ends):
+                        on = (t >= s) & (t < e)
+                        audio[on] += 0.3 * np.sin(
+                            2 * np.pi * (200 + 80 * _PHONES.index(p)) * t[on])
+                    n_ema = int(total * 100)
+                    cells = [_mat_cell("AUDIO", fs, audio[:, None])]
+                    for s in sensors:
+                        traj = _ema_trajectory(rng, n_ema)
+                        if s == "TT":  # dropouts inside and at the end
+                            traj[n_ema // 3:n_ema // 3 + 4, 0] = np.nan
+                            traj[-2:, 2] = np.nan
+                        cells.append(_mat_cell(s, 100, traj))
+                    arr = np.empty((1, len(cells)), dtype=object)
+                    for i, cell in enumerate(cells):
+                        arr[0, i] = cell
+                    scipy.io.savemat(data_dir / f"{key}.mat", {key: arr})
+                    word_ends = np.linspace(0.0, total, 5)[1:]
+                    write_textgrid(tg_dir / f"{key}.TextGrid", {"word": [
+                        Interval(float(lo), float(hi), w) for lo, hi, w in
+                        zip(np.append(0.0, word_ends[:-1]), word_ends,
+                            [words[0], "sp", words[1], words[2]])]})
+                    if phonemes_root is not None:
+                        phn = Path(phonemes_root) / spk / "phonemes"
+                        phn.mkdir(parents=True, exist_ok=True)
+                        write_textgrid(phn / f"{key}.TextGrid", {"MAU": [
+                            Interval(float(s), float(e), p)
+                            for p, s, e in zip(phones, starts, ends)]})
+                    keys[spk].append(key)
+    return keys

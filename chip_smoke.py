@@ -248,6 +248,19 @@ Phases (any failure ends the run with a non-zero exit code):
    layer quantized and no projection, 12c's deviation gates against the
    exact default.
 
+14. The HPRC preparation (``data/hprc_prep.py``), in a temporary
+   directory: a raw ``.mat`` release of all eight speakers (2 texts x N / F
+   x R01 / R02, 2-4 s at 44.1 kHz, F02 without ML, EMA with NaN dropouts,
+   a palate each) with the MAUS TextGrids written in place of the
+   alignment; ``python -m aptai_tpu_torch.data.hprc_prep --platform auto``
+   as a child process (utterances/s, the seconds of each step), the same
+   tree prepared on the host CPU in this process, the card's log-mel and
+   MFCC within ``PREP_SPECTRAL_RTOL`` of the CPU's and every other file
+   byte for byte (the manifests with their roots swapped); then
+   ``train_aptai.run`` for one epoch of one LOSO fold from the prepared
+   manifest at full width (8c's config), 24 launches of each flash kernel
+   a step and no fused one, finite test metrics.
+
 Output: the phases' lines, then one JSON line of kernel records, the card
 line, and last ``{"ok": true, "device": {...}}``. A flash kernel record's
 ``launches`` is its count over one train step of phase 5, the fused conv's
@@ -264,8 +277,9 @@ trainer's epoch, one batch of each bundle of 11c, one request to the
 bundle app of 11d, one APTAI batch in ``w8a8_ffn`` and in ``w8a8``, one
 W2V2PR and one FORCE batch in ``w8a8``, one request to the
 ``w8a8_ffn`` app of 12d, one APTAI batch in each encoder variant of 13b,
-the train step of 13c and the two ``w8a8`` batches of 13d), each read
-with the counts set to 0 just before it.
+the train step of 13c, the two ``w8a8`` batches of 13d, and the APTAI
+epoch of 14 from the prepared manifest), each read with the counts set to
+0 just before it.
 
 Phase 13 alone, from the repository root (the kernels build at first
 use; ``main`` also turns TF32 off, which the small float32 models' gates
@@ -274,6 +288,12 @@ need):
     python3 -c "import torch, chip_smoke as cs; \
     torch.backends.cudnn.allow_tf32 = False; \
     cs.phase_variants(cs.card_line())"
+
+Phase 14 alone, in a temporary directory:
+
+    python3 -c "import pathlib, tempfile, torch, chip_smoke as cs; \
+    torch.backends.cudnn.allow_tf32 = False; \
+    cs.phase_hprc_prep(cs.card_line(), pathlib.Path(tempfile.mkdtemp()))"
 
 The other phases' functions run alone the same way.
 """
@@ -288,6 +308,7 @@ import http.client
 import io
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -304,6 +325,8 @@ from aptai_tpu_torch.data import (BucketedLoader, HPRCDataset, PrefetchLoader,
                                   build_vocab, collate_tv,
                                   make_synthetic_commonphone,
                                   make_synthetic_hprc)
+from aptai_tpu_torch.data.hprc_prep import prepare_hprc
+from aptai_tpu_torch.data.synthetic import make_synthetic_hprc_raw
 from aptai_tpu_torch.data.hprc import HPRC_SPEAKERS, loso_split
 from aptai_tpu_torch import TV_ORDER
 from aptai_tpu_torch.data.audio_io import save_wav
@@ -5200,6 +5223,156 @@ def phase_variants(card):
     return launches, step
 
 
+# -- phase 14 -----------------------------------------------------------------
+
+# the prep's --platform for the card's tree ("cpu" rehearses phase 14 on the
+# CPU, with PREP_TINY a small backbone for its epoch)
+PREP_PLATFORM = "auto"
+PREP_TINY = None
+# the card's log-mel and MFCC against the CPU's, relative to the CPU
+# value's largest magnitude: float32 FFT and matmul sums in other orders
+# behind a log (the CPU tests' tolerance for these ops)
+PREP_SPECTRAL_RTOL = 1e-4
+
+
+def run_prep_cli(raw, prep, platform):
+    """``python -m aptai_tpu_torch.data.hprc_prep <raw> --prep <prep>
+    --platform <platform>`` as a child process; returns its seconds: the
+    whole run, the interpreter's start up to step 1, each step (from its
+    line to the next one's) and ``prepare_hprc`` as the child timed it."""
+    cmd = [sys.executable, "-u", "-m", "aptai_tpu_torch.data.hprc_prep",
+           str(raw), "--prep", str(prep), "--platform", platform]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            env=_package_env())
+    marks, lines = [], []
+    for line in proc.stdout:
+        lines.append(line.rstrip())
+        if line.startswith("[") and "/8]" in line[:6]:
+            marks.append((line[1], time.perf_counter()))
+    rc = proc.wait()
+    end = time.perf_counter()
+    if rc != 0 or len(marks) != 8:
+        raise AssertionError(f"14: the prep CLI on {platform} exited {rc}:\n"
+                             + "\n".join(lines[-20:]))
+    steps = {k: b - a for (k, a), (_, b) in zip(marks, marks[1:] +
+                                                 [("end", end)])}
+    inner = float(lines[-1].split(" in ")[-1].split()[0])
+    return {"wall": end - t0, "start": marks[0][1] - t0, "steps": steps,
+            "prepare": inner}
+
+
+def compare_prep_trees(card_tree, cpu_tree):
+    """The card's tree against the CPU's: the log-mel and MFCC pickles
+    within ``PREP_SPECTRAL_RTOL``, every other file (wavs, texts, EMA,
+    TV and F0 pickles, ``vocab.json``) byte for byte, and the manifests
+    with the roots swapped. Returns the files compared and the largest
+    spectral error."""
+    files = sorted(p.relative_to(card_tree) for p in card_tree.rglob("*")
+                   if p.is_file())
+    if files != sorted(p.relative_to(cpu_tree) for p in cpu_tree.rglob("*")
+                       if p.is_file()):
+        raise AssertionError("14: the card's and the CPU's trees hold "
+                             "other files")
+    worst, bad = 0.0, []
+    for rel in files:
+        a, b = card_tree / rel, cpu_tree / rel
+        if rel.parent.name in ("mspec", "mfccs"):
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                got, want = pickle.load(fa), pickle.load(fb)
+            if not (type(got) is np.ndarray and got.dtype == np.float32
+                    and got.shape == want.shape):
+                bad.append(str(rel))
+                continue
+            err = float(np.abs(got - want).max() / np.abs(want).max())
+            worst = max(worst, err)
+            if not err <= PREP_SPECTRAL_RTOL:
+                bad.append(str(rel))
+        elif rel.name == "hprc.csv":
+            if (a.read_bytes().replace(str(card_tree).encode(), b"")
+                    != b.read_bytes().replace(str(cpu_tree).encode(), b"")):
+                bad.append(str(rel))
+        elif a.read_bytes() != b.read_bytes():
+            bad.append(str(rel))
+    if bad:
+        raise AssertionError(f"14: the card's tree differs from the CPU's in "
+                             f"{bad[:8]} ({len(bad)} files)")
+    return len(files), worst
+
+
+def phase_hprc_prep(card, root):
+    """Phase 14 in the directory ``root``: a raw HPRC tree through the prep
+    CLI on the card and through ``prepare_hprc`` on the CPU, the two trees
+    compared, then one APTAI epoch at full width from the card's manifest.
+    Returns the epoch's launches and steps."""
+    log("== phase 14: from a raw HPRC tree to an APTAI run")
+    t_phase = time.perf_counter()
+    raw, prep, cpu_prep = root / "raw", root / "prep", root / "prep_cpu"
+    t0 = time.perf_counter()
+    keys = make_synthetic_hprc_raw(raw, texts=2, seconds=(2.0, 4.0),
+                                   fs=44_100, seed=14, phonemes_root=prep)
+    shutil.copytree(prep, cpu_prep)
+    n_utts = sum(len(k) for k in keys.values())
+    mats = len(list(raw.glob("*/data/*.mat")))
+    log(f"  14a raw tree: {len(keys)} speakers, {mats} .mat files "
+        f"({n_utts} utterances of 2-4 s at 44.1 kHz, R01 and R02, N and F; "
+        f"F02 without ML; one palate a speaker), {dir_gb(raw):.3f} GB, "
+        f"written in {time.perf_counter() - t0:.1f} s with the MAUS "
+        f"TextGrids in place of the alignment")
+    t = run_prep_cli(raw, prep, PREP_PLATFORM)
+    steps = ", ".join(f"[{k}/8] {v:.2f} s" for k, v in t["steps"].items())
+    log(f"  14b prep CLI --platform {PREP_PLATFORM}: {t['wall']:.2f} s wall "
+        f"(interpreter start {t['start']:.2f} s; {steps}); prepare_hprc "
+        f"{t['prepare']:.2f} s = {n_utts / t['prepare']:.1f} utterances/s "
+        f"({n_utts / t['wall']:.1f} with the start) on {card}")
+    t0 = time.perf_counter()
+    prepare_hprc(raw, cpu_prep, log=lambda *_: None, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    log(f"  14b the same tree prepared on the host CPU in this process: "
+        f"{cpu_s:.2f} s = {n_utts / cpu_s:.1f} utterances/s")
+    n_files, worst = compare_prep_trees(prep, cpu_prep)
+    hprc_csv = prep / "hprc.csv"
+    rows = read_rows(hprc_csv)
+    log(f"  14c the card's tree against the CPU's: {n_files} files, log-mel "
+        f"and MFCC within {worst:.2e} relative (gate "
+        f"{PREP_SPECTRAL_RTOL:g}), the rest byte for byte; manifest "
+        f"{len(rows)} R01 rows of {n_utts} utterances")
+    if not (len(rows) == n_utts // 2 and all(
+            "R01" in r["path_wav"] and r["phn_frames_49hz"] for r in rows)):
+        raise AssertionError("14c: the manifest's rows")
+
+    spk = rows[-1]["speaker"]
+    cfg = APTAIConfig(exp_dir=str(root / "aptai"), hprc_csv_path=str(hprc_csv),
+                      vocab_path=str(prep / "vocab.json"), batch_size=4,
+                      num_epochs=1, platform=PREP_PLATFORM).finalize("APTAI")
+    t0 = time.perf_counter()
+    with FitProbe(train_aptai) as probe:
+        _, _, per = train_aptai.run(cfg, tiny_backbone=PREP_TINY,
+                                    speakers=[spk])
+    rec = probe.calls[0]
+    epoch, steps = rec["epochs"][0], len(rec["batches"])
+    layers = rec["model"].cfg.num_hidden_layers
+    hist = rec["history"]
+    log(f"  14d train_aptai.run, fold {spk}, 1 epoch from the prepared "
+        f"manifest: {time.perf_counter() - t0:.1f} s, {steps} steps, "
+        f"{hist[0]['train_seconds'] / max(steps, 1) * 1e3:.2f} ms a step, "
+        f"launches {epoch} ({per_step(epoch, steps)} a step), "
+        f"test_N_mean_rmse {per[0].get('test_N_mean_rmse', float('nan')):.4f}"
+        f" on {card}")
+    finite = all(np.isfinite(v) for v in per[0].values())
+    if not (steps > 0 and finite and (PREP_PLATFORM == "cpu" or (
+            epoch["fused_conv_ln_gelu"] == 0
+            and all(epoch[k] == layers * steps for k in FLASH)))):
+        raise AssertionError(f"14d: the epoch's launches {epoch} over "
+                             f"{steps} steps, finite {finite}")
+    del rec, probe
+    torch.cuda.empty_cache()
+    log(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return epoch, steps
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5264,6 +5437,8 @@ def main() -> int:
         late.update(phase_quant(aptai_ckpt, card))
     variants, variant_step = phase_variants(card)
     late.update(variants)
+    with tempfile.TemporaryDirectory() as tmp14:
+        prep_epoch, prep_steps = phase_hprc_prep(card, Path(tmp14))
     for rec in records:
         name = rec["name"]
         rec["launches"] = (pr_serving if name == "fused_conv_ln_gelu"
@@ -5307,6 +5482,8 @@ def main() -> int:
                                        "launches": pretrain_epoch[name]},
             "train_step_fused_qkv_non_stable": {
                 "steps": 1, "launches": variant_step[name]},
+            "aptai_trainer_epoch_from_hprc_prep": {
+                "steps": prep_steps, "launches": prep_epoch[name]},
             **{path: {"batches": 1, "launches": counts[name]}
                for path, counts in late.items()}}
 

@@ -152,3 +152,23 @@ def one_torch_thread():
         yield
     finally:
         torch.set_num_threads(threads)
+
+
+# a three-layer stack whose mid layers qualify for the fused conv (C 128)
+FUSED_WIDE = dict(NO_DROP, conv_dim=(128,) * 3, fused_feature_extractor=True)
+
+
+def count_fused_plain(monkeypatch):
+    """The input shapes of the fused conv's plain version, one a call,
+    recorded from here on in the list returned."""
+    from aptai_tpu_torch.ops import fused_conv as tfc
+
+    calls = []
+    real = tfc.fused_conv_ln_gelu_plain
+
+    def counted(*a, **kw):
+        calls.append(a[0].shape)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tfc, "fused_conv_ln_gelu_plain", counted)
+    return calls

@@ -1,7 +1,7 @@
 """aptai_tpu_torch boundaries: no JAX at import (nor pandas: the port reads
 its manifests without it), no silent CPU fallback, the attention dispatch
-by device, the kernel libraries, and the FLOP counts against the JAX
-package."""
+by device, and the FLOP counts against the JAX package. The kernel and
+native libraries' builds are in ``test_torch_kernel_builds.py``."""
 
 import os
 import subprocess
@@ -22,6 +22,7 @@ from aptai_tpu_torch.models import (random_aptai, random_force_aptai,
 from aptai_tpu_torch.train import TrainStep, force_loss_fn, torch_adam
 from aptai_tpu_torch.ops import attention as tatt
 from aptai_tpu_torch.utils import flops as tflops
+
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -166,6 +167,51 @@ def test_inference_clis_import_no_jax():
         assert flag in res.stdout, flag
 
 
+# neither package is installed on the card's machine
+_PREP_WITHOUT_OPTIONAL = r"""
+import runpy, sys
+sys.modules["requests"] = None
+sys.modules["pysptk"] = None
+import numpy as np
+from aptai_tpu_torch.data import hprc_prep
+t = np.arange(4000) / 16000
+wav = (0.3 * np.sin(2 * np.pi * 150 * t)).astype(np.float32)
+assert np.array_equal(hprc_prep.compute_f0_rapt(wav, "M01"),
+                      hprc_prep.nccf_pitch(wav, 16000, 256, 50, 250))
+try:
+    hprc_prep.run_maus_alignment(".")
+except ImportError as e:
+    print("MAUS", e)
+sys.argv = ["hprc_prep", "--help"]
+try:
+    runpy.run_module("aptai_tpu_torch.data.hprc_prep", run_name="__main__",
+                     alter_sys=True)
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and m.split(".")[0] in ("jax", "jaxlib", "flax", "aptai_tpu",
+                                     "pandas", "requests", "pysptk"))
+print("BAD", bad)
+"""
+
+
+def test_hprc_prep_runs_without_requests_or_pysptk():
+    """With ``requests`` and ``pysptk`` absent, ``data/hprc_prep.py``
+    imports, tracks F0 with its NCCF tracker, and its CLI parses its
+    flags; MAUS raises naming ``requests``; neither JAX nor pandas
+    loads."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+    res = subprocess.run([sys.executable, "-c", _PREP_WITHOUT_OPTIONAL],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+    assert "MAUS the MAUS client needs the 'requests' package" in res.stdout
+    for flag in ("--platform", "--norm_rate", "--run_maus", "--vocab"):
+        assert flag in res.stdout, flag
+
+
 @pytest.mark.parametrize("family", ["aptai", "w2v2_pr", "force_aptai"])
 def test_predictor_without_cuda_raises(monkeypatch, family):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -208,18 +254,6 @@ def test_attention_dispatch_by_device(monkeypatch):
         tatt.flash_attention_bhtd_cuda(q, k, v, lens)
 
 
-@pytest.mark.parametrize("name", ["flash_attn_fwd", "flash_attn_bwd",
-                                  "fused_conv_ln_gelu"])
-def test_kernel_library_is_keyed_by_source_hash(name):
-    from aptai_tpu_torch.ops import kernels
-
-    path = kernels.library_path(name)
-    assert path.parent == kernels.BUILD_DIR
-    assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
-    assert path == kernels.library_path(name)
-    assert all((kernels.CSRC / src).exists() for src in kernels.SOURCES[name])
-
-
 @pytest.mark.parametrize("samples", [16_000, 48_000, 160_000])
 def test_flops_match_jax(samples):
     for j, t in ((jcfg.Wav2Vec2Config(), tcfg.Wav2Vec2Config()),
@@ -232,132 +266,6 @@ def test_flops_match_jax(samples):
                 == jflops.pr_forward_flops(j, samples))
         assert (tflops.pr_forward_flops(t, samples, vocab_size=7)
                 == jflops.pr_forward_flops(j, samples, vocab_size=7))
-
-
-# the chip_smoke, attention, fused_conv and kernels names a comparison turn
-# may use: each one existed already when this script was
-# compare_attention.py, so older checkouts can be timed too
-_PARENT_NAMES = {
-    ("cs", "_qkv"), ("cs", "device_ms"), ("cs", "train_batch"),
-    ("cs", "time_training_kernels"), ("cs", "fused_operands"),
-    ("cs", "fe_input_lengths"), ("cs", "bf16_ulp"),
-    ("attention", "flash_attention_bhtd_cuda"),
-    ("attention", "flash_attention_bwd_cuda"),
-    ("fused_conv", "fused_conv_ln_gelu_cuda"),
-    ("fused_conv", "fused_conv_ln_gelu_plain"), ("kernels", "build_all")}
-
-
-def test_backward_comparison_script_fits_this_checkout():
-    """compare_kernels.py runs one snippet in each checkout it times: every
-    chip_smoke, attention, fused_conv and kernels name the snippet uses is
-    one older checkouts have too, and exists in this one; with no checkout
-    to time it prints its usage."""
-    import ast
-
-    import chip_smoke
-    import compare_kernels
-    from aptai_tpu_torch.ops import fused_conv, kernels
-
-    modules = {"cs": chip_smoke, "attention": tatt, "kernels": kernels,
-               "fused_conv": fused_conv}
-    used = {(node.value.id, node.attr)
-            for node in ast.walk(ast.parse(compare_kernels._TURN))
-            if isinstance(node, ast.Attribute)
-            and isinstance(node.value, ast.Name)
-            and node.value.id in modules}
-    assert len(used) >= 10
-    assert ("attention", "flash_attention_bhtd_cuda") in used
-    assert ("fused_conv", "fused_conv_ln_gelu_cuda") in used
-    assert used <= _PARENT_NAMES, used - _PARENT_NAMES
-    assert all(hasattr(modules[m], name) for m, name in used), used
-    assert compare_kernels.main([]) == 2
-    assert compare_kernels.main(["--only", "fused_conv"]) == 2
-
-
-def test_serving_comparison_script_fits_this_checkout():
-    """compare_serving.py runs one snippet in each checkout it times: every
-    chip_smoke name it uses is one the checkout before the kernels became
-    ``torch.library`` ops has too, and exists in this one, as do the
-    attention names of its op-only part; with no checkout to time it
-    prints its usage."""
-    import ast
-
-    import chip_smoke
-    import compare_serving
-
-    modules = {"cs": chip_smoke, "attention": tatt}
-    used = {(node.value.id, node.attr)
-            for node in ast.walk(ast.parse(compare_serving._TURN))
-            if isinstance(node, ast.Attribute)
-            and isinstance(node.value, ast.Name)
-            and node.value.id in modules}
-    older = {("cs", n) for n in ("SAMPLE_RATE", "timed_batches",
-                                 "synthetic_recording", "http_load", "_qkv",
-                                 "profile_breakdown", "device_kernels")}
-    assert {m for m, _ in used} == {"cs", "attention"}
-    assert {u for u in used if u[0] == "cs"} <= older, used - older
-    assert all(hasattr(modules[m], name) for m, name in used), used
-    assert compare_serving.main([]) == 2
-
-
-@pytest.mark.parametrize("header", ["flash_attn_common.cuh",
-                                    "wgmma_tiles.cuh", "tma_cluster.cuh"])
-def test_header_edit_rebuilds_every_kernel(monkeypatch, tmp_path, header):
-    """A library is named by its sources and every header, so an edited
-    (or moved) header gives all three kernels new library paths: no stale
-    build survives it."""
-    import shutil
-
-    from aptai_tpu_torch.ops import kernels
-
-    csrc = tmp_path / "csrc"
-    shutil.copytree(kernels.CSRC, csrc)
-    monkeypatch.setattr(kernels, "CSRC", csrc)
-    before = {name: kernels.library_path(name) for name in kernels.SOURCES}
-    assert len(before) == 3 and len(set(before.values())) == 3
-    with open(csrc / header, "a") as f:
-        f.write("// edited\n")
-    after = {name: kernels.library_path(name) for name in kernels.SOURCES}
-    assert all(after[n] != before[n] for n in kernels.SOURCES), (before,
-                                                                 after)
-
-
-def test_native_library_builds_atomically_and_is_keyed_by_source(
-        monkeypatch, tmp_path):
-    """Four concurrent builds of the C++ helpers into one directory (as
-    test workers do) leave one loadable library and no partial file; an
-    edited source gets a new library path."""
-    import ctypes
-    import shutil
-    import threading
-
-    from aptai_tpu_torch.decode import native
-
-    src = tmp_path / "aptai_native.cpp"
-    shutil.copy(native.SOURCE, src)
-    monkeypatch.setattr(native, "SOURCE", src)
-    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
-    out = native.library_path()
-    errors = []
-
-    def build():
-        try:
-            native._build(out)
-        except RuntimeError as e:  # pragma: no cover - reported below
-            errors.append(e)
-
-    threads = [threading.Thread(target=build) for _ in range(4)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=120)
-    assert not errors and not any(t.is_alive() for t in threads)
-    assert [p.name for p in (tmp_path / "_build").iterdir()] == [out.name]
-    lib = ctypes.CDLL(str(out))
-    assert hasattr(lib, "aptai_ctc_beam_search")
-    with open(src, "a") as f:
-        f.write("// edited\n")
-    assert native.library_path() != out
 
 
 def test_device_peak_by_card_name():

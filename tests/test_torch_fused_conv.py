@@ -2,9 +2,9 @@
 the port's plain version against the Pallas kernel (interpret mode), the
 encoder with ``fused_feature_extractor`` on against the JAX encoder (its
 XLA path in float32, its Pallas path in bf16), the gate, the exact GELU and
-the refusal to run where a gradient is required."""
-
-import dataclasses
+the refusal to run where a gradient is required. The kernel-layout
+weights, the dispatch by device and the wrapper's refusals are in
+``test_torch_fused_conv_wrapper.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -20,9 +20,8 @@ from aptai_tpu_torch.models import random_w2v2_pr
 from aptai_tpu_torch.models import wav2vec2 as tw2v
 from aptai_tpu_torch.ops import fused_conv as tfc
 
-from _torch_port import NO_DROP, port_aptai_from_jax, random_jax_aptai_params
-
-WIDE = dict(NO_DROP, conv_dim=(128,) * 3, fused_feature_extractor=True)
+from _torch_port import (FUSED_WIDE, count_fused_plain, port_aptai_from_jax,
+                         random_jax_aptai_params)
 
 
 def bf16_ulp(a: np.ndarray) -> np.ndarray:
@@ -171,7 +170,7 @@ def _pair(dtype: str):
     # 16 positional-conv groups (2 channels each): PyTorch's CPU bf16
     # grouped conv1d is wrong at the tiny config's 4 groups of 8 channels
     # (relative error ~1 against float32 on bf16 inputs)
-    kw = dict(WIDE, dtype=dtype, num_conv_pos_embedding_groups=16)
+    kw = dict(FUSED_WIDE, dtype=dtype, num_conv_pos_embedding_groups=16)
     cfg_t = tcfg.tiny_config(**kw)
     params = random_jax_aptai_params(cfg_t, num_phonemes=11, seed=4)
     model = port_aptai_from_jax(cfg_t, params, num_phonemes=11).wav2vec2
@@ -183,23 +182,11 @@ def _pair(dtype: str):
     return enc, params["encoder"], model, audio, lens
 
 
-def _count_plain(monkeypatch):
-    calls = []
-    real = tfc.fused_conv_ln_gelu_plain
-
-    def counted(*a, **kw):
-        calls.append(a[0].shape)
-        return real(*a, **kw)
-
-    monkeypatch.setattr(tfc, "fused_conv_ln_gelu_plain", counted)
-    return calls
-
-
 def test_encoder_fused_f32_matches_jax(monkeypatch):
     """float32: the JAX CPU encoder takes its XLA conv path (its gate needs
     a TPU), whose function the fused op computes."""
     enc, params, model, audio, lens = _pair("float32")
-    calls = _count_plain(monkeypatch)
+    calls = count_fused_plain(monkeypatch)
     with torch.no_grad():
         got_h, got_fl, got_f = model(torch.from_numpy(audio),
                                      torch.from_numpy(lens))
@@ -250,7 +237,7 @@ def test_encoder_fused_bf16_matches_jax_pallas(monkeypatch):
 def test_fused_layer_uses_exact_gelu(gelu, dtype):
     """The fused op's GELU is exact erf whatever ``cfg.gelu`` says (the TPU
     kernel's); the unfused layer follows ``cfg.gelu``."""
-    cfg = tcfg.tiny_config(**WIDE, gelu=gelu, dtype=dtype)
+    cfg = tcfg.tiny_config(**FUSED_WIDE, gelu=gelu, dtype=dtype)
     block = random_w2v2_pr(cfg, seed=0).wav2vec2.feature_extractor \
         .conv_layers[1]
     assert block.fused
@@ -304,7 +291,7 @@ def test_fused_gate(monkeypatch):
 def test_fused_path_refuses_gradients():
     """No backward exists: a trainable feature encoder raises in a forward
     that needs its gradient; a frozen one runs the fused op without one."""
-    cfg = tcfg.tiny_config(**WIDE)
+    cfg = tcfg.tiny_config(**FUSED_WIDE)
     audio = torch.from_numpy(np.random.default_rng(2).standard_normal(
         (2, 3000)).astype(np.float32))
     lens = torch.tensor([3000, 2000], dtype=torch.int32)
@@ -325,84 +312,3 @@ def test_fused_path_refuses_gradients():
     ones, zeros = torch.ones(128), torch.zeros(128)
     with pytest.raises(NotImplementedError, match="no backward"):
         tfc.fused_conv_ln_gelu(x, w, None, ones, zeros, 2)
-
-
-def test_kernel_weights_follow_parameter_changes():
-    """The kernel-layout weight is made once and remade when the conv's
-    parameters change in place or move to another dtype."""
-    cfg = tcfg.tiny_config(**WIDE)
-    block = random_w2v2_pr(cfg, seed=0).wav2vec2.feature_extractor \
-        .conv_layers[1]
-    x = torch.randn(1, 41, 128)
-    with torch.no_grad():
-        w1, _ = block._kernel_weights(torch.float32)
-        assert block._kernel_weights(torch.float32)[0] is w1
-        before = block.forward_channels_last(x)
-        block.conv.weight.mul_(2.0)
-        w2, _ = block._kernel_weights(torch.float32)
-        assert w2 is not w1
-        torch.testing.assert_close(w2, tfc.kernel_weight(block.conv.weight))
-        assert not torch.equal(block.forward_channels_last(x), before)
-        wb, bb = block._kernel_weights(torch.bfloat16)
-        assert wb.dtype == bb.dtype == torch.bfloat16
-
-
-def test_fused_dispatch_by_device(monkeypatch):
-    x = torch.zeros((1, 9, 128))
-    w = torch.zeros((128, 3, 128))
-    ones, zeros = torch.ones(128), torch.zeros(128)
-    calls = _count_plain(monkeypatch)
-    before = tfc.fused_conv_ln_gelu_cuda.launches
-    out = tfc.fused_conv_ln_gelu(x, w, None, ones, zeros, 2)
-    assert out.shape == (1, 4, 128) and len(calls) == 1
-    assert tfc.fused_conv_ln_gelu_cuda.launches == before
-    with pytest.raises(ValueError, match="no fused conv implementation"):
-        meta = torch.empty((1, 9, 128), device="meta")
-        tfc.fused_conv_ln_gelu(meta, w.to("meta"), None, ones, zeros, 2)
-    # the kernel's wrapper refuses a CPU tensor before it builds anything
-    with pytest.raises(ValueError, match="CUDA device"):
-        tfc.fused_conv_ln_gelu_cuda(x, w, None, ones, zeros, 2)
-
-
-def _wrapper_case(case):
-    """CPU operands for the kernel wrapper, valid but for ``case``."""
-    bf16 = torch.bfloat16
-    dt = torch.float32 if case in ("f32 C_in", "f32 stride 5") else bf16
-    c_in = {"C_in 96": 96, "f32 C_in": 24}.get(case, 128)
-    c_out = 192 if case == "C_out 192" else 128
-    length = 2 if case == "no rows" else 33
-    x = torch.zeros((2, length, c_in), dtype=dt)
-    w = torch.zeros((c_out, 3, c_in),
-                    dtype=torch.float32 if case == "w dtype" else dt)
-    ln_w = torch.ones(c_out, dtype=bf16 if case == "ln dtype" else
-                      torch.float32)
-    ln_b = torch.zeros(c_out)
-    if case == "x strided":
-        x = torch.zeros((2, c_in, length), dtype=dt).transpose(1, 2)
-    if case == "x misaligned":
-        x = torch.zeros(x.numel() + 1, dtype=dt)[1:].view(x.shape)
-    stride = 5 if case in ("stride 5", "f32 stride 5") else 2
-    return x, w, None, ln_w, ln_b, stride
-
-
-@pytest.mark.parametrize("case,error,match", [
-    ("C_in 96", ValueError, "multiple of 64"),
-    ("f32 C_in", ValueError, "multiple of 16"),
-    ("C_out 192", ValueError, "built for C_out"),
-    ("stride 5", ValueError, "strides up to 4"),
-    ("w dtype", TypeError, "same dtype"),
-    ("ln dtype", TypeError, "float32"),
-    ("no rows", ValueError, "no output rows"),
-    ("x strided", ValueError, "contiguous"),
-    ("x misaligned", ValueError, "16-byte"),
-    # the float32 variant takes any stride; then only the device is wrong
-    ("f32 stride 5", ValueError, "CUDA device"),
-    ("valid", ValueError, "CUDA device"),
-])
-def test_kernel_wrapper_refuses(case, error, match):
-    """The wrapper checks dtypes, shapes, widths, stride and layout before
-    the device, so each refusal the kernel needs is reached on the CPU."""
-    before = tfc.fused_conv_ln_gelu_cuda.launches
-    with pytest.raises(error, match=match):
-        tfc.fused_conv_ln_gelu_cuda(*_wrapper_case(case))
-    assert tfc.fused_conv_ln_gelu_cuda.launches == before

@@ -1,11 +1,5 @@
 """aptai_tpu_torch's trainers against the JAX package's, on the CPU:
 
-* ``parse_config`` of each config class on the same argv gives the same
-  field values in both packages; the multi-device fields and unknown
-  platforms raise; the run logger keeps its JSONL without wandb;
-* the builders' pretrained encoder and FORCE tower from each checkpoint
-  format (this package's run, the JAX package's, an HF-named torch file,
-  the reference's ``pytorch_model.bin``);
 * ``fit`` against the JAX ``fit``: one tiny float32 APTAI with the same
   weights through the bridge (dropout, SpecAugment and the heads' dropout
   off), the same synthetic HPRC fold and loaders, 2 epochs of
@@ -25,9 +19,11 @@
   and ``train_force_aptai.run`` over the W2V2PR run (the corpus cache built
   once, a fold forced into the ``beam_host`` fallback), laptop mode, with
   their artifacts.
+
+The configs are in ``test_torch_trainer_config.py``, the builders'
+checkpoint formats in ``test_torch_trainer_formats.py``.
 """
 
-import dataclasses
 import functools
 import json
 import os
@@ -44,7 +40,6 @@ from aptai_tpu.data import BucketedLoader as JaxLoader
 from aptai_tpu.data import HPRCDataset as JaxHPRC
 from aptai_tpu.data import collate_tv as jax_collate_tv
 from aptai_tpu.data.hprc import loso_split as jax_loso_split
-from aptai_tpu.models.hf_convert import convert_w2v2_pr
 from aptai_tpu.models import APTAI as JaxAPTAI
 from aptai_tpu.models import W2V2PR as JaxW2V2PR
 from aptai_tpu.models import configs as jcfg
@@ -61,7 +56,7 @@ from aptai_tpu_torch.data import (BucketedLoader, HPRCDataset, build_vocab,
 from aptai_tpu_torch.data.hprc import loso_split
 from aptai_tpu_torch.data.manifest import read_rows
 from aptai_tpu_torch.models import configs as tcfg
-from aptai_tpu_torch.models import random_aptai, random_w2v2_pr
+from aptai_tpu_torch.models import random_aptai
 from aptai_tpu_torch.train import builders, make_engine
 from aptai_tpu_torch.train import config as tconfig
 from aptai_tpu_torch.train import (train_aptai, train_force_aptai,
@@ -74,10 +69,15 @@ from _torch_port import (NO_DROP, one_torch_thread, port_aptai_from_jax,
                          port_w2v2_pr_from_jax, random_jax_aptai_params,
                          random_jax_w2v2_pr_params)
 
+
 # the 7-layer conv stack (49 frames a second, as the manifests), tiny widths
 STACK = dict(conv_dim=(16,) * 7, conv_kernel=(10, 3, 3, 3, 3, 2, 2),
              conv_stride=(5, 2, 2, 2, 2, 2, 2))
+
+
 QUIET = dict(NO_DROP, apply_spec_augment=False)
+
+
 REL = 1e-4
 
 
@@ -93,138 +93,6 @@ def hprc(tmp_path_factory):
                                ("M01", "F02", "M03"), device="cpu")
     rows = read_rows(path)
     return path, rows, build_vocab(r["phoneme_labels"] for r in rows)
-
-
-# -- config -------------------------------------------------------------------
-
-ARGV = {
-    "PRConfig": ["--laptop", "--batch_size", "3", "--val_decode", "greedy",
-                 "--no-cache_frozen_fe", "--learning_rate", "2e-4"],
-    "APTAIConfig": ["--train_val_rate", "N", "--tv_drop", "0.2",
-                    "--ckpt_every", "0", "--save_all_epochs"],
-    "ForceAPTAIConfig": ["--decode_method", "beam_device",
-                         "--collapse_fallback", "--prior_g", "0.3",
-                         "--no-cache_frozen_encodings", "--grad_accum", "2"],
-}
-
-
-@pytest.mark.parametrize("name", list(ARGV))
-def test_parse_config_matches_jax(tmp_path, name):
-    argv = ARGV[name] + ["--exp_dir", str(tmp_path / "run"), "--rng_impl",
-                         "threefry", "--platform", "cpu", "--mesh_data", "1"]
-    got = tconfig.parse_config(getattr(tconfig, name), "task", argv)
-    want = jconfig.parse_config(getattr(jconfig, name), "task", argv)
-    g, w = dataclasses.asdict(got), dataclasses.asdict(want)
-    assert g.pop("date_time") and w.pop("date_time")
-    assert g == w
-    # the defaults too, with exp_dir derived from the task
-    got = dataclasses.asdict(getattr(tconfig, name)())
-    assert got == dataclasses.asdict(getattr(jconfig, name)())
-
-
-@pytest.mark.parametrize("field,value,error", [
-    ("mesh_data", 2, NotImplementedError),
-    ("mesh_model", 2, NotImplementedError),
-    ("fsdp", True, NotImplementedError),
-    ("coordinator_address", "localhost:1234", NotImplementedError),
-    ("num_processes", 2, NotImplementedError),
-    ("process_id", 1, NotImplementedError),
-    ("platform", "tpu", ValueError),
-    ("rng_impl", "philox", ValueError)])
-def test_config_fields_that_raise(tmp_path, field, value, error):
-    cfg = tconfig.TrainConfig(exp_dir=str(tmp_path), **{field: value})
-    with pytest.raises(error, match=field if error is ValueError
-                       else "Queue 1 item 8"):
-        cfg.finalize("task")
-    for impl in ("rbg", "threefry"):  # both mean the same here
-        assert tconfig.TrainConfig(rng_impl=impl, platform="cpu").finalize(
-            "task").rng_impl == impl
-
-
-def test_run_device_never_falls_back(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert tconfig.run_device(tconfig.TrainConfig(platform="cpu")).type \
-        == "cpu"
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        tconfig.run_device(tconfig.TrainConfig())
-    assert builders.resolve_dtype("auto", "cuda") == "bfloat16"
-    assert builders.resolve_dtype("auto", "cpu") == "float32"
-    assert builders.resolve_dtype("float32", "cuda") == "float32"
-
-
-def test_run_logger_without_wandb_keeps_jsonl(tmp_path, monkeypatch, capsys):
-    import sys
-
-    from aptai_tpu_torch.utils.logging import RunLogger, init_logger
-
-    monkeypatch.setitem(sys.modules, "wandb", None)  # not installed
-    cfg = tconfig.APTAIConfig(exp_dir=str(tmp_path), logging=True,
-                              platform="cpu").finalize("APTAI")
-    logger = init_logger(cfg, "APTAI")
-    assert "JSONL only" in capsys.readouterr().out
-    logger.log({"loss": np.float32(1.5), "epoch": 0}, step=3)
-    logger.finish()
-    event = json.loads((tmp_path / "metrics.jsonl").read_text())
-    assert event["step"] == 3 and event["loss"] == 1.5 and "ts" in event
-    assert RunLogger(tmp_path, "x")._wandb is None
-
-
-# -- builders -----------------------------------------------------------------
-
-def _pr_sources(tmp_path):
-    """One tiny W2V2PR's weights as each builder input: a port run, a JAX
-    run (msgpack through the bridge), an HF-named torch file (torch ≥ 2.1
-    weight-norm names) and the reference's ``pytorch_model.bin``."""
-    cfg_t = tcfg.tiny_config(**STACK)
-    pr = random_w2v2_pr(cfg_t, seed=7)
-    sd = pr.state_dict()
-    model_cfg = {"backbone": dataclasses.asdict(cfg_t), "vocab": {},
-                 "kind": "w2v2_pr"}
-    CheckpointManager(tmp_path / "port_run", "m").update(
-        0, {"m": 1.0}, sd, model_cfg=model_cfg)
-    jckpt.CheckpointManager(tmp_path / "jax_run", "m").update(
-        0, {"m": 1.0}, convert_w2v2_pr(
-            {k: v.numpy() for k, v in sd.items()}, cfg_t.num_hidden_layers),
-        model_cfg=model_cfg)
-    pc = "wav2vec2.encoder.pos_conv_embed.conv."
-    hf = {k.replace(f"{pc}weight_g", f"{pc}parametrizations.weight.original0")
-          .replace(f"{pc}weight_v", f"{pc}parametrizations.weight.original1"):
-          v for k, v in sd.items()}
-    torch.save(hf, tmp_path / "hf.pt")
-    ref = tmp_path / "ref_run" / "best-model-ckpt"
-    ref.mkdir(parents=True)
-    torch.save(hf, ref / "pytorch_model.bin")
-    (ref / "model_cfg.json").write_text(json.dumps(model_cfg))
-    return cfg_t, sd
-
-
-@pytest.mark.parametrize("source", ["port_run", "jax_run", "hf.pt"])
-def test_pretrained_encoder_from_each_format(tmp_path, source, capsys):
-    cfg_t, sd = _pr_sources(tmp_path)
-    cfg = tconfig.APTAIConfig(platform="cpu",
-                              pretrained_checkpoint=str(tmp_path / source))
-    model, _ = builders.build_aptai_model(cfg, {f"p{i}": i for i in range(5)},
-                                          tiny=cfg_t, seed=1)
-    got = model.wav2vec2.state_dict()
-    assert all(torch.equal(v, sd[f"wav2vec2.{k}"]) for k, v in got.items())
-    if source != "hf.pt":  # a graft reports what it spliced
-        assert f"{len(got)} leaves spliced" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("source", ["port_run", "jax_run", "ref_run"])
-def test_force_tower_from_each_format(tmp_path, source):
-    cfg_t, sd = _pr_sources(tmp_path)
-    cfg = tconfig.ForceAPTAIConfig(platform="cpu", dtype="float32")
-    vocab = {f"p{i}": i for i in range(cfg_t.vocab_size)}
-    model, model_cfg = builders.build_force_model(cfg, vocab,
-                                                  str(tmp_path / source))
-    assert model_cfg["pr_spliced"] and model.cfg == cfg_t
-    got = model.w2v2_pr.state_dict()
-    assert set(got) == set(sd)
-    assert all(torch.equal(v, sd[k]) for k, v in got.items())
-    _, unspliced = builders.build_force_model(
-        cfg, vocab, str(tmp_path / "nowhere"), tiny=cfg_t)
-    assert not unspliced["pr_spliced"]
 
 
 # -- fit against the JAX fit --------------------------------------------------
@@ -338,7 +206,6 @@ def test_fit_matches_jax_fit(hprc, tmp_path):
                 _close(t[k], val, k)
     # training moved the weights, so the epochs' losses differ
     assert t_hist[0]["mean_train_loss"] != t_hist[1]["mean_train_loss"]
-
 
 
 # -- resuming a JAX run -------------------------------------------------------
