@@ -8,9 +8,9 @@ checkpoint directory rebuilds its model in one call:
     from aptai_tpu_torch.infer.loader import load_predictor
     pred = load_predictor("experiments/APTAI/<run>")  # or .../best-model-ckpt
 
-Both formats are read: this package's ``params.pt`` (a ``state_dict``,
-``train/checkpoints.py``) and the JAX package's ``params.msgpack`` (flax),
-which crosses the weight bridge of ``models/convert.py``. The two packages'
+Both packages write ``params.msgpack`` (flax), which crosses the weight
+bridge of ``models/convert.py``; an older run of this package's
+``params.pt`` (a ``state_dict``, ``train/checkpoints.py``) is read too. The two packages'
 ``model_cfg.json`` backbone dicts are interchangeable; a field this package
 does not implement raises (``models/configs.py``).
 """

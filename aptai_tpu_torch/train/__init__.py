@@ -4,7 +4,8 @@ from aptai_tpu_torch.train.builders import (build_aptai_model,
                                             make_backbone_config,
                                             resolve_dtype)
 from aptai_tpu_torch.train.checkpoints import (CheckpointManager,
-                                               msgpack_restore)
+                                               msgpack_restore,
+                                               msgpack_serialize)
 from aptai_tpu_torch.train.config import (APTAIConfig, ForceAPTAIConfig,
                                           PRConfig, TrainConfig,
                                           parse_config)
@@ -45,5 +46,5 @@ __all__ = ["APTAIConfig", "CheckpointManager", "EncodedItemsLoader",
            "build_force_model", "build_pr_model", "collate_encoded",
            "collate_fe", "encode_items", "epoch_learning_rate", "fit",
            "force_loss_fn", "lr_lambda", "make_backbone_config",
-           "make_engine", "msgpack_restore", "parse_config", "pr_loss_fn",
-           "resolve_dtype", "torch_adam"]
+           "make_engine", "msgpack_restore", "msgpack_serialize",
+           "parse_config", "pr_loss_fn", "resolve_dtype", "torch_adam"]

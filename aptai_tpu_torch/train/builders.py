@@ -100,8 +100,8 @@ def _load_hf_encoder(encoder: nn.Module,
 
 def _graft_pretrained_encoder(encoder: nn.Module, path: str) -> None:
     """Copy the encoder tensors of a checkpoint saved by a trainer of this
-    package or of the JAX package (a directory, ``params.pt`` or
-    ``params.msgpack``) into ``encoder`` name by name: the tensors both
+    package or of the JAX package (a directory, ``params.msgpack`` or an
+    older run's ``params.pt``) into ``encoder`` name by name: the tensors both
     have transfer, the rest keep their fresh init, and the counts are
     printed."""
     from aptai_tpu_torch.infer.loader import resolve_checkpoint_dir
@@ -187,8 +187,8 @@ def build_aptai_model(cfg_train, vocab: Dict[str, int], tiny=None,
 
 def _load_pr_tower(model: ForceAPTAI, pr_model_path) -> bool:
     """The W2V2PR in ``<pr_model_path>/best-model-ckpt`` into ``model``'s
-    tower: this package's ``params.pt``, the JAX package's
-    ``params.msgpack`` (through the bridge) or the reference's
+    tower: ``params.msgpack`` of either package (through the bridge), an
+    older run of this package's ``params.pt`` or the reference's
     ``pytorch_model.bin`` (HF names: ``wav2vec2.`` and ``pr_head``); False
     when there is none."""
     best = Path(pr_model_path) / "best-model-ckpt"

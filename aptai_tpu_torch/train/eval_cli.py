@@ -6,8 +6,8 @@ checkpoint, without a training run (the JAX package's
         [--rate N,F] [--speaker SPK] [--split test]
         [--decode beam|greedy|beam_device] [--csv metrics.csv] [--cpu]
 
-The checkpoint (this package's ``params.pt`` or the JAX package's
-``params.msgpack``, with ``model_cfg.json``) names its model kind:
+The checkpoint (``params.msgpack`` of either package, or an older run's
+``params.pt``, with ``model_cfg.json``) names its model kind:
 
   * ``w2v2_pr``      → corpus PER and mean CTC loss, per manifest split
                        (CommonPhone format) or per rate (HPRC format);

@@ -10,7 +10,10 @@ On the card:
   * validation runs on the live model;
   * the checkpoint manager copies parameters and Adam moments to the host
     only on epochs that write (``--ckpt_every`` sets the last-checkpoint
-    cadence; improving epochs always write).
+    cadence; improving epochs always write), as the JAX package's files:
+    the Adam state goes as a :class:`JaxAdamState` by parameter name, its
+    weight decay read from the optimizer, and the manager writes the optax
+    tree the JAX trainer of the model's family holds.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from torch import nn
 
 from aptai_tpu_torch.train.checkpoints import (CheckpointManager,
+                                               JaxAdamState,
                                                load_optimizer_state)
 from aptai_tpu_torch.train.harness import TrainStep, make_engine
 from aptai_tpu_torch.train.schedule import epoch_learning_rate
@@ -136,7 +140,8 @@ def fit(cfg, loss_fn: Callable, model: nn.Module, train_loader,
 
     def save_interrupt(resume_epoch):
         ckpt.save_interrupt(resume_epoch, model.state_dict(),
-                            opt_state=optimizer.state_dict(),
+                            opt_state=JaxAdamState.from_optimizer(
+                                optimizer, model),
                             step=step.step_count, model_cfg=model_cfg)
 
     guard = _PreemptionGuard(
@@ -218,7 +223,7 @@ def fit(cfg, loss_fn: Callable, model: nn.Module, train_loader,
             else:
                 improved = ckpt.update(
                     epoch, val_logs, model.state_dict(),
-                    opt_state=optimizer.state_dict(),
+                    opt_state=JaxAdamState.from_optimizer(optimizer, model),
                     step=step.step_count, model_cfg=model_cfg,
                     save_last=want_last,
                 )

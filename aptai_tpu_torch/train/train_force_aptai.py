@@ -32,9 +32,13 @@ from aptai_tpu_torch.data.manifest import unique
 from aptai_tpu_torch.decode.native import edit_distance
 from aptai_tpu_torch.infer.api import fetch_outputs
 from aptai_tpu_torch.train.builders import build_force_model
-from aptai_tpu_torch.train.checkpoints import (PARAMS, CheckpointManager,
-                                               load_state, save_json,
-                                               save_state, to_host)
+from aptai_tpu_torch.models.convert import (
+    jax_w2v2_pr_params_from_state_dict)
+from aptai_tpu_torch.train.checkpoints import (FLAX_PARAMS, PARAMS,
+                                               CheckpointManager,
+                                               flax_params_tree, read_params,
+                                               save_json, save_msgpack,
+                                               to_host)
 from aptai_tpu_torch.train.config import (ForceAPTAIConfig, parse_config,
                                           run_device)
 from aptai_tpu_torch.train.evaluate import test_tv, validate_tv
@@ -194,26 +198,35 @@ def _split_tower(params) -> tuple:
 
 
 class _TowerMergingCkpt:
-    """A CheckpointManager for a fold trained from the frozen-tower cache:
-    the epochs' saves hold the head alone (a few MB) beside one
-    ``frozen_tower.pt`` written at the first save, instead of the ~1.3 GB
-    constant tower each time; restores give the whole model's state dict,
-    and :meth:`finalize` (the fold's end) rewrites best and last as
-    whole-model ``params.pt``, the public format."""
+    """A CheckpointManager for a fold trained from the frozen-tower cache,
+    as the JAX trainer's: the epochs' saves hold the head alone (a few MB)
+    beside one ``frozen_tower.msgpack`` (``{"w2v2_pr": tower}``) written
+    at the first save, instead of the ~1.3 GB constant tower each time;
+    restores give the whole model's state dict, and :meth:`finalize` (the
+    fold's end) rewrites best and last as whole-model ``params.msgpack``,
+    the public format."""
 
     def __init__(self, inner: CheckpointManager, tower):
         self._inner = inner
         self._tower = tower
-        self._tower_file = inner.exp_dir / "frozen_tower.pt"
+        self._tower_tree = None
+        self._tower_file = inner.exp_dir / "frozen_tower.msgpack"
 
     def __getattr__(self, name):
         return getattr(self._inner, name)
+
+    def _jax_tower(self):
+        """The tower as the JAX package's W2V2PR tree, on the host."""
+        if self._tower_tree is None:
+            self._tower_tree = to_host(jax_w2v2_pr_params_from_state_dict(
+                {k[len(TOWER):]: v for k, v in self._tower.items()}))
+        return self._tower_tree
 
     def _head(self, params):
         """The head's entries of ``params``, the tower file written first
         if it is not there yet."""
         if not self._tower_file.exists():
-            save_state(self._tower_file, self._tower)
+            save_msgpack(self._tower_file, {"w2v2_pr": self._jax_tower()})
         return _split_tower(params)[1]
 
     def _whole(self, params):
@@ -234,17 +247,16 @@ class _TowerMergingCkpt:
         return self._whole(self._inner.restore_best(map_location))
 
     def finalize(self):
-        """Best and last ``params.pt`` as whole-model state dicts."""
-        tower = None
+        """Best and last ``params.msgpack`` as whole-model trees."""
         for d in (self._inner.best_dir, self._inner.last_dir):
-            path = d / PARAMS
-            if not path.exists():
+            if not ((d / PARAMS).exists() or (d / FLAX_PARAMS).exists()):
                 continue
-            params = load_state(path)
-            if any(k.startswith(TOWER) for k in params):
+            head = read_params(d)
+            if any(k.startswith(TOWER) for k in head):
                 continue  # already whole
-            tower = to_host(self._tower) if tower is None else tower
-            save_state(path, {**tower, **params})
+            save_msgpack(d / FLAX_PARAMS, {**flax_params_tree(head),
+                                           "w2v2_pr": self._jax_tower()})
+            (d / PARAMS).unlink(missing_ok=True)
 
 
 def run_speaker(cfg, rows, vocab, test_spk, model, model_cfg,

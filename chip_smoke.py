@@ -121,14 +121,15 @@ Phases (any failure ends the run with a non-zero exit code):
    ``load_predictor(best)`` serving the logits of the model in memory bit
    for bit; (8b) ``train_force_aptai.run`` over 8a's run on two folds from
    the corpus cache (``pr_spliced``, the cache built once, head-only saves
-   beside one ``frozen_tower.pt``, whole-model best and last after each
+   beside one ``frozen_tower.msgpack``, whole-model best and last after each
    fold, ``load_predictor(best)`` serving 8a's tower bit for bit), then one
    fold that the collapse guard (threshold 0, patience 1) switches to
    ``beam_host``; (8c) ``train_aptai.run`` on one fold over 2 epochs from
    the FE cache, preempted by SIGTERM during epoch 2 (``Preempted``, the
    resume checkpoint's meta), then resumed over the same directory (epoch 2
-   again, the step counter, Adam state and parameters equal to the saved
-   ones bit for bit), the epoch's launches and step ms beside
+   again, the step counter, Adam state and parameters equal bit for bit
+   to the files, read by this package's msgpack reader, and to the
+   preempted run's own), the epoch's launches and step ms beside
    ``TrainStep`` alone on the same batches; (8d) ``eval_cli.main`` on 8c's
    best checkpoint for the held-out speaker against the fold's test dict
    (1e-4 relative). Checkpoint seconds and GB per run, peak memory per fold
@@ -260,6 +261,20 @@ Phases (any failure ends the run with a non-zero exit code):
    ``train_aptai.run`` for one epoch of one LOSO fold from the prepared
    manifest at full width (8c's config), 24 launches of each flash kernel
    a step and no fused one, finite test metrics.
+15. The checkpoint files (``train/checkpoints.py``), in a temporary
+   directory, under deterministic cuDNN: full-width APTAI (bf16, 8 x 5 s,
+   seed 0) takes 3 steps; ``CheckpointManager.update`` writes best and
+   last as the JAX package's ``params.msgpack`` / ``opt_state.msgpack``
+   (GB, GB/s, and the seconds of the bridge's layouts on the card, the
+   device→host copy, the msgpack headers and the file writes; the fsync
+   after), beside ``torch.save`` of the same state as the older ``.pt``
+   files; the files read back: float32 leaves and an int32 count, params
+   and Adam moments bit for bit the live ones, the frozen FE's moments
+   zeros; then the next step twice from memory (the card's run-to-run
+   floor) and ``fit`` resuming a model of other weights from the files
+   for one step, bit for bit the step without the write (or, were the
+   repeat not bit for bit, within ten times its difference); 24 launches
+   of each flash kernel a step.
 
 Output: the phases' lines, then one JSON line of kernel records, the card
 line, and last ``{"ok": true, "device": {...}}``. A flash kernel record's
@@ -277,9 +292,9 @@ trainer's epoch, one batch of each bundle of 11c, one request to the
 bundle app of 11d, one APTAI batch in ``w8a8_ffn`` and in ``w8a8``, one
 W2V2PR and one FORCE batch in ``w8a8``, one request to the
 ``w8a8_ffn`` app of 12d, one APTAI batch in each encoder variant of 13b,
-the train step of 13c, the two ``w8a8`` batches of 13d, and the APTAI
-epoch of 14 from the prepared manifest), each read with the counts set to
-0 just before it.
+the train step of 13c, the two ``w8a8`` batches of 13d, the APTAI
+epoch of 14 from the prepared manifest, and the six APTAI steps of 15),
+each read with the counts set to 0 just before it.
 
 Phase 13 alone, from the repository root (the kernels build at first
 use; ``main`` also turns TF32 off, which the small float32 models' gates
@@ -295,7 +310,9 @@ Phase 14 alone, in a temporary directory:
     torch.backends.cudnn.allow_tf32 = False; \
     cs.phase_hprc_prep(cs.card_line(), pathlib.Path(tempfile.mkdtemp()))"
 
-The other phases' functions run alone the same way.
+Phase 15 alone the same way: ``cs.phase_checkpoint(cs.card_line(),
+pathlib.Path(tempfile.mkdtemp()))``. The other phases' functions run
+alone the same way.
 """
 
 from __future__ import annotations
@@ -307,6 +324,7 @@ import dataclasses
 import http.client
 import io
 import json
+import mmap
 import os
 import pickle
 import shutil
@@ -361,12 +379,16 @@ from aptai_tpu_torch.train import (APTAIConfig, FECachedLoader,
                                    FrozenEncodedLoader, Preempted, TrainStep,
                                    aptai_loss_fn, build_aptai_model,
                                    collate_encoded, encode_items,
-                                   force_loss_fn, make_engine, pr_loss_fn,
-                                   torch_adam)
+                                   epoch_learning_rate, fit, force_loss_fn,
+                                   make_engine, pr_loss_fn, torch_adam)
 from aptai_tpu_torch.train import (PRConfig, build_pr_model, eval_cli,
                                    pretrain, train_aptai, train_force_aptai,
                                    train_pr)
-from aptai_tpu_torch.train.checkpoints import load_state
+from aptai_tpu_torch.train.checkpoints import (CheckpointManager,
+                                               JaxAdamState, jax_adam_state,
+                                               load_flax_params,
+                                               msgpack_restore, read_params,
+                                               save_state, to_host)
 from aptai_tpu_torch.train.fe_cache import collate_fe
 from aptai_tpu_torch.train.evaluate import validate_pr, validate_tv
 from aptai_tpu_torch.train.train_force_aptai import ctc_seq_per
@@ -2902,8 +2924,9 @@ class FitProbe:
     first epoch's batches, the history (when it returned), the decode
     method, and on a resume the restored state against the files."""
 
-    def __init__(self, module, sigterm_at=None):
+    def __init__(self, module, sigterm_at=None, expect=None):
         self.module, self.sigterm_at = module, sigterm_at
+        self.expect = expect
         self.calls = []
 
     def __enter__(self):
@@ -2926,38 +2949,90 @@ class FitProbe:
         def log_fn(msg):
             log(f"    fit: {msg}")
             if msg.startswith("resumed from epoch"):
-                rec["resume"] = restored_state_check(engine, ckpt.last_dir)
+                rec["resume"] = restored_state_check(engine, ckpt.last_dir,
+                                                     self.expect)
 
         loader = _Epochs(train_loader, rec, self.sigterm_at)
-        _, rec["history"] = self.real(cfg, loss_fn, model, loader,
-                                      validate_fn, ckpt, engine=engine,
-                                      log_fn=log_fn, **kw)
-        best = ckpt.best_dir / "params.pt"
-        rec["best_has_tower"] = best.exists() and any(
-            k.startswith("w2v2_pr.")
-            for k in torch.load(best, mmap=True, weights_only=True))
+        try:
+            _, rec["history"] = self.real(cfg, loss_fn, model, loader,
+                                          validate_fn, ckpt, engine=engine,
+                                          log_fn=log_fn, **kw)
+        except Preempted:
+            rec["at_exit"] = host_state(engine)
+            raise
+        best = ckpt.best_dir / "params.msgpack"
+        rec["best_has_tower"] = (isinstance(model, ForceAPTAI)
+                                 and "w2v2_pr" in flax_keys(best))
         return model, rec["history"]
 
 
-def restored_state_check(engine, last_dir):
+def mapped_flax(path):
+    """The tree of a flax msgpack file, its arrays views of the file
+    mapped into memory (read only where they are read)."""
+    with open(path, "rb") as f:
+        data = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+    return msgpack_restore(data)
+
+
+def flax_keys(path) -> set:
+    """The top-level keys of a ``params.msgpack``; its arrays are not
+    read."""
+    return set(mapped_flax(path))
+
+
+def host_copy(tensors) -> dict:
+    """A copy on the host of a dict of tensors (``to_host`` leaves a CPU
+    tensor as it is)."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
+
+
+def host_state(engine) -> dict:
+    """The engine's step counter, Adam state (by name) and parameters,
+    copied to the host."""
+    adam = JaxAdamState.from_optimizer(engine.optimizer, engine.model)
+    return {"step": engine.step_count, "adam": dataclasses.replace(
+        adam, exp_avg=host_copy(adam.exp_avg),
+        exp_avg_sq=host_copy(adam.exp_avg_sq)),
+        "params": host_copy(engine.model.state_dict())}
+
+
+def same_adam(live: JaxAdamState, want: JaxAdamState) -> bool:
+    """One count, and each of ``want``'s moments bit for bit in ``live``;
+    ``live``'s others zero (the JAX package's moments of a parameter this
+    package never stepped, as a resume from its files loads them)."""
+    def same(k, m, v):
+        if k not in want.exp_avg:
+            return not (m.any() or v.any())
+        return (torch.equal(m.cpu(), want.exp_avg[k].cpu())
+                and torch.equal(v.cpu(), want.exp_avg_sq[k].cpu()))
+    return (live.count == want.count and set(want.exp_avg) <= set(
+        live.exp_avg) and all(same(k, m, live.exp_avg_sq[k])
+                              for k, m in live.exp_avg.items()))
+
+
+def restored_state_check(engine, last_dir, expect=None):
     """The engine's step counter, Adam state and parameters right after a
-    resume against ``last_dir``'s files: ``(meta step, step equal, Adam
-    state equal bit for bit, parameters equal bit for bit)``."""
+    resume, against ``last_dir``'s files (the JAX package's
+    ``params.msgpack`` / ``opt_state.msgpack`` through this package's
+    reader) and, where given, against ``expect``: the preempted run's own
+    state (:func:`host_state`). ``(meta step, step equal, Adam state equal
+    bit for bit, parameters equal bit for bit)``."""
     meta = json.loads((last_dir / "train_meta.json").read_text())
-    dev = engine.device
-    saved_opt = torch.load(last_dir / "opt_state.pt", map_location=dev,
-                           weights_only=True)
-    live = engine.optimizer.state_dict()["state"]
-    opt_same = (live.keys() == saved_opt["state"].keys() and all(
-        torch.equal(live[i][k].to(dev), v.to(dev))
-        for i, s in saved_opt["state"].items() for k, v in s.items()))
-    saved = torch.load(last_dir / "params.pt", map_location=dev,
-                       weights_only=True)
-    params_same = all(torch.equal(v, saved[k])
-                      for k, v in engine.model.state_dict().items())
+    live = host_state(engine)
+    saved = jax_adam_state(load_flax_params(last_dir / "opt_state.msgpack"),
+                           load_flax_params(last_dir / "params.msgpack"))
+    wants = [(saved, read_params(last_dir))]
+    if expect is not None:
+        wants.append((expect["adam"], expect["params"]))
+    params = live["params"]
     return {"meta_step": meta["step"],
-            "step_same": engine.step_count == meta["step"],
-            "adam_same": opt_same, "params_same": params_same}
+            "step_same": engine.step_count == meta["step"] == (
+                expect or meta)["step"],
+            "adam_same": all(same_adam(live["adam"], a) for a, _ in wants),
+            "params_same": all(
+                params.keys() == p.keys() and all(
+                    torch.equal(v, p[k]) for k, v in params.items())
+                for _, p in wants)}
 
 
 def dir_gb(path) -> float:
@@ -2993,8 +3068,10 @@ def phase_pr_trainer(root, cp_csv, hprc_csv, card):
     counts = rec["epochs"][0]
     want = ["vocab.json", "train.csv", "valid.csv", "test.csv",
             "test_results.json", "metrics.jsonl", "experiment_args.json",
-            "best-model-ckpt/params.pt", "best-model-ckpt/model_cfg.json",
-            "last-model-ckpt/params.pt", "last-model-ckpt/opt_state.pt",
+            "best-model-ckpt/params.msgpack",
+            "best-model-ckpt/model_cfg.json",
+            "last-model-ckpt/params.msgpack",
+            "last-model-ckpt/opt_state.msgpack",
             "last-model-ckpt/train_meta.json"]
     missing = [f for f in want if not (exp / f).exists()]
     layers = rec["model"].cfg.num_hidden_layers
@@ -3049,7 +3126,7 @@ class _CountedFoldCache(FrozenEncodedLoader):
 def phase_force_trainer(root, hprc_csv, pr_exp, speakers, card):
     """8b: ``train_force_aptai.run`` over 8a's run (2 folds, the corpus
     cache): ``pr_spliced``, one corpus pass, head-only saves beside one
-    ``frozen_tower.pt``, whole-model best and last after the fold,
+    ``frozen_tower.msgpack``, whole-model best and last after the fold,
     ``load_predictor(best)`` serving with 8a's tower bit for bit; then one
     fold whose collapse guard falls back to ``beam_host``. Returns the
     first fold's best checkpoint, moved to ``root/force_best``."""
@@ -3078,32 +3155,32 @@ def phase_force_trainer(root, hprc_csv, pr_exp, speakers, card):
                      for s in speakers]
         model_cfg = json.loads((fold_dirs[0] / "best-model-ckpt"
                                 / "model_cfg.json").read_text())
-        whole = [any(k.startswith("w2v2_pr.") for k in torch.load(
-            d / sub / "params.pt", mmap=True, weights_only=True))
-            for d in fold_dirs for sub in ("best-model-ckpt",
-                                           "last-model-ckpt")]
-        towers = [(d / "frozen_tower.pt").exists() for d in fold_dirs]
+        whole = ["w2v2_pr" in flax_keys(d / sub / "params.msgpack")
+                 for d in fold_dirs for sub in ("best-model-ckpt",
+                                                "last-model-ckpt")]
+        towers = [(d / "frozen_tower.msgpack").exists() for d in fold_dirs]
+        stale = [str(p) for d in fold_dirs for p in d.rglob("*.pt")]
         head_only = [not r["best_has_tower"] for r in probe.calls]
         counts = [per_step(r["epochs"][0], r["history"][0]["train_steps"])
                   for r in probe.calls]
         log(f"  8b train_force_aptai.run, folds {speakers}: {run_s:.1f} s; "
             f"pr_spliced {model_cfg['pr_spliced']}; corpus cache built "
             f"{corpus_passes} time(s), fold caches {fold_passes}; saves "
-            f"head-only during fit {head_only}, frozen_tower.pt {towers}, "
+            f"head-only during fit {head_only}, frozen_tower.msgpack "
+            f"{towers}, no .pt file {not stale}, "
             f"best/last whole after the fold {whole}; head-step launches "
             f"{counts}; checkpoints {ckpt_seconds(probe.calls):.2f} s, run "
             f"directory {dir_gb(cfg.exp_dir):.2f} GB; LOSO mean "
             f"test_N_mean_rmse {mean['test_N_mean_rmse']:.4f}")
         if not (model_cfg["pr_spliced"] and corpus_passes == 1
                 and fold_passes == 0 and all(head_only) and all(towers)
-                and all(whole) and len(per) == len(speakers)
+                and all(whole) and not stale and len(per) == len(speakers)
                 and all(np.isfinite(v) for r in per for v in r.values())
                 and not any(any(c.values()) for c in counts)):
             raise AssertionError("8b: the FORCE trainer's run is wrong")
 
         pred = load_predictor(fold_dirs[0])
-        tower_8a = torch.load(pr_exp / "best-model-ckpt" / "params.pt",
-                              weights_only=True)
+        tower_8a = read_params(pr_exp / "best-model-ckpt")
         served = pred.model.w2v2_pr.state_dict()
         rng = np.random.default_rng(9)
         out = fetch_outputs(pred.predict_batch(
@@ -3185,13 +3262,13 @@ def phase_aptai_trainer(root, hprc_csv, spk, card):
     if not (epoch1["fused_conv_ln_gelu"] == 0
             and all(epoch1[k] == layers * steps1 for k in FLASH)):
         raise AssertionError(f"8c: launches of the epoch {epoch1}")
-    batches = rec["batches"]
+    batches, at_exit = rec["batches"], rec["at_exit"]
     del rec, probe
     torch.cuda.empty_cache()
 
     cfg = config()
     t0 = time.perf_counter()
-    with FitProbe(train_aptai) as probe:
+    with FitProbe(train_aptai, expect=at_exit) as probe:
         _, _, per = train_aptai.run(cfg, speakers=[spk])
     rec = probe.calls[0]
     hist = rec["history"]
@@ -4043,9 +4120,9 @@ def phase_pretrain_trainer(root, card):
     layers = model.cfg.num_hidden_layers
     val = {f"val_{k}": history[0][f"val_{k}"] for k in pretrain.VAL_KEYS}
     missing = [f for f in ("experiment_args.json", "metrics.jsonl",
-                           "best-model-ckpt/params.pt",
+                           "best-model-ckpt/params.msgpack",
                            "best-model-ckpt/model_cfg.json",
-                           "last-model-ckpt/opt_state.pt")
+                           "last-model-ckpt/opt_state.msgpack")
                if not (exp / f).exists()]
     log(f"  10d pretrain.main {' '.join(argv[4:])}: {run_s:.1f} s, {steps} "
         f"step(s), launches a step {per_step(counts, steps)}, train loss "
@@ -4067,7 +4144,7 @@ def phase_pretrain_trainer(root, card):
     pr_model, _ = build_pr_model(
         PRConfig(platform=PLATFORM, pretrained_checkpoint=str(exp)),
         {f"p{i}": i for i in range(46)})
-    best = load_state(exp / "best-model-ckpt" / "params.pt")
+    best = read_params(exp / "best-model-ckpt")
     got = pr_model.wav2vec2.state_dict()
     same = all(torch.equal(v, best[f"wav2vec2.{k}"]) for k, v in got.items())
     log(f"  10d build_pr_model(pretrained_checkpoint=<the run>) in "
@@ -5373,6 +5450,206 @@ def phase_hprc_prep(card, root):
 
 
 
+CKPT_STEPS = 3  # full-width train steps before the write
+
+
+def fsync_seconds(paths) -> float:
+    """The seconds to flush ``paths`` to the disk (the write left them in
+    the page cache)."""
+    t0 = time.perf_counter()
+    for path in paths:
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+    return time.perf_counter() - t0
+
+
+def gb_rate(nbytes, seconds) -> str:
+    return f"{nbytes / 1e9:.3f} GB in {seconds:.3f} s = " \
+           f"{nbytes / 1e9 / seconds:.2f} GB/s"
+
+
+def same_tensors(got, want) -> bool:
+    return got.keys() == want.keys() and all(
+        torch.equal(v, want[k]) for k, v in got.items())
+
+
+def update_gap(got, want, before):
+    """How far the update ``got - before`` is from ``want - before``:
+    relative L2 over all tensors (float64), and the names of the tensors
+    that differ."""
+    num = den = 0.0
+    for k, w in want.items():
+        d = (got[k].double() - w.double()).norm().item()
+        num += d * d
+        den += (w.double() - before[k].double()).norm().item() ** 2
+    names = [k for k in want if not torch.equal(got[k], want[k])]
+    return (num / max(den, 1e-300)) ** 0.5, names
+
+
+def phase_checkpoint(card, root):
+    """Phase 15 in the directory ``root``: full-width APTAI (bf16 compute,
+    float32 masters, seed 0) takes ``CKPT_STEPS`` steps at 8 x 5 s; the
+    manager writes best and last in the JAX package's files (timed: the
+    bridge's layouts on the card, the device→host copy, the msgpack
+    headers, the file writes; then the flush to disk), beside
+    ``torch.save`` of the same state as this package's older ``.pt``
+    files; both files read back equal the live parameters and Adam moments
+    bit for bit (float32 leaves, an int32 count); then ``fit`` resumes a
+    model of other weights from them for one step, which must equal the
+    live model's next step. Returns the phase's launches and steps."""
+    log("== phase 15: the JAX package's checkpoint files at full width")
+    t_phase = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    # the pos conv's weight gradient may take a cuDNN algorithm that adds
+    # in any order; the resumed step is held to the live one bit for bit
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _phase_checkpoint(card, root, t_phase)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _phase_checkpoint(card, root, t_phase):
+    backbone = Wav2Vec2Config(dtype="bfloat16")
+    cfg = APTAIConfig(exp_dir=str(root / "run"), num_epochs=2,
+                      platform=PLATFORM, train_from_ckpt=True)
+    model_cfg = {"backbone": dataclasses.asdict(backbone), "kind": "aptai",
+                 "vocab": {f"p{i}": i for i in range(46)}}
+    batch = train_batch(backbone)
+    model = random_aptai(backbone, seed=0)
+    step = make_engine(cfg, aptai_loss_fn(), model)
+    reset_counts()
+    for _ in range(CKPT_STEPS):
+        step(batch, 1e-5)
+    torch.cuda.synchronize()
+
+    ckpt = CheckpointManager(root / "run", "m")
+    t0 = time.perf_counter()
+    ckpt.update(0, {"m": 1.0}, model.state_dict(),
+                opt_state=JaxAdamState.from_optimizer(step.optimizer, model),
+                step=step.step_count, model_cfg=model_cfg)
+    write_s = time.perf_counter() - t0
+    w = ckpt.write_seconds
+    files = sorted((root / "run").rglob("*.msgpack"))
+    flush_s = fsync_seconds(files)
+    log(f"  15a {CKPT_STEPS} steps, then CheckpointManager.update (best "
+        f"params, last params + Adam state as params.msgpack / "
+        f"opt_state.msgpack): {gb_rate(w['bytes'], write_s)}; bridge "
+        f"layouts on the card {w['bridge_s']:.3f} s, device->host "
+        f"{w['host_s']:.3f} s, msgpack headers {w['encode_s']:.3f} s, file "
+        f"writes {w['disk_s']:.3f} s (page cache); fsync after "
+        f"{flush_s:.3f} s on {card}")
+
+    old = root / "torch_save"
+    t0 = time.perf_counter()
+    params = to_host(model.state_dict())
+    host_s = time.perf_counter() - t0
+    save_state(old / "best" / "params.pt", params)
+    save_state(old / "last" / "params.pt", params)
+    save_state(old / "last" / "opt_state.pt", step.optimizer.state_dict())
+    save_s = time.perf_counter() - t0
+    old_files = sorted(old.rglob("*.pt"))
+    old_bytes = sum(f.stat().st_size for f in old_files)
+    old_flush = fsync_seconds(old_files)
+    log(f"  15a torch.save of the same state as the older .pt files (params "
+        f"to the host once, best and last params.pt, opt_state.pt): "
+        f"{gb_rate(old_bytes, save_s)} (device->host of the params "
+        f"{host_s:.3f} s); fsync after {old_flush:.3f} s")
+    shutil.rmtree(old)
+
+    live = host_state(step)
+    raw = mapped_flax(ckpt.best_dir / "params.msgpack")
+    adam_raw = mapped_flax(ckpt.last_dir / "opt_state.msgpack")["0"]
+    dtypes = {str(a.dtype) for a in (
+        list(leaves(raw)) + list(leaves(adam_raw["mu"]))
+        + list(leaves(adam_raw["nu"])))}
+    t0 = time.perf_counter()
+    last_params, adam_back, meta = CheckpointManager(
+        root / "run", "m").restore_last()
+    read_s = time.perf_counter() - t0
+    best_same = same_tensors(read_params(ckpt.best_dir), live["params"])
+    last_same = same_tensors(last_params, live["params"])
+    adam_same = same_adam(adam_back, live["adam"])
+    fe_zero = [k for k in adam_back.exp_avg if k not in live["adam"].exp_avg]
+    log(f"  15b restore_last (this package's msgpack reader and bridge, "
+        f"params and Adam state to CPU tensors) in {read_s:.2f} s: leaves "
+        f"{sorted(dtypes)}, count "
+        f"{adam_raw['count'].dtype} {int(adam_raw['count'])}; best params "
+        f"bit for bit {best_same}, last {last_same}; Adam moments bit for "
+        f"bit {adam_same} ({len(live['adam'].exp_avg)} stepped tensors, "
+        f"{len(fe_zero)} never stepped (the frozen FE) written as zeros); "
+        f"meta step {meta['step']}")
+    if not (dtypes == {"float32"} and str(adam_raw["count"].dtype) == "int32"
+            and int(adam_raw["count"]) == CKPT_STEPS == meta["step"]
+            and best_same and last_same and adam_same and fe_zero
+            and all(k.startswith("wav2vec2.feature_extractor.")
+                    for k in fe_zero)):
+        raise AssertionError("15b: the checkpoint does not read back as the "
+                             "live state")
+
+    # the next step without the write, twice from the same state (the
+    # second measures the card's own run-to-run floor), then a resume of
+    # other weights from the files
+    lr = epoch_learning_rate(cfg.learning_rate, 1, cfg.num_warmup_epochs,
+                             cfg.num_static_epochs, cfg.lr_decay)
+    opt_host = step.optimizer.state_dict()
+    opt_host["state"] = {i: host_copy(v) for i, v in opt_host["state"].items()}
+    want_loss = step(batch, lr)["loss"].item()
+    want = host_copy(model.state_dict())
+    model.load_state_dict(live["params"])
+    step.optimizer.load_state_dict(opt_host)
+    step.step_count = CKPT_STEPS
+    step(batch, lr)
+    again = host_copy(model.state_dict())
+    before = live["params"]
+    del step, model, live, last_params, adam_back, opt_host
+    torch.cuda.empty_cache()
+    model = random_aptai(backbone, seed=1)
+    step = make_engine(cfg, aptai_loss_fn(), model)
+    t0 = time.perf_counter()
+    _, hist = fit(cfg, None, model, [batch], lambda epoch: {"m": 1.0},
+                  CheckpointManager(root / "run", "m"), model_cfg=model_cfg,
+                  log_fn=lambda m: None, engine=step)
+    resume_s = time.perf_counter() - t0
+    counts = read_counts()
+    got = to_host(model.state_dict())
+    bits, floor_bits = same_tensors(got, want), same_tensors(again, want)
+    gap, floor = update_gap(got, want, before), update_gap(again, want,
+                                                           before)
+    steps = CKPT_STEPS + 3
+    log(f"  15c fit resumed from the files (model of seed 1) for one step "
+        f"in {resume_s:.2f} s (its checkpoint {hist[0]['ckpt_seconds']:.2f} "
+        f"s): loss {hist[0]['mean_train_loss']:.6f} vs {want_loss:.6f} "
+        f"without the write; parameters bit for bit {bits} (update "
+        f"relative L2 {gap[0]:.3e}, {len(gap[1])} tensors differ: "
+        f"{gap[1][:4]}); the same step repeated from memory bit for bit "
+        f"{floor_bits} (relative L2 {floor[0]:.3e}, {len(floor[1])} "
+        f"tensors differ: {floor[1][:4]}); cuDNN deterministic; launches "
+        f"over the phase's {steps} steps {counts}")
+    # bit for bit, unless the card's own repeat differs: then within ten
+    # times that floor
+    if not (bits or (not floor_bits and gap[0] <= 10 * floor[0])):
+        raise AssertionError("15c: the resumed step differs from the step "
+                             "taken without the write")
+    if not all(counts[k] == backbone.num_hidden_layers * steps
+               for k in FLASH):
+        raise AssertionError(f"15: launches {counts} over {steps} steps")
+    del step, model, got, want, again, before
+    torch.cuda.empty_cache()
+    log(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return counts, steps
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5439,6 +5716,8 @@ def main() -> int:
     late.update(variants)
     with tempfile.TemporaryDirectory() as tmp14:
         prep_epoch, prep_steps = phase_hprc_prep(card, Path(tmp14))
+    with tempfile.TemporaryDirectory() as tmp15:
+        ckpt_counts, ckpt_steps = phase_checkpoint(card, Path(tmp15))
     for rec in records:
         name = rec["name"]
         rec["launches"] = (pr_serving if name == "fused_conv_ln_gelu"
@@ -5484,6 +5763,8 @@ def main() -> int:
                 "steps": 1, "launches": variant_step[name]},
             "aptai_trainer_epoch_from_hprc_prep": {
                 "steps": prep_steps, "launches": prep_epoch[name]},
+            "aptai_steps_checkpoint_and_resume": {
+                "steps": ckpt_steps, "launches": ckpt_counts[name]},
             **{path: {"batches": 1, "launches": counts[name]}
                for path, counts in late.items()}}
 

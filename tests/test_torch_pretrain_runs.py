@@ -44,7 +44,7 @@ from aptai_tpu_torch.train import builders
 from aptai_tpu_torch.train import config as tconfig
 from aptai_tpu_torch.train import pretrain as tpretrain
 from aptai_tpu_torch.train.checkpoints import (CheckpointManager,
-                                               load_flax_params, load_state)
+                                               load_flax_params, read_params)
 from aptai_tpu_torch.train.harness import make_engine
 from aptai_tpu_torch.train.loop import fit
 
@@ -111,7 +111,8 @@ def test_run_trains_and_checkpoints(port_run):
         assert all(np.isfinite(e[f"val_{k}"]) for k in tpretrain.VAL_KEYS)
         assert 0.0 <= e["val_contrastive_accuracy"] <= 1.0
     for f in ("experiment_args.json", "metrics.jsonl",
-              "best-model-ckpt/params.pt", "last-model-ckpt/opt_state.pt"):
+              "best-model-ckpt/params.msgpack",
+              "last-model-ckpt/opt_state.msgpack"):
         assert (exp / f).exists(), f
     cfg = json.loads((exp / "best-model-ckpt" / "model_cfg.json").read_text())
     assert cfg["kind"] == "w2v2_pretrain"
@@ -128,7 +129,7 @@ def test_run_trains_and_checkpoints(port_run):
 @pytest.mark.parametrize("build", ["build_pr_model", "build_aptai_model"])
 def test_port_run_grafts_bit_for_bit(port_run, build, capsys):
     exp = port_run[0]
-    best = load_state(exp / "best-model-ckpt" / "params.pt")
+    best = read_params(exp / "best-model-ckpt")
     cfg = tconfig.PRConfig(platform="cpu", pretrained_checkpoint=str(exp))
     model, _ = getattr(builders, build)(
         cfg, {f"p{i}": i for i in range(5)},
@@ -249,7 +250,8 @@ def jax_run(tmp_path_factory):
                           validate, CheckpointManager(exp_dir, "val_loss"),
                           log_fn=log_fn, engine=step)
             return hist, dict(seen, n_trainable=len(
-                step.optimizer.param_groups[0]["params"]))
+                step.optimizer.param_groups[0]["params"]),
+                final=model.state_dict())
 
         j_hist, t_hist, meta, seen = _resume_jax_run(root, jax_fit, port_fit)
         port_eval = tpretrain.make_eval_forward(port_from_jax(cfg_t, params,

@@ -9,8 +9,10 @@
 * resuming a JAX run: the JAX ``fit`` of APTAI (frozen FE) and of W2V2PR
   preempted mid-epoch, then resumed by the JAX ``fit`` and by the port's
   from copies of its directory (``params.msgpack``, ``opt_state.msgpack``):
-  the port restores the step counter and Adam state, and the remaining
-  epochs' losses and metrics match within 1e-4 relative;
+  the port restores the step counter and Adam state, the remaining
+  epochs' losses and metrics match within 1e-4 relative, and the port's
+  last ``params.msgpack`` then holds its newest parameters (no ``.pt``
+  file beside it);
 * preemption and resume on the port alone: mid-epoch (the epoch repeats;
   parameters, Adam state and the step counter restored bit for bit), at an
   epoch boundary with ``ckpt_every=0`` (no best written), a second SIGINT
@@ -61,7 +63,9 @@ from aptai_tpu_torch.train import builders, make_engine
 from aptai_tpu_torch.train import config as tconfig
 from aptai_tpu_torch.train import (train_aptai, train_force_aptai,
                                    train_pr)
-from aptai_tpu_torch.train.checkpoints import CheckpointManager, load_state
+from aptai_tpu_torch.train.checkpoints import (CheckpointManager,
+                                               JaxAdamState, jax_adam_state,
+                                               load_flax_params, read_params)
 from aptai_tpu_torch.train.evaluate import validate_pr, validate_tv
 from aptai_tpu_torch.train.loop import Preempted, fit
 
@@ -242,12 +246,12 @@ def _resume_jax_run(tmp_path, jax_fit, port_fit):
         shutil.copytree(tmp_path / "jax", tmp_path / name)
     j_hist = jax_fit(tmp_path / "jax_resumed", at=None, resume=True)
     t_hist, seen = port_fit(tmp_path / "port_resumed")
-    # the port wrote its own files and left the JAX run's as they were
+    # the port rewrote the JAX run's files with its newest state
     last = tmp_path / "port_resumed" / "last-model-ckpt"
-    assert (last / "params.pt").exists() and (last / "opt_state.pt").exists()
-    assert ((last / "params.msgpack").read_bytes()
-            == (tmp_path / "jax" / "last-model-ckpt"
-                / "params.msgpack").read_bytes())
+    saved = read_params(last)
+    assert saved.keys() == seen["final"].keys()
+    assert all(torch.equal(saved[k], v) for k, v in seen["final"].items())
+    assert not list((tmp_path / "port_resumed").rglob("*.pt"))
     return j_hist, t_hist, meta, seen
 
 
@@ -337,7 +341,8 @@ def test_port_resumes_a_jax_aptai_run(hprc, tmp_path):
             CheckpointManager(exp_dir, "val_mean_rmse"),
             samples_per_epoch=samples, log_fn=log_fn, engine=step)
         n_trained = sum(1 for _ in step.optimizer.param_groups[0]["params"])
-        return hist, dict(seen, n_trainable=n_trained)
+        return hist, dict(seen, n_trainable=n_trained,
+                          final=model.state_dict())
 
     j_hist, t_hist, meta, seen = _resume_jax_run(tmp_path, jax_fit,
                                                  port_fit)
@@ -402,7 +407,7 @@ def test_port_resumes_a_jax_w2v2_pr_run(tmp_path):
                       CheckpointManager(exp_dir, "mean_val_loss"),
                       samples_per_epoch=samples, log_fn=log_fn,
                       engine=step)
-        return hist, seen
+        return hist, dict(seen, final=model.state_dict())
 
     j_hist, t_hist, meta, seen = _resume_jax_run(tmp_path, jax_fit,
                                                  port_fit)
@@ -466,6 +471,19 @@ def _handlers():
                                              signal.SIGUSR1)}
 
 
+def _same_adam(live: JaxAdamState, other: JaxAdamState) -> bool:
+    """The same count, and the same moments bit for bit for each parameter
+    ``other`` holds them for; the parameters the port never stepped (the
+    frozen FE) have zeros in ``live`` (the JAX package's zero moments)."""
+    zero = lambda t: not t.any()
+    return live.count == other.count and all(
+        torch.equal(m, other.exp_avg[k])
+        and torch.equal(live.exp_avg_sq[k], other.exp_avg_sq[k])
+        if k in other.exp_avg else zero(m) and zero(live.exp_avg_sq[k])
+        for k, m in live.exp_avg.items()) and set(other.exp_avg) <= set(
+            live.exp_avg)
+
+
 def test_preempted_mid_epoch_then_resumed_bit_for_bit(tmp_path):
     before = _handlers()
     cfg, model = _toy_run(tmp_path)
@@ -481,6 +499,7 @@ def test_preempted_mid_epoch_then_resumed_bit_for_bit(tmp_path):
     # batch 1, whose step still runs)
     assert meta["preempted"] and meta["epoch"] == 0 and meta["step"] == 5
     assert engine.step_count == 5
+    preempted = JaxAdamState.from_optimizer(engine.optimizer, model)
 
     cfg2, model2 = _toy_run(tmp_path, train_from_ckpt=True)
     engine2 = make_engine(cfg2, train_aptai.aptai_loss_fn(), model2)
@@ -488,15 +507,16 @@ def test_preempted_mid_epoch_then_resumed_bit_for_bit(tmp_path):
 
     def log_fn(msg):
         if msg.startswith("resumed"):
-            saved_opt = load_state(last / "opt_state.pt")
-            live = engine2.optimizer.state_dict()["state"]
+            live = JaxAdamState.from_optimizer(engine2.optimizer, model2)
+            saved = jax_adam_state(
+                load_flax_params(last / "opt_state.msgpack"),
+                load_flax_params(last / "params.msgpack"))
             seen["step"] = engine2.step_count
-            seen["adam"] = all(torch.equal(live[i][k], x)
-                               for i, s in saved_opt["state"].items()
-                               for k, x in s.items())
-            saved = load_state(last / "params.pt")
-            seen["params"] = all(torch.equal(x, saved[k]) for k, x in
-                                 model2.state_dict().items())
+            # as the file holds it, and as the preempted run held it
+            seen["adam"] = (_same_adam(live, saved)
+                            and _same_adam(live, preempted))
+            seen["params"] = all(torch.equal(x, model.state_dict()[k])
+                                 for k, x in model2.state_dict().items())
 
     _, hist = fit(cfg2, None, model2, _SignalLoader(), _validate(model2),
                   CheckpointManager(tmp_path, "val_mean_rmse"),
@@ -562,10 +582,13 @@ def test_train_pr_main(pr_run):
     exp, history, results = pr_run
     for f in ("vocab.json", "train.csv", "valid.csv", "test.csv",
               "experiment_args.json", "metrics.jsonl", "test_results.json",
-              "best-model-ckpt/params.pt", "best-model-ckpt/model_cfg.json",
-              "last-model-ckpt/params.pt", "last-model-ckpt/opt_state.pt",
+              "best-model-ckpt/params.msgpack",
+              "best-model-ckpt/model_cfg.json",
+              "last-model-ckpt/params.msgpack",
+              "last-model-ckpt/opt_state.msgpack",
               "last-model-ckpt/train_meta.json"):
         assert (exp / f).exists(), f
+    assert not list(exp.rglob("*.pt"))
     assert history[0]["train_steps"] == 1
     assert np.isfinite(history[0]["mean_train_loss"])
     assert set(results) == {"mean_cp_test_per", "mean_hprcN_per",
@@ -587,7 +610,7 @@ def test_train_aptai_run_two_folds(hprc, tmp_path):
     for spk in ("M01", "F02"):
         assert (tmp_path / "test_metrics" / f"{spk}.csv").exists()
         fold = tmp_path / f"best-model-ckpt-{spk}"
-        assert (fold / "best-model-ckpt" / "params.pt").exists()
+        assert (fold / "best-model-ckpt" / "params.msgpack").exists()
     got = pd.read_csv(tmp_path / "loso_mean.csv").iloc[0]
     np.testing.assert_allclose(got["test_N_mean_rmse"],
                                np.mean([p["test_N_mean_rmse"] for p in per]),
@@ -618,12 +641,12 @@ def test_train_force_aptai_over_the_pr_run(hprc, pr_run, tmp_path,
     assert [p["decode_fallback"] for p in per] == [1, 1]
     assert mean["decode_fallback"] == 1.0
     assert all(np.isfinite(v) for p in per for v in p.values())
-    pr_tower = load_state(exp / "best-model-ckpt" / "params.pt")
+    pr_tower = read_params(exp / "best-model-ckpt")
     for spk in ("M01", "F02"):
         fold = tmp_path / f"best-model-ckpt-{spk}"
-        assert (fold / "frozen_tower.pt").exists()
+        assert (fold / "frozen_tower.msgpack").exists()
         for sub in ("best-model-ckpt", "last-model-ckpt"):
-            sd = load_state(fold / sub / "params.pt")
+            sd = read_params(fold / sub)
             assert all(torch.equal(sd[f"w2v2_pr.{k}"], v)
                        for k, v in pr_tower.items()), sub
         cfg_json = json.loads((fold / "best-model-ckpt"
