@@ -19,7 +19,10 @@ find:
 ``aptai_tpu_torch.decode``  the CTC beam search (C++ first), its padded
                             batch form and the edit distance
 ``aptai_tpu_torch.infer``   the predictors and the ``MicroBatcher``
-``aptai_tpu_torch.utils``   FLOP count and device peaks
+``aptai_tpu_torch.parallel`` data parallelism and FSDP over
+                            ``torch.distributed``, one process per device
+``aptai_tpu_torch.utils``   run logging, profiling, tree helpers, plotting,
+                            FLOP count and device peaks
 ``aptai_tpu_torch/csrc``    CUDA sources, built with ``nvcc`` at first use
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

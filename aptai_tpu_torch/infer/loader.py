@@ -29,7 +29,7 @@ from aptai_tpu_torch.models import APTAI, W2V2PR, ForceAPTAI, Wav2Vec2Config
 from aptai_tpu_torch.train.checkpoints import (FLAX_PARAMS, PARAMS,
                                                load_json, read_params)
 
-_UNPORTED = "ROADMAP Queue 1 item 8"
+_UNPORTED = "ROADMAP Queue 1 item 8e-ii"
 
 
 def _has_params(d: Path) -> bool:

@@ -36,7 +36,7 @@ from aptai_tpu_torch.infer.api import (TRANSFER_DTYPES, dequantize_transfer,
                                        quantize_transfer, resolve_device,
                                        serving_copy)
 
-_UNPORTED_MESH = "ROADMAP Queue 1 item 8e"
+_UNPORTED_MESH = "ROADMAP Queue 1 item 8e-ii"
 
 
 def model_cfg_strides(model) -> Tuple[int, ...]:

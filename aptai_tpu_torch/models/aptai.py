@@ -26,6 +26,7 @@ from aptai_tpu_torch import FRAME_RATE_HZ, TV_PAD_VALUE
 from aptai_tpu_torch.models.configs import Wav2Vec2Config
 from aptai_tpu_torch.models.wav2vec2 import Wav2Vec2Model, init_weights_
 from aptai_tpu_torch.ops.fir import fir_lowpass, lowpass_fir_taps
+from aptai_tpu_torch.parallel.global_batch import global_mean
 
 NUM_TVS = 9
 
@@ -116,12 +117,13 @@ class APTAI(nn.Module):
         logits = self.phn_head(hidden)
 
         tv_mask = (tv_targets != TV_PAD_VALUE).float()
-        mse = ((tv_mask * (tvs - tv_targets) ** 2).sum()
-               / tv_mask.sum().clamp(min=1.0))
+        # means over the valid frames of the (global) batch
+        mse = global_mean((tv_mask * (tvs - tv_targets) ** 2).sum(),
+                          tv_mask.sum())
         phn_mask = (phn_targets != 0).float()
         nll = -torch.gather(F.log_softmax(logits, dim=-1), -1,
                             phn_targets[:, :, None])[..., 0]
-        ce = (phn_mask * nll).sum() / phn_mask.sum().clamp(min=1.0)
+        ce = global_mean((phn_mask * nll).sum(), phn_mask.sum())
         return {
             "loss": 0.5 * mse + 0.5 * ce,
             "mse_loss": mse,

@@ -92,7 +92,7 @@ class Wav2Vec2Config:
         if self.activation_partition is not None:
             raise NotImplementedError(
                 "activation_partition is not implemented in aptai_tpu_torch "
-                "yet (ROADMAP Queue 1 item 8e); leave it None")
+                "yet (ROADMAP Queue 1 item 8e-ii); leave it None")
         if self.attention_layout not in ATTENTION_LAYOUTS:
             # the JAX package runs any other string as "bthd"
             raise ValueError(f"attention_layout must be one of "

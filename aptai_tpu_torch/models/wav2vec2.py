@@ -70,6 +70,7 @@ from aptai_tpu_torch.ops.attention import multi_head_attention_bhtd
 from aptai_tpu_torch.ops.fused_conv import fused_conv_ln_gelu, kernel_weight
 from aptai_tpu_torch.ops.quant import (quantize_rows, quantize_weight,
                                        w8a8_linear)
+from aptai_tpu_torch.parallel.global_batch import global_rows
 
 
 def compute_dtype(cfg: Wav2Vec2Config) -> torch.dtype:
@@ -474,16 +475,21 @@ def sample_span_starts(generator: Optional[torch.Generator],
     min_masks)``), each starting uniformly in ``[0, max(length − span, 1))``.
     Returns ``(starts, n_spans)``: (B, max_spans) int32 starts, of which the
     first ``n_spans[b]`` are used. Draws from ``generator`` (the default
-    generator of ``lengths``' device when None)."""
+    generator of ``lengths``' device when None); in a data-parallel step
+    the draws are the global batch's, of which this process keeps its
+    rows (``parallel/global_batch.py``)."""
     b = lengths.shape[0]
     dev = lengths.device
+    rows, lo = global_rows(b)
     max_starts = max(int(prob * t / span) + 1, min_masks)
     expected = prob * lengths.float() / span
     frac = expected - torch.floor(expected)
-    extra = (torch.rand(b, generator=generator, device=dev) < frac).int()
+    extra = (torch.rand(rows, generator=generator, device=dev)[lo:lo + b]
+             < frac).int()
     n_spans = (torch.floor(expected).int() + extra).clamp(min=min_masks)
     n_spans = n_spans.clamp(max=max_starts)
-    u = torch.rand((b, max_starts), generator=generator, device=dev)
+    u = torch.rand((rows, max_starts), generator=generator,
+                   device=dev)[lo:lo + b]
     starts = (u * (lengths[:, None] - span).clamp(min=1)).int()
     return starts, n_spans
 

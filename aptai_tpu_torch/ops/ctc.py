@@ -11,7 +11,8 @@ zero_infinity=True)`` with the JAX package's numerics:
 * ``zero_infinity``: an item whose loss is ≥ 5e4 (an infeasible alignment,
   e.g. a target longer than the input allows) counts 0 with gradient 0;
 * ``reduction='mean'``: each item's loss is divided by max(target length, 1)
-  before the batch mean.
+  before the batch mean; ``'sum'`` is the global batch's sum in a
+  data-parallel step (``parallel/global_batch.py``).
 
 The port does not call ``F.ctc_loss``: it differs from this on items that
 are only nearly infeasible, its gradient with respect to ``log_probs`` is
@@ -24,6 +25,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from aptai_tpu_torch.parallel.global_batch import global_sum
 
 LOG_EPSILON = -1e5  # finite stand-in for log(0)
 
@@ -86,7 +89,7 @@ def ctc_loss(log_probs: torch.Tensor, input_lengths: torch.Tensor,
     if reduction == "none":
         return loss
     if reduction == "sum":
-        return loss.sum()
+        return global_sum(loss.sum())
     if reduction == "mean":
         denom = target_lengths.to(loss.device).clamp(min=1).to(loss.dtype)
         return (loss / denom).mean()

@@ -48,6 +48,8 @@ from aptai_tpu_torch.models.convert import (any_state_dict_from_jax,
                                             jax_params_from_any_state_dict,
                                             jax_tree_family,
                                             state_dict_family)
+from aptai_tpu_torch.parallel.mesh import load_full_optimizer_state
+from aptai_tpu_torch.utils.trees import fetch_pytree
 
 PARAMS = "params.pt"
 OPT_STATE = "opt_state.pt"
@@ -55,16 +57,9 @@ FLAX_PARAMS = "params.msgpack"
 FLAX_OPT_STATE = "opt_state.msgpack"
 
 
-def to_host(tree):
-    """A (nested) state dict with every tensor detached and on the CPU: the
-    device→host copy of a checkpoint write."""
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
-    if isinstance(tree, Mapping):
-        return {k: to_host(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(to_host(v) for v in tree)
-    return tree
+# the device→host copy of a checkpoint write: every tensor of a (nested)
+# state dict detached and on the CPU, fetched in one pipelined pass
+to_host = fetch_pytree
 
 
 def save_state(path, tree) -> None:
@@ -181,7 +176,7 @@ class CheckpointManager:
         tree = convert(*args)
         _sync(tree)
         t1 = time.perf_counter()
-        tree = to_host(tree)
+        tree = fetch_pytree(tree)
         self.write_seconds["bridge_s"] += t1 - t0
         self.write_seconds["host_s"] += time.perf_counter() - t1
         return tree
@@ -204,7 +199,7 @@ class CheckpointManager:
             if isinstance(opt_state, JaxAdamState):
                 opt_tree = self._host(optax_adam_state, opt_state, params)
             else:
-                opt_tree = to_host(opt_state)
+                opt_tree = fetch_pytree(opt_state)
             self._save(self.last_dir, FLAX_OPT_STATE, opt_tree)
         save_json(self.last_dir / "train_meta.json", meta)
         if model_cfg is not None:
@@ -341,6 +336,18 @@ class JaxAdamState:
         ``ValueError``, as do groups that disagree on the weight decay and
         ``amsgrad``, which optax's Adam does not have."""
         names = {id(p): n for n, p in model.named_parameters()}
+        return cls.from_named_state(
+            {names[id(p)]: optimizer.state[p]
+             for group in optimizer.param_groups for p in group["params"]
+             if optimizer.state.get(p)}, optimizer)
+
+    @classmethod
+    def from_named_state(cls, named: Mapping[str, Mapping],
+                         optimizer: torch.optim.Optimizer) -> "JaxAdamState":
+        """:meth:`from_optimizer` from ``optimizer``'s per-parameter states
+        keyed by parameter name (``{name: {"step", "exp_avg",
+        "exp_avg_sq"}}``; an FSDP model's, gathered whole by
+        ``parallel.mesh.full_optimizer_state``)."""
         decays = {float(g.get("weight_decay", 0.0))
                   for g in optimizer.param_groups}
         if len(decays) > 1:
@@ -350,15 +357,10 @@ class JaxAdamState:
         if any(g.get("amsgrad") for g in optimizer.param_groups):
             raise ValueError("amsgrad has no optax Adam state")
         exp_avg, exp_avg_sq, steps = {}, {}, {}
-        for group in optimizer.param_groups:
-            for p in group["params"]:
-                state = optimizer.state.get(p)
-                if not state:
-                    continue
-                name = names[id(p)]
-                exp_avg[name] = state["exp_avg"]
-                exp_avg_sq[name] = state["exp_avg_sq"]
-                steps[name] = int(float(state["step"]))
+        for name, state in named.items():
+            exp_avg[name] = state["exp_avg"]
+            exp_avg_sq[name] = state["exp_avg_sq"]
+            steps[name] = int(float(state["step"]))
         count = max(steps.values(), default=0)
         for name, step in steps.items():
             if step == count:
@@ -517,10 +519,10 @@ def load_optimizer_state(optimizer: torch.optim.Optimizer,
                          model: torch.nn.Module, opt_state) -> None:
     """Load a restored ``opt_state`` into ``optimizer`` (over ``model``'s
     parameters): this package's ``state_dict``, or a
-    :class:`JaxAdamState`."""
+    :class:`JaxAdamState`; sharded onto an FSDP model's parameters."""
     if isinstance(opt_state, JaxAdamState):
         opt_state = opt_state.torch_state_dict(optimizer, model)
-    optimizer.load_state_dict(opt_state)
+    load_full_optimizer_state(model, optimizer, opt_state)
 
 
 # -- the JAX package's params.msgpack -----------------------------------------

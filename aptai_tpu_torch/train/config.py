@@ -8,17 +8,22 @@ as ``models/configs.py`` checks its unported fields:
 
 * ``platform``: ``"auto"`` runs on ``cuda``, ``"cpu"`` on the CPU; any other
   value raises (:func:`run_device`);
-* ``mesh_data``, ``mesh_model``, ``fsdp``, ``coordinator_address``,
-  ``num_processes``, ``process_id``: only one device is implemented
-  (``mesh_data`` −1 or 1, ``mesh_model`` 1, no FSDP, no coordinator);
-  anything else raises ``NotImplementedError``;
+* ``coordinator_address``, ``num_processes``, ``process_id``: a
+  multi-process run, one process per device (``parallel/multihost.py``):
+  :meth:`TrainConfig.finalize` joins the process group, filling the last
+  two from the launcher's environment when they are unset;
+* ``mesh_data``, ``fsdp``: the data axis of those processes
+  (``parallel/mesh.py``; ``train/harness.py::make_engine``);
+  ``mesh_model`` other than 1 (tensor parallelism) is not implemented yet
+  and raises ``NotImplementedError``;
 * ``rng_impl``: ``"rbg"`` and ``"threefry"`` are both accepted and mean the
   same here: torch has one Philox generator per device, which the train
   step seeds per step (``train/harness.py``);
 * ``debug_nans``: ``torch.autograd`` anomaly detection around ``fit``
   (``train/loop.py``), which names the backward op that made a NaN.
 
-``finalize`` touches no process-wide state.
+``finalize`` touches no process-wide state, except that a
+``coordinator_address`` joins this process to the run's process group.
 """
 
 from __future__ import annotations
@@ -84,7 +89,8 @@ class TrainConfig:
     # bfloat16 on the card, float32 on the CPU (train/builders.py)
     dtype: str = "auto"
 
-    # parallelism: one device only (see the module docstring)
+    # parallelism: the data axis over the run's processes (see the module
+    # docstring); fsdp shards parameters and Adam state over it
     mesh_data: int = -1
     mesh_model: int = 1
     fsdp: bool = False
@@ -100,7 +106,20 @@ class TrainConfig:
     train_from_ckpt: bool = False
 
     def finalize(self, task: str) -> "TrainConfig":
-        _check_single_device(self)
+        _check_fields(self)
+        if self.coordinator_address:
+            from aptai_tpu_torch.parallel.multihost import (
+                init_distributed, process_env_defaults)
+
+            env = process_env_defaults()
+            if self.num_processes <= 0:
+                self.num_processes = env.get("num_processes", 0)
+            if self.process_id < 0:
+                self.process_id = env.get("process_id", -1)
+            init_distributed(self.coordinator_address, self.num_processes,
+                             self.process_id,
+                             device="cpu" if self.platform == "cpu"
+                             else "cuda")
         self.date_time = datetime.now().strftime("%Y-%m-%d_%H:%M:%S")
         if self.laptop:  # debug mode truncation (reference :186-189)
             self.num_epochs = 1
@@ -117,27 +136,18 @@ class TrainConfig:
         return self
 
 
-def _check_single_device(cfg: TrainConfig) -> None:
+def _check_fields(cfg: TrainConfig) -> None:
     if cfg.platform not in PLATFORMS:
         raise ValueError(f"platform must be one of {PLATFORMS} ('auto' runs "
                          f"on cuda), got {cfg.platform!r}")
     if cfg.rng_impl not in RNG_IMPLS:
         raise ValueError(f"rng_impl must be one of {RNG_IMPLS}, got "
                          f"{cfg.rng_impl!r}")
-    multi = {
-        "mesh_data": cfg.mesh_data not in (-1, 1),
-        "mesh_model": cfg.mesh_model != 1,
-        "fsdp": cfg.fsdp,
-        "coordinator_address": bool(cfg.coordinator_address),
-        "num_processes": cfg.num_processes not in (0, 1),
-        "process_id": cfg.process_id not in (-1, 0),
-    }
-    bad = sorted(k for k, v in multi.items() if v)
-    if bad:
+    if cfg.mesh_model != 1:
         raise NotImplementedError(
-            f"config field(s) {bad} ask for more than one device, which "
-            "aptai_tpu_torch does not implement yet (ROADMAP Queue 1 item 8, "
-            "parallel/*); leave them at their single-device values")
+            f"mesh_model={cfg.mesh_model} asks for tensor parallelism, which "
+            "aptai_tpu_torch does not implement yet (ROADMAP Queue 1 item "
+            "8e-ii: the model and pipe axes); leave it at 1")
 
 
 def run_device(cfg) -> torch.device:

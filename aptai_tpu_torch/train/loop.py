@@ -14,6 +14,15 @@ On the card:
     the Adam state goes as a :class:`JaxAdamState` by parameter name, its
     weight decay read from the optimizer, and the manager writes the optax
     tree the JAX trainer of the model's family holds.
+
+In a run of several processes (``parallel/``), each process trains on its
+rows of every global batch (the loader's split), and host-side writes are
+the primary's: checkpoints and the run logger's metrics, the other
+processes waiting at a barrier until each write is done. An FSDP model's
+parameters and Adam state are gathered whole to the primary's host for
+every checkpoint, so its files are a single device's; a resume shards them
+back. A preemption signal received by any process stops every process at
+the same step boundary.
 """
 
 from __future__ import annotations
@@ -29,6 +38,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from aptai_tpu_torch.data.batching import BucketedLoader
+from aptai_tpu_torch.parallel.mesh import (full_optimizer_state,
+                                           full_state_dict,
+                                           load_full_state_dict)
+from aptai_tpu_torch.parallel.multihost import (any_process, host_barrier,
+                                                is_primary, process_count,
+                                                process_index)
 from aptai_tpu_torch.train.checkpoints import (CheckpointManager,
                                                JaxAdamState,
                                                load_optimizer_state)
@@ -97,6 +113,35 @@ class _PreemptionGuard:
         return False
 
 
+def require_one_process(what: str) -> None:
+    """Raise ``NotImplementedError`` in a run of several processes: for
+    the trainers that do not run over several yet (pretraining's diversity
+    loss reads the whole batch's code distribution; FORCE-APTAI's fold
+    loop refits after a collapse and writes its tower outside ``fit``)."""
+    if process_count() > 1:
+        raise NotImplementedError(
+            f"{what} runs in one process only (ROADMAP Queue 1 item "
+            "8e-ii); launch it without --coordinator_address")
+
+
+def split_rows(loader, index: int, count: int) -> None:
+    """Make ``loader`` (a ``BucketedLoader``, or a loader wrapping one as
+    its ``.loader``) serve process ``index`` of ``count`` its rows of each
+    global batch."""
+    inner = loader
+    while not isinstance(inner, BucketedLoader):
+        inner = getattr(inner, "loader", None)
+        if inner is None:
+            raise TypeError(
+                f"a {type(loader).__name__} cannot split its batches over "
+                "processes: train from a BucketedLoader (or a loader that "
+                "wraps one as .loader)")
+    if inner.batch_size % count:
+        raise ValueError(f"batch_size {inner.batch_size} not divisible by "
+                         f"the {count} processes")
+    inner.process_index, inner.process_count = index, count
+
+
 def fit(cfg, loss_fn: Callable, model: nn.Module, train_loader,
         validate_fn: Callable[[int], Dict[str, float]],
         ckpt: CheckpointManager, model_cfg: Optional[Dict] = None,
@@ -119,15 +164,23 @@ def fit(cfg, loss_fn: Callable, model: nn.Module, train_loader,
     * with ``cfg.train_from_ckpt`` and a last checkpoint (this package's
       or the JAX package's): parameters, Adam state, the best watermark
       and the step counter (which seeds dropout and SpecAugment) are
-      restored and training resumes after the saved epoch.
+      restored and training resumes after the saved epoch;
+    * several processes (the engine on a mesh): ``train_loader``'s batches
+      are global batches, of which each process takes its rows
+      (:func:`split_rows`); every process calls ``fit`` and
+      ``validate_fn``.
     """
     step = engine if engine is not None else make_engine(
         cfg, loss_fn, model, frozen_prefixes=frozen_prefixes)
     model, optimizer = step.model, step.optimizer
+    nproc = process_count()
+    primary = is_primary()
+    if nproc > 1:
+        split_rows(train_loader, process_index(), nproc)
     start_epoch = 0
     if getattr(cfg, "train_from_ckpt", False) and ckpt.has_last():
         params, opt_state, meta = ckpt.restore_last(map_location=step.device)
-        model.load_state_dict(params)
+        load_full_state_dict(model, params)
         if opt_state is not None:
             # after the model is on its device: the moments land there
             load_optimizer_state(optimizer, model, opt_state)
@@ -138,14 +191,32 @@ def fit(cfg, loss_fn: Callable, model: nn.Module, train_loader,
     subset_rng = np.random.default_rng(cfg.seed)
     history = []
 
+    def state():
+        """The params and the Adam state a write takes: whole on the
+        primary (gathered from an FSDP model: every process calls this)."""
+        params = full_state_dict(model)
+        adam = JaxAdamState.from_named_state(
+            full_optimizer_state(model, optimizer), optimizer)
+        return params, adam
+
     def save_interrupt(resume_epoch):
-        ckpt.save_interrupt(resume_epoch, model.state_dict(),
-                            opt_state=JaxAdamState.from_optimizer(
-                                optimizer, model),
-                            step=step.step_count, model_cfg=model_cfg)
+        params, adam = state()
+        if primary:
+            ckpt.save_interrupt(resume_epoch, params, opt_state=adam,
+                                step=step.step_count, model_cfg=model_cfg)
+        host_barrier()
 
     guard = _PreemptionGuard(
         log_fn, enabled=getattr(cfg, "graceful_preemption", True))
+
+    def preempted() -> bool:
+        """Whether a signal came, to this process or (agreed at every call,
+        on every process) to any other."""
+        if nproc > 1 and guard.enabled and any_process(
+                guard.triggered is not None) and guard.triggered is None:
+            guard.triggered = -1  # another process was signalled
+        return guard.triggered is not None
+
     with guard, (torch.autograd.detect_anomaly()
                  if getattr(cfg, "debug_nans", False)
                  else contextlib.nullcontext()):
@@ -180,9 +251,7 @@ def fit(cfg, loss_fn: Callable, model: nn.Module, train_loader,
                             + str({k: float(v) for k, v in metrics.items()})
                         )
                 step_losses.append(metrics["loss"])
-                if guard.triggered is not None or (
-                    cfg.laptop and len(step_losses) >= 1
-                ):
+                if preempted() or (cfg.laptop and len(step_losses) >= 1):
                     break
             # the epoch's one fetch
             losses = (torch.stack(step_losses).float().cpu().numpy()
@@ -196,7 +265,7 @@ def fit(cfg, loss_fn: Callable, model: nn.Module, train_loader,
                     "per step, --debug_nans to trace the origin)"
                 )
 
-            if guard.triggered is not None:
+            if preempted():
                 # mid-epoch preemption: skip validation, persist params,
                 # moments and step; resume repeats this epoch
                 save_interrupt(epoch)
@@ -214,19 +283,21 @@ def fit(cfg, loss_fn: Callable, model: nn.Module, train_loader,
             want_last = (final_epoch
                          or ckpt_every > 0
                          and epoch % ckpt_every == ckpt_every - 1
-                         or guard.triggered is not None)
+                         or preempted())
             if ckpt_every == 0 and not final_epoch:
                 # 0 → checkpoint only at the end; a preemption in this mode
                 # writes only the resume checkpoint, never best
                 improved = False
                 want_last = False
             else:
-                improved = ckpt.update(
-                    epoch, val_logs, model.state_dict(),
-                    opt_state=JaxAdamState.from_optimizer(optimizer, model),
+                params, adam = state()
+                # the other processes run the same epochs, never touch disk
+                improved = primary and ckpt.update(
+                    epoch, val_logs, params, opt_state=adam,
                     step=step.step_count, model_cfg=model_cfg,
                     save_last=want_last,
                 )
+                host_barrier()
             ckpt_time = time.perf_counter() - t_ckpt
             entry = {
                 "epoch": epoch,
@@ -241,7 +312,7 @@ def fit(cfg, loss_fn: Callable, model: nn.Module, train_loader,
                 **val_logs,
             }
             history.append(entry)
-            if logger is not None:
+            if logger is not None and primary:
                 logger.log(entry, step=step.step_count)
             log_fn(
                 f"epoch {epoch + 1}/{cfg.num_epochs} lr={lr:.2e} "
@@ -250,10 +321,10 @@ def fit(cfg, loss_fn: Callable, model: nn.Module, train_loader,
                            if isinstance(v, float))
                 + (" *best*" if improved else "")
             )
-            if guard.triggered is not None and not final_epoch:
+            if preempted() and not final_epoch:
                 # the signal came during validation or checkpointing: the
                 # epoch is complete, resume at the next one
-                if not (improved or want_last):
+                if not (any_process(improved) or want_last):
                     save_interrupt(epoch + 1)
                 log_fn(f"preempted after epoch {epoch + 1}: resume "
                        f"checkpoint written; rerun with --exp_dir "

@@ -41,7 +41,7 @@ from aptai_tpu_torch.train.builders import make_backbone_config
 from aptai_tpu_torch.train.checkpoints import CheckpointManager, save_json
 from aptai_tpu_torch.train.config import (TrainConfig, parse_config,
                                           run_device)
-from aptai_tpu_torch.train.loop import fit
+from aptai_tpu_torch.train.loop import fit, require_one_process
 from aptai_tpu_torch.train.train_aptai import eval_call
 from aptai_tpu_torch.utils.logging import init_logger
 
@@ -248,6 +248,7 @@ def split_rows(rows, val_fraction: float):
 def run(cfg: PretrainConfig, tiny_backbone=None):
     """Pretrain one encoder; returns ``(history, model)``.
     ``tiny_backbone`` replaces the wav2vec2-large config (tests)."""
+    require_one_process("pretraining")
     device = run_device(cfg)
     exp_dir = Path(cfg.exp_dir)
     exp_dir.mkdir(parents=True, exist_ok=True)

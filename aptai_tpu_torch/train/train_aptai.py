@@ -7,7 +7,9 @@ speakers at ``--train_val_rate``, fresh weights (``seed + fold``), ``fit``
 with the 10-metric validation and the best checkpoint by
 ``val_mean_rmse``, then the N- and F-rate test dicts → per-speaker CSVs and
 the LOSO mean and std. Validation and test run at the training batch size
-through the bucketed loader (the reference evaluates at batch 1).
+through the bucketed loader (the reference evaluates at batch 1). Over
+several processes (``--coordinator_address``) every process trains its
+rows of each batch and evaluates, and the primary writes the files.
 
 Usage:
   python -m aptai_tpu_torch.train.train_aptai --hprc_csv_path ... [--laptop]
@@ -25,6 +27,8 @@ from aptai_tpu_torch.data import (BucketedLoader, HPRCDataset, PrefetchLoader,
                                   build_vocab, collate_tv, load_vocab)
 from aptai_tpu_torch.data.hprc import loso_split
 from aptai_tpu_torch.data.manifest import read_rows, unique
+from aptai_tpu_torch.parallel.mesh import load_full_state_dict
+from aptai_tpu_torch.parallel.multihost import is_primary
 from aptai_tpu_torch.train.builders import build_aptai_model
 from aptai_tpu_torch.train.checkpoints import CheckpointManager, save_json
 from aptai_tpu_torch.train.config import APTAIConfig, parse_config, run_device
@@ -147,21 +151,23 @@ def run_speaker(cfg, rows, vocab, test_spk, model, model_cfg):
         exp_dir / f"best-model-ckpt-{test_spk}", cfg.target_metric,
         bigger_is_better=cfg.target_metric_bigger_better,
     )
-    logger = RunLogger(exp_dir, "APTAI", run_name=f"{cfg.prefix}_{test_spk}",
-                       use_wandb=cfg.logging)
+    logger = (RunLogger(exp_dir, "APTAI", run_name=f"{cfg.prefix}_{test_spk}",
+                        use_wandb=cfg.logging) if is_primary() else None)
     fit(cfg, aptai_loss_fn(from_features=cfg.cache_frozen_fe), model,
         train_dl, validate, ckpt, model_cfg=model_cfg, logger=logger)
 
-    model.load_state_dict(ckpt.restore_best(map_location=run_device(cfg)))
+    load_full_state_dict(model, ckpt.restore_best(
+        map_location=run_device(cfg)))
     tmax = 1 if cfg.laptop else None
     results = {}
     for rate, part in (("N", test_n), ("F", test_f)):
         results.update(test_tv(eval_fwd, _loader(part, vocab, eval_bs,
                                                  False), rate,
                                max_batches=tmax))
-    metrics_dir = exp_dir / "test_metrics"
-    metrics_dir.mkdir(parents=True, exist_ok=True)
-    dict_to_csv(results, metrics_dir / f"{test_spk}.csv")
+    if is_primary():
+        metrics_dir = exp_dir / "test_metrics"
+        metrics_dir.mkdir(parents=True, exist_ok=True)
+        dict_to_csv(results, metrics_dir / f"{test_spk}.csv")
     return results
 
 
@@ -173,7 +179,8 @@ def run(cfg, tiny_backbone=None, speakers=None):
     device = run_device(cfg)
     exp_dir = Path(cfg.exp_dir)
     exp_dir.mkdir(parents=True, exist_ok=True)
-    save_json(exp_dir / "experiment_args.json", cfg)
+    if is_primary():
+        save_json(exp_dir / "experiment_args.json", cfg)
     rows, vocab = read_hprc(cfg)
     speakers = speakers or unique(rows, "speaker")
 
@@ -192,8 +199,9 @@ def run(cfg, tiny_backbone=None, speakers=None):
             torch.cuda.empty_cache()
 
     mean, std = aggregate_mean_std(per_speaker)
-    dict_to_csv(mean, exp_dir / "loso_mean.csv")
-    dict_to_csv(std, exp_dir / "loso_std.csv")
+    if is_primary():
+        dict_to_csv(mean, exp_dir / "loso_mean.csv")
+        dict_to_csv(std, exp_dir / "loso_std.csv")
     print("LOSO mean:", {k: round(v, 4) for k, v in mean.items()
                          if k.endswith(("mean_rmse", "mean_pcc", "mean_FER"))})
     return mean, std, per_speaker

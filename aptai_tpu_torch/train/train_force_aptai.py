@@ -45,7 +45,7 @@ from aptai_tpu_torch.train.evaluate import test_tv, validate_tv
 from aptai_tpu_torch.train.frozen_cache import (FrozenEncodedCorpus,
                                                 FrozenEncodedLoader,
                                                 encode_batch)
-from aptai_tpu_torch.train.loop import fit
+from aptai_tpu_torch.train.loop import fit, require_one_process
 from aptai_tpu_torch.train.metrics import aggregate_mean_std, dict_to_csv
 from aptai_tpu_torch.train.train_aptai import (_loader, eval_call,
                                                fold_peak_memory, read_hprc)
@@ -406,6 +406,7 @@ def run(cfg, tiny_backbone=None, speakers=None):
     default); returns ``(mean, std, per-speaker results)``. Each fold draws
     a fresh head (``seed + fold``) over the checkpoint's tower and frees
     the previous fold's model and optimizer first."""
+    require_one_process("FORCE-APTAI's trainer")
     device = run_device(cfg)
     exp_dir = Path(cfg.exp_dir)
     exp_dir.mkdir(parents=True, exist_ok=True)

@@ -24,6 +24,8 @@ from aptai_tpu_torch.data import (BucketedLoader, CommonPhoneDataset,
                                   HPRCDataset, PrefetchLoader, build_vocab,
                                   collate_ctc, save_vocab)
 from aptai_tpu_torch.data.manifest import read_rows, select, write_rows
+from aptai_tpu_torch.parallel.mesh import load_full_state_dict
+from aptai_tpu_torch.parallel.multihost import is_primary
 from aptai_tpu_torch.train.builders import build_pr_model
 from aptai_tpu_torch.train.checkpoints import CheckpointManager, save_json
 from aptai_tpu_torch.train.config import PRConfig, parse_config, run_device
@@ -100,7 +102,9 @@ def run(cfg: PRConfig, tiny_backbone=None):
     device = run_device(cfg)
     exp_dir = Path(cfg.exp_dir)
     exp_dir.mkdir(parents=True, exist_ok=True)
-    save_json(exp_dir / "experiment_args.json", cfg)
+    primary = is_primary()  # the process that writes files
+    if primary:
+        save_json(exp_dir / "experiment_args.json", cfg)
 
     if not Path(cfg.cp_csv_path).exists():
         raise SystemExit(
@@ -109,10 +113,11 @@ def run(cfg: PRConfig, tiny_backbone=None):
             "aptai_tpu_torch.data.make_synthetic_commonphone)")
     rows = read_rows(cfg.cp_csv_path)
     vocab = build_vocab(r["phonemes"] for r in rows)
-    save_vocab(vocab, exp_dir / "vocab.json")
     train_dl, valid_dl, test_dl, splits = make_loaders(cfg, rows, vocab)
-    for name, part in zip(("train", "valid", "test"), splits):
-        write_rows(exp_dir / f"{name}.csv", part, columns=list(rows[0]))
+    if primary:
+        save_vocab(vocab, exp_dir / "vocab.json")
+        for name, part in zip(("train", "valid", "test"), splits):
+            write_rows(exp_dir / f"{name}.csv", part, columns=list(rows[0]))
 
     model, model_cfg = build_pr_model(cfg, vocab, tiny=tiny_backbone)
     model.to(device)
@@ -136,14 +141,14 @@ def run(cfg: PRConfig, tiny_backbone=None):
         bigger_is_better=cfg.target_metric_bigger_better,
         save_all_epochs=cfg.save_all_epochs,
     )
-    logger = init_logger(cfg, "phoneme_recognizer")
+    logger = init_logger(cfg, "phoneme_recognizer") if primary else None
     _, history = fit(cfg, pr_loss_fn(from_features=use_fe_cache), model,
                      train_dl, validate, ckpt, model_cfg=model_cfg,
                      samples_per_epoch=cfg.samples_per_epoch, logger=logger)
 
     # the best checkpoint on CP-test and HPRC N/F, beam-decoded (the
     # reference's reported-PER protocol)
-    model.load_state_dict(ckpt.restore_best(map_location=device))
+    load_full_state_dict(model, ckpt.restore_best(map_location=device))
     results = {"mean_cp_test_per": validate_pr(eval_fwd, test_dl, max_b)[
         "mean_val_per"]}
     if cfg.hprc_csv_path and Path(cfg.hprc_csv_path).exists():
@@ -156,7 +161,8 @@ def run(cfg: PRConfig, tiny_backbone=None):
             )
             results[f"mean_hprc{rate}_per"] = validate_pr(
                 eval_fwd, dl, max_b)["mean_val_per"]
-    save_json(exp_dir / "test_results.json", results)
+    if primary:
+        save_json(exp_dir / "test_results.json", results)
     print("TEST RESULTS:", results)
     return history, results
 

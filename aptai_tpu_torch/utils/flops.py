@@ -29,6 +29,10 @@ from aptai_tpu_torch.models.configs import Wav2Vec2Config
 _PEAK_TFLOPS_BF16 = {
     "H100 80GB HBM3": 989.0,
 }
+# dense int8 tensor-core peak, TOP/s, by the same names (the same sheet)
+_PEAK_TOPS_INT8 = {
+    "H100 80GB HBM3": 1979.0,
+}
 
 
 def conv_fe_flops(cfg: Wav2Vec2Config, samples: int) -> int:
@@ -111,6 +115,24 @@ def device_peak_tflops(name: Optional[str] = None) -> Optional[float]:
         if key in name:
             return peak
     return None
+
+
+def device_peak_int8_tops(device=None) -> Optional[float]:
+    """Dense int8 peak TOP/s of a card (None = CUDA device 0; a device or
+    index, or the card's name as a string); None for a card not in the
+    table, so callers omit the bound instead of guessing a peak. The
+    longest key found in the name wins."""
+    if isinstance(device, str) and not device.startswith("cuda"):
+        name = device
+    else:
+        import torch
+
+        name = torch.cuda.get_device_name(0 if device is None else device)
+    best = None
+    for key, peak in _PEAK_TOPS_INT8.items():
+        if key in name and (best is None or len(key) > len(best[0])):
+            best = (key, peak)
+    return best[1] if best else None
 
 
 def mfu(total_flops: int, seconds: float,

@@ -275,6 +275,20 @@ Phases (any failure ends the run with a non-zero exit code):
    for one step, bit for bit the step without the write (or, were the
    repeat not bit for bit, within ten times its difference); 24 launches
    of each flash kernel a step.
+16. The data axis (``parallel/``) on one NCCL rank, cuDNN deterministic:
+   ``init_distributed`` on a free local port and ``make_mesh``; full-width
+   APTAI (bf16, 8 x 5 s, seed 0, dropout and SpecAugment on) takes two
+   steps plain, two under DDP (``shard_tree``) and two under FSDP
+   (``shard_tree(fsdp=True)``): 24 launches of each flash kernel a step
+   under each, DDP's losses and parameters against the plain step's (bit
+   for bit or by how much), both wrappers' trained models served within
+   phase 3's gates of the plain one, the per-rank bytes of parameters and
+   Adam state; three rounds of one timed step each (``StepTimer``), the
+   wrappers alternated, then two steps of each inside ``trace_profile``,
+   whose one trace file must name the flash forward kernel, and one
+   profiled step of each (kernel time against wall time, top kernels); ``fetch_pytree`` of the parameters and Adam state bit for bit
+   ``.cpu()`` leaf by leaf, GB/s of both; ``device_peak_int8_tops()`` and
+   phase 12a's int8 bounds from it; the group destroyed.
 
 Output: the phases' lines, then one JSON line of kernel records, the card
 line, and last ``{"ok": true, "device": {...}}``. A flash kernel record's
@@ -293,8 +307,9 @@ bundle app of 11d, one APTAI batch in ``w8a8_ffn`` and in ``w8a8``, one
 W2V2PR and one FORCE batch in ``w8a8``, one request to the
 ``w8a8_ffn`` app of 12d, one APTAI batch in each encoder variant of 13b,
 the train step of 13c, the two ``w8a8`` batches of 13d, the APTAI
-epoch of 14 from the prepared manifest, and the six APTAI steps of 15),
-each read with the counts set to 0 just before it.
+epoch of 14 from the prepared manifest, the six APTAI steps of 15, and
+the two DDP and two FSDP steps of 16), each read with the counts set to
+0 just before it.
 
 Phase 13 alone, from the repository root (the kernels build at first
 use; ``main`` also turns TF32 off, which the small float32 models' gates
@@ -311,8 +326,9 @@ Phase 14 alone, in a temporary directory:
     cs.phase_hprc_prep(cs.card_line(), pathlib.Path(tempfile.mkdtemp()))"
 
 Phase 15 alone the same way: ``cs.phase_checkpoint(cs.card_line(),
-pathlib.Path(tempfile.mkdtemp()))``. The other phases' functions run
-alone the same way.
+pathlib.Path(tempfile.mkdtemp()))``; phase 16 as
+``cs.phase_data_parallel(cs.card_line())``. The other phases' functions
+run alone the same way.
 """
 
 from __future__ import annotations
@@ -328,6 +344,7 @@ import mmap
 import os
 import pickle
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -395,10 +412,15 @@ from aptai_tpu_torch.train.train_force_aptai import ctc_seq_per
 from aptai_tpu_torch.train.train_force_aptai import \
     make_eval_forward as force_eval_forward
 from aptai_tpu_torch.train.train_pr import make_eval_forward
+from aptai_tpu_torch.parallel import init_distributed, make_mesh, shard_tree
+from aptai_tpu_torch.parallel.mesh import full_state_dict
 from aptai_tpu_torch.utils.flops import (aptai_forward_flops,
+                                         device_peak_int8_tops,
                                          device_peak_tflops, encoder_flops,
                                          mfu, pr_forward_flops,
                                          training_step_flops)
+from aptai_tpu_torch.utils.profiling import StepTimer, trace_profile
+from aptai_tpu_torch.utils.trees import fetch_pytree, tree_bytes
 
 # H100 SXM (NVIDIA data sheet): dense bf16 tensor-core peak, HBM3 rate
 PEAK_BF16_FLOPS = 989e12
@@ -4687,8 +4709,6 @@ def phase_export(root, aptai_ckpt, force_ckpt, card):
 
 # -- phase 12 -----------------------------------------------------------------
 
-# H100 SXM (NVIDIA data sheet): dense int8 tensor-core peak
-PEAK_INT8_OPS = 1979e12
 QUANT_MODES = ("w8a8_ffn", "w8a8")
 # the encoder's GEMMs, (K, N): q/k/v/out, the FFN's first and second
 QUANT_GEMMS = ((1024, 1024), (1024, 4096), (4096, 1024))
@@ -4700,10 +4720,21 @@ QUANT_AGREE_MIN = 0.99
 
 def int8_bound(m, k, n, nbytes):
     """(least ms for an int8 product of (M, K) by (K, N) moving ``nbytes``,
-    what bounds it)."""
-    t_ops, t_bytes = 2 * m * k * n / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S
+    what bounds it) at the card's dense int8 peak
+    (``utils.flops.device_peak_int8_tops``); ``(None, "no int8 peak known
+    for this card")`` where the table does not know the card."""
+    peak = device_peak_int8_tops()
+    if peak is None:
+        return None, "no int8 peak known for this card"
+    t_ops = 2 * m * k * n / (peak * 1e12)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def bound_us(b) -> str:
+    """An ``int8_bound`` in µs with what bounds it, or why it is absent."""
+    return b[1] if b[0] is None else f"{b[0] * 1e3:.1f} µs, {b[1]}"
 
 
 def same_bits(a, b) -> bool:
@@ -4760,10 +4791,10 @@ def quant_gemm_case(gen, m, k, n, card):
         f"{t['linear_bf16'] * 1e3:.1f} µs (bound {b_bf16[0] * 1e3:.1f}, "
         f"{b_bf16[1]}); _int_mm {t['int_mm'] * 1e3:.1f} µs with the (N, K)"
         f" codes transposed, {t['int_mm_kn'] * 1e3:.1f} µs with (K, N) "
-        f"row-major (bound {b_int8[0] * 1e3:.1f}, {b_int8[1]}); "
+        f"row-major (bound {bound_us(b_int8)}); "
         f"quantize_rows {t['quantize_rows'] * 1e3:.1f} µs; the whole W8A8 "
-        f"op {t['w8a8_op'] * 1e3:.1f} µs (bound {b_op[0] * 1e3:.1f}, "
-        f"{b_op[1]}) on {card}")
+        f"op {t['w8a8_op'] * 1e3:.1f} µs (bound {bound_us(b_op)}) on "
+        f"{card}")
     return {"m": m, "k": k, "n": n, **{f"{k_}_ms": v for k_, v in t.items()},
             "bound_bf16_ms": b_bf16[0], "bound_int8_ms": b_int8[0],
             "bound_op_ms": b_op[0]}
@@ -5643,6 +5674,229 @@ def _phase_checkpoint(card, root, t_phase):
     return counts, steps
 
 
+# -- phase 16 -----------------------------------------------------------------
+
+DP_STEPS = 2  # full-width steps of each wrapper, counted and compared
+TIMED_ROUNDS = 3  # then plain, DDP, FSDP alternated, one step each a round
+TRACED_STEPS = 2  # then the steps of each under the profiler
+FLASH_FWD_KERNEL = "flash_fwd_bf16_kernel"  # csrc/flash_attn_fwd.cu
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def served_agreement_with(model, want, audio, lengths):
+    """Phase 3's serving gates between two trained models on one batch:
+    the smallest per-TV Pearson and the phoneme argmax agreement of
+    ``model.predict`` against ``want.predict`` (eval mode, no gradient)."""
+    outs = []
+    for m in (model, want):
+        m.eval()
+        with torch.no_grad():
+            out = m.predict(audio, lengths, fields=("tvs_pred",
+                                                    "phn_fc_pred"))
+        m.train()
+        outs.append({k: v.float().cpu().numpy() for k, v in out.items()})
+    got, ref = outs
+    n = int(got["frame_lengths"].min())
+    tv_g = got["tvs_pred"][:, :n].reshape(-1, 9)
+    tv_r = ref["tvs_pred"][:, :n].reshape(-1, 9)
+    rs = [pearson(tv_g[:, i], tv_r[:, i]) for i in range(9)]
+    agree = float(np.mean(got["phn_fc_pred"][:, :n]
+                          == ref["phn_fc_pred"][:, :n]))
+    return min(rs), agree
+
+
+def cpu_tree(tree):
+    """``tree`` on the host tensor by tensor: one blocking ``.cpu()`` a
+    leaf (the fetch ``fetch_pytree`` replaces)."""
+    if isinstance(tree, dict):
+        return {k: cpu_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def same_leaves(a, b) -> bool:
+    la, lb = list(leaves(a)), list(leaves(b))
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+def phase_data_parallel(card):
+    """Phase 16: the data axis on one NCCL rank (the card's machine has one
+    card; the CPU tests run two gloo ranks). ``init_distributed`` and
+    ``make_mesh``; full-width APTAI (bf16, seed 0, 8 x 5 s, dropout and
+    SpecAugment on) takes ``DP_STEPS`` steps plain, under DDP
+    (``shard_tree``) and under FSDP (``shard_tree(fsdp=True)``), cuDNN
+    deterministic: DDP's losses and parameters against the plain step's
+    (bit for bit expected on one rank), FSDP's within phase 3's serving
+    gates of them, 24 launches of each flash kernel a step, the per-rank
+    bytes of parameters and Adam state; then ``TIMED_ROUNDS`` rounds of one
+    step of each, alternated, and ``TRACED_STEPS`` steps of each inside
+    ``trace_profile`` (both timed by ``StepTimer``), whose trace must name
+    the flash forward kernel, and one profiled step of each; ``fetch_pytree`` of the parameters and Adam
+    state against ``.cpu()`` leaf by leaf, bit for bit, GB/s of both; the
+    card's int8 peak and phase 12's int8 bounds from it. Returns the DDP
+    and FSDP steps' launches."""
+    log("== phase 16: data parallel and FSDP over torch.distributed, one "
+        "NCCL rank")
+    t_phase = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    # the plain and DDP steps are held to each other bit for bit; the pos
+    # conv's weight gradient may otherwise take an order-free algorithm
+    torch.backends.cudnn.deterministic = True
+    if not init_distributed(f"127.0.0.1:{free_port()}", 1, 0):
+        raise AssertionError("16: init_distributed set up no group")
+    try:
+        return _phase_data_parallel(card, t_phase)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.distributed.destroy_process_group()
+
+
+def _wrapped_step(kind, cfg, mesh):
+    model = random_aptai(cfg, seed=0)
+    if kind == "fsdp":
+        model = shard_tree(model, mesh, fsdp=True)
+    return TrainStep(model, torch_adam(model),
+                     mesh=None if kind == "plain" else mesh)
+
+
+def _phase_data_parallel(card, t_phase):
+    mesh = make_mesh()
+    log(f"  16a process group: backend {torch.distributed.get_backend()}, "
+        f"world {torch.distributed.get_world_size()}; mesh {mesh}")
+    cfg = Wav2Vec2Config(dtype="bfloat16")
+    batch = train_batch(cfg)
+    layers = cfg.num_hidden_layers
+    steps, losses, params, counts, nbytes = {}, {}, {}, {}, {}
+    for kind in ("plain", "ddp", "fsdp"):
+        step = steps[kind] = _wrapped_step(kind, cfg, mesh)
+        reset_counts()
+        losses[kind] = [step(batch, 1e-5)["loss"].item()
+                        for _ in range(DP_STEPS)]
+        counts[kind] = read_counts()
+        params[kind] = full_state_dict(step.model)
+        if kind != "fsdp":
+            params[kind] = cpu_tree(params[kind])
+        nbytes[kind] = (tree_bytes(step.model.state_dict()),
+                        tree_bytes(step.optimizer.state_dict()["state"]))
+        log(f"  16b {kind}: losses {losses[kind]}, launches over "
+            f"{DP_STEPS} steps {counts[kind]}; per-rank parameters "
+            f"{nbytes[kind][0] / 1e9:.3f} GB, Adam state "
+            f"{nbytes[kind][1] / 1e9:.3f} GB")
+        if not (all(counts[kind][n] == DP_STEPS * layers for n in FLASH)
+                and counts[kind]["fused_conv_ln_gelu"] == 0
+                and all(np.isfinite(losses[kind]))):
+            raise AssertionError(f"16b {kind}: launches {counts[kind]}, "
+                                 f"losses {losses[kind]}")
+    audio = torch.as_tensor(batch["audio"]).cuda()
+    lengths = torch.as_tensor(batch["audio_lengths"]).cuda()
+    for kind in ("ddp", "fsdp"):
+        gap = max((params[kind][k].float() - v.float()).abs().max().item()
+                  for k, v in params["plain"].items())
+        bits = same_tensors(params[kind], params["plain"])
+        r_min, agree = served_agreement_with(
+            steps[kind].model, steps["plain"].model, audio, lengths)
+        log(f"  16c {kind} vs plain after {DP_STEPS} steps: losses equal "
+            f"{losses[kind] == losses['plain']} (largest loss difference "
+            f"{max(abs(a - b) for a, b in zip(losses[kind], losses['plain'])):.3e}); "
+            f"parameters bit for bit {bits}, largest difference {gap:.3e}; "
+            f"served per-TV Pearson min {r_min:.6f}, phoneme argmax "
+            f"agreement {agree:.4%}")
+        if r_min < 0.999 or agree < 0.99:
+            raise AssertionError(f"16c: the {kind} step is outside phase "
+                                 "3's serving gates of the plain step")
+    del params
+
+    timers = {kind: StepTimer(warmup_steps=0) for kind in steps}
+    for _ in range(TIMED_ROUNDS):
+        for kind, step in steps.items():
+            with timers[kind]:
+                step(batch, 1e-5)
+                torch.cuda.synchronize()
+    audio_s = batch["audio"].size / SAMPLE_RATE
+    log(f"  16d {TIMED_ROUNDS} rounds of plain, DDP, FSDP alternated, one "
+        "step each: " + "; ".join(
+            f"{kind} {[round(t * 1e3, 2) for t in timer.times]} ms "
+            f"(p50 {timer.p50 * 1e3:.2f}, "
+            f"{timer.summary(audio_s)['throughput_per_second']:.1f} train "
+            "audio-s/s)" for kind, timer in timers.items())
+        + f" on {card}")
+
+    with tempfile.TemporaryDirectory() as trace_dir:
+        timers = {kind: StepTimer(warmup_steps=0) for kind in steps}
+        reset_counts()
+        with trace_profile(trace_dir):
+            for kind, step in steps.items():
+                for _ in range(TRACED_STEPS):
+                    with timers[kind]:
+                        step(batch, 1e-5)
+                        torch.cuda.synchronize()
+        traced = read_counts()
+        traces = sorted(Path(trace_dir).glob("*.pt.trace.json"))
+        trace_mb = sum(t.stat().st_size for t in traces) / 1e6
+        named = bool(traces) and FLASH_FWD_KERNEL in traces[0].read_text()
+    summary = {kind: t.summary(units_per_step=audio_s)
+               for kind, t in timers.items()}
+    log(f"  16d {TRACED_STEPS} steps each inside trace_profile: " + "; ".join(
+        f"{kind} {v['mean_step_seconds'] * 1e3:.2f} ms a step (p50 "
+        f"{v['p50_step_seconds'] * 1e3:.2f}), "
+        f"{v['throughput_per_second']:.1f} train audio-s/s"
+        for kind, v in summary.items())
+        + f"; trace files {len(traces)} ({trace_mb:.1f} MB), naming "
+        f"{FLASH_FWD_KERNEL} {named}; launches {traced} on {card}")
+    if not (len(traces) == 1 and named and all(
+            traced[n] == 3 * TRACED_STEPS * layers for n in FLASH)):
+        raise AssertionError("16d: no trace naming the flash forward, or "
+                             f"the wrong launches {traced}")
+    # where the wrappers' time goes: device kernels against wall time
+    for kind, step in steps.items():
+        profile_breakdown(lambda: step(batch, 1e-5), f"one {kind} step",
+                          top=6)
+
+    plain = steps["plain"]
+    tree = {"params": plain.model.state_dict(),
+            "adam": plain.optimizer.state_dict()["state"]}
+    gb = tree_bytes(tree) / 1e9
+    rates = {"cpu": [], "fetch_pytree": []}
+    for fn in (cpu_tree, fetch_pytree, cpu_tree, fetch_pytree):
+        name = "cpu" if fn is cpu_tree else "fetch_pytree"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = fn(tree)
+        rates[name].append(gb / (time.perf_counter() - t0))
+        if name == "cpu":
+            want = host
+        else:
+            same = same_leaves(host, want)
+            if not same:
+                raise AssertionError("16e: fetch_pytree differs from .cpu()")
+        del host
+    del want
+    log(f"  16e fetch_pytree of the parameters and Adam state ({gb:.3f} GB): "
+        f"{[round(r, 2) for r in rates['fetch_pytree']]} GB/s, bit for bit "
+        f"the leaf-by-leaf .cpu() at {[round(r, 2) for r in rates['cpu']]} "
+        f"GB/s (the first .cpu() pass first) on {card}")
+
+    peak = device_peak_int8_tops()
+    bounds = [int8_bound(SERVING_ROWS, k, n, SERVING_ROWS * k + k * n
+                         + 4 * SERVING_ROWS * n) for k, n in QUANT_GEMMS]
+    log(f"  16f device_peak_int8_tops(): {peak} TOP/s for "
+        f"{torch.cuda.get_device_name(0)}; phase 12a's int8 bounds at "
+        f"M {SERVING_ROWS}: " + "; ".join(
+            f"K {k}, N {n}: {bound_us(b)}" for (k, n), b in
+            zip(QUANT_GEMMS, bounds)))
+    del steps, plain, tree
+    torch.cuda.empty_cache()
+    log(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return {"ddp_train_step": (DP_STEPS, counts["ddp"]),
+            "fsdp_train_step": (DP_STEPS, counts["fsdp"])}
+
+
 def leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5718,6 +5972,7 @@ def main() -> int:
         prep_epoch, prep_steps = phase_hprc_prep(card, Path(tmp14))
     with tempfile.TemporaryDirectory() as tmp15:
         ckpt_counts, ckpt_steps = phase_checkpoint(card, Path(tmp15))
+    data_parallel = phase_data_parallel(card)
     for rec in records:
         name = rec["name"]
         rec["launches"] = (pr_serving if name == "fused_conv_ln_gelu"
@@ -5765,6 +6020,8 @@ def main() -> int:
                 "steps": prep_steps, "launches": prep_epoch[name]},
             "aptai_steps_checkpoint_and_resume": {
                 "steps": ckpt_steps, "launches": ckpt_counts[name]},
+            **{path: {"steps": n, "launches": c[name]}
+               for path, (n, c) in data_parallel.items()},
             **{path: {"batches": 1, "launches": counts[name]}
                for path, counts in late.items()}}
 

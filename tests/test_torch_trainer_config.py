@@ -1,7 +1,7 @@
 """aptai_tpu_torch's trainer configs against the JAX package's, on the CPU:
 ``parse_config`` of each config class on the same argv gives the same
-field values in both packages; the multi-device fields and unknown
-platforms raise; ``run_device`` never falls back to the CPU; the run
+field values in both packages; the model axis, a multi-process launch
+without its ranks and unknown platforms raise; ``run_device`` never falls back to the CPU; the run
 logger keeps its JSONL without wandb.
 """
 
@@ -44,23 +44,36 @@ def test_parse_config_matches_jax(tmp_path, name):
     assert got == dataclasses.asdict(getattr(jconfig, name)())
 
 
-@pytest.mark.parametrize("field,value,error", [
-    ("mesh_data", 2, NotImplementedError),
-    ("mesh_model", 2, NotImplementedError),
-    ("fsdp", True, NotImplementedError),
-    ("coordinator_address", "localhost:1234", NotImplementedError),
-    ("num_processes", 2, NotImplementedError),
-    ("process_id", 1, NotImplementedError),
-    ("platform", "tpu", ValueError),
-    ("rng_impl", "philox", ValueError)])
-def test_config_fields_that_raise(tmp_path, field, value, error):
-    cfg = tconfig.TrainConfig(exp_dir=str(tmp_path), **{field: value})
-    with pytest.raises(error, match=field if error is ValueError
-                       else "Queue 1 item 8"):
+LAUNCH_ENV = ("SLURM_PROCID", "OMPI_COMM_WORLD_RANK", "RANK", "SLURM_NTASKS",
+              "OMPI_COMM_WORLD_SIZE", "WORLD_SIZE", "MASTER_ADDR",
+              "MASTER_PORT")
+
+
+@pytest.mark.parametrize("fields,error,match", [
+    ({"mesh_model": 2}, NotImplementedError, "item 8e-ii"),
+    ({"coordinator_address": "127.0.0.1:1"}, ValueError, "num_processes"),
+    ({"coordinator_address": "auto"}, ValueError, "environment"),
+    ({"coordinator_address": "127.0.0.1:1", "num_processes": 2,
+      "process_id": 2}, ValueError, "not below"),
+    ({"platform": "tpu"}, ValueError, "platform"),
+    ({"rng_impl": "philox"}, ValueError, "rng_impl")])
+def test_config_fields_that_raise(tmp_path, monkeypatch, fields, error,
+                                  match):
+    """The fields the port refuses: the model axis (item 8e-ii), a
+    multi-process launch without its ranks (no launcher environment), an
+    unknown platform or PRNG. The data axis's fields finalize: one process
+    has no mesh, so ``fsdp`` changes nothing there."""
+    for k in LAUNCH_ENV:
+        monkeypatch.delenv(k, raising=False)
+    cfg = tconfig.TrainConfig(exp_dir=str(tmp_path), **fields)
+    with pytest.raises(error, match=match):
         cfg.finalize("task")
     for impl in ("rbg", "threefry"):  # both mean the same here
         assert tconfig.TrainConfig(rng_impl=impl, platform="cpu").finalize(
             "task").rng_impl == impl
+    done = tconfig.TrainConfig(exp_dir=str(tmp_path), platform="cpu",
+                               mesh_data=1, fsdp=True).finalize("task")
+    assert done.fsdp and not torch.distributed.is_initialized()
 
 
 def test_run_device_never_falls_back(monkeypatch):
