@@ -15,6 +15,13 @@ runs the model and slices the pad rows off:
 * :class:`ForceAPTAIPredictor` runs ``ForceAPTAI.predict`` (greedy) or its
   split ``beam_host`` path; ``get_faptai_output`` and ``get_alignment``
   give the reference's dicts.
+
+Each takes a ``mesh`` (``parallel.make_mesh``) to serve over several
+devices, one process each: every process calls with the same waveforms,
+runs its rows of the batch (split over the data axis) through a model
+placed on the model axis (tensor parallelism; sequence parallelism under
+the backbone's ``activation_partition``), and the outputs are gathered
+over the data axis, so every process returns the single device's dict.
 """
 
 from __future__ import annotations
@@ -43,20 +50,84 @@ from aptai_tpu_torch.models.w2v2_pr import ENCODE_FIELDS
 from aptai_tpu_torch.models.wav2vec2 import cast_matmul_weights, compute_dtype
 
 
-def serving_copy(model: nn.Module, device: torch.device) -> nn.Module:
+def serving_copy(model: nn.Module, device: torch.device,
+                 mesh=None) -> nn.Module:
     """The model an entry point serves on ``device``: a copy of ``model``
     in eval mode whose encoder Linear and Conv1d weights are cast once to
-    the compute dtype; ``model`` itself when it is already such a copy on
-    ``device`` (a streamer sharing a predictor's weights)."""
-    if getattr(model, "_serving_copy", False):
+    the compute dtype, placed on the model axis of ``mesh`` when one is
+    given; ``model`` itself when it is already such a copy on ``device``
+    and ``mesh`` (a streamer sharing a predictor's weights)."""
+    if (getattr(model, "_serving_copy", False)
+            and model._serving_mesh == id(mesh)):
         at = next(model.parameters()).device
         if at.type == device.type and device.index in (None, at.index):
             return model
     serving = copy.deepcopy(model)
     cast_matmul_weights(serving.wav2vec2, compute_dtype(model.cfg))
     serving = serving.to(device).eval()
+    if mesh is not None:
+        from aptai_tpu_torch.parallel.mesh import split_model_axis
+
+        split_model_axis(serving, mesh)
     serving._serving_copy = True
+    serving._serving_mesh = id(mesh)
     return serving
+
+
+class MeshRows:
+    """The data axis of a serving mesh: each process runs rows
+    ``[r·B/N, (r+1)·B/N)`` of a batch of ``B`` rows (``B`` a multiple of
+    the axis's ``N`` processes), and the outputs are gathered back into
+    the whole batch on every process. Without a mesh, the batch whole."""
+
+    def __init__(self, mesh, device: torch.device):
+        self.mesh = mesh
+        self.n, self.r, self.group = 1, 0, None
+        if mesh is not None:
+            from aptai_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
+
+            if mesh.device_type != device.type:
+                raise ValueError(f"the mesh runs on {mesh.device_type}, "
+                                 f"the predictor on {device}")
+            self.n = axis_size(mesh, DATA_AXIS)
+            self.r = mesh.get_local_rank(DATA_AXIS)
+            self.group = mesh.get_group(DATA_AXIS)
+
+    def bucket(self, n: int) -> int:
+        """The padded batch for ``n`` items: a power of two, rounded up to
+        a multiple of the data axis."""
+        rows = _batch_bucket(n)
+        return -(-rows // self.n) * self.n
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """This process's rows of a batch-leading ``x``."""
+        if self.n == 1:
+            return x
+        b = x.shape[0] // self.n
+        return x[self.r * b:(self.r + 1) * b]
+
+    def local_count(self, n: int, b: int) -> int:
+        """How many of the first ``n`` rows of the batch fall in this
+        process's ``b`` rows."""
+        return min(max(n - self.r * b, 0), b)
+
+    def gather(self, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The whole batch's outputs from each process's rows (a collective
+        over the data axis)."""
+        if self.n == 1:
+            return out
+        import torch.distributed as dist
+
+        whole = {}
+        for k, v in out.items():
+            # gloo has no bool collectives: cross as bytes
+            t = v.contiguous().view(torch.uint8) if v.dtype == torch.bool \
+                else v.contiguous()
+            parts = [torch.empty_like(t) for _ in range(self.n)]
+            dist.all_gather(parts, t, group=self.group)
+            t = torch.cat(parts)
+            whole[k] = t.view(torch.bool) if v.dtype == torch.bool else t
+        return whole
 
 
 def _bucket(n: int, bucket: int = AUDIO_BUCKET) -> int:
@@ -69,10 +140,10 @@ def _batch_bucket(n: int) -> int:
 
 
 def _prepare(wavs: Sequence[np.ndarray], transfer_dtype: str,
-             device: torch.device):
+             device: torch.device, rows: Optional[int] = None):
     lengths = np.asarray([len(w) for w in wavs], np.int32)
     width = _bucket(int(lengths.max()))
-    rows = _batch_bucket(len(wavs))
+    rows = rows or _batch_bucket(len(wavs))
     audio = np.zeros((rows, width), np.float32)
     for i, w in enumerate(wavs):
         audio[i, : len(w)] = np.asarray(w, np.float32)
@@ -113,7 +184,7 @@ def _log_softmax_host(logits: np.ndarray) -> np.ndarray:
 
 class _Predictor:
     def __init__(self, model, device: Union[str, torch.device, None] = None,
-                 transfer_dtype: str = "float32"):
+                 transfer_dtype: str = "float32", mesh=None):
         """``model``: a model of this package (``APTAI``, ``W2V2PR``,
         ``ForceAPTAI``) with its weights loaded. The predictor serves a
         copy of it on ``device`` (``cuda`` unless named), in eval mode,
@@ -121,13 +192,26 @@ class _Predictor:
         compute dtype (bf16 under ``dtype="bfloat16"``; heads stay float32);
         ``model`` itself is left as it is.
         ``transfer_dtype``: "float32", "int16" (lossless for 16-bit PCM,
-        half the upload) or "uint8_mulaw" (lossy, a quarter)."""
+        half the upload) or "uint8_mulaw" (lossy, a quarter).
+        ``mesh`` (``parallel.make_mesh``, on ``device``'s kind): serve over
+        its processes, every one calling with the same waveforms; the
+        batch's rows split over the data axis and the copy placed on the
+        model axis."""
         if transfer_dtype not in TRANSFER_DTYPES:
             raise ValueError(f"unknown transfer_dtype {transfer_dtype!r}; "
                              f"expected one of {list(TRANSFER_DTYPES)}")
         self.device = resolve_device(device)
-        self.model = serving_copy(model, self.device)
+        self.mesh = mesh
+        self.rows = MeshRows(mesh, self.device)
+        self.model = serving_copy(model, self.device, mesh)
         self.transfer_dtype = transfer_dtype
+
+    def _prepare(self, wavs: Sequence[np.ndarray]):
+        """The padded batch's audio and lengths on the device, this
+        process's rows of them."""
+        audio, lengths = _prepare(wavs, self.transfer_dtype, self.device,
+                                  self.rows.bucket(len(wavs)))
+        return self.rows.local(audio), self.rows.local(lengths)
 
 
 class APTAIPredictor(_Predictor):
@@ -148,10 +232,10 @@ class APTAIPredictor(_Predictor):
         del real_rows
         if fields is not None:
             check_fields(fields, PREDICT_FIELDS, "APTAI.predict")
-        audio, lengths = _prepare(wavs, self.transfer_dtype, self.device)
+        audio, lengths = self._prepare(wavs)
         out = self.model.predict(dequantize_transfer(audio), lengths,
                                  fields=fields)
-        return _strip_pad_rows(out, len(wavs))
+        return _strip_pad_rows(self.rows.gather(out), len(wavs))
 
     def get_aptai_output(self, wav) -> Dict:
         """Single-utterance dict of the reference schema (probs transposed
@@ -172,12 +256,12 @@ class APTAIPredictor(_Predictor):
 class W2V2PRPredictor(_Predictor):
     def __init__(self, model, vocab: Optional[Dict[str, int]] = None,
                  device: Union[str, torch.device, None] = None,
-                 transfer_dtype: str = "float32"):
+                 transfer_dtype: str = "float32", mesh=None):
         """``model``: an :class:`aptai_tpu_torch.models.W2V2PR`; ``vocab``
         (token → id) turns decoded ids into phonemes; see
-        :class:`_Predictor` for the serving copy, ``device`` and
-        ``transfer_dtype``."""
-        super().__init__(model, device, transfer_dtype)
+        :class:`_Predictor` for the serving copy, ``device``,
+        ``transfer_dtype`` and ``mesh``."""
+        super().__init__(model, device, transfer_dtype, mesh)
         self.vocab = vocab
 
     @torch.inference_mode()
@@ -194,12 +278,12 @@ class W2V2PRPredictor(_Predictor):
         del real_rows
         if fields is not None:
             check_fields(fields, ENCODE_FIELDS, "W2V2PR.encode")
-        audio, lengths = _prepare(wavs, self.transfer_dtype, self.device)
+        audio, lengths = self._prepare(wavs)
         out = self.model.encode(dequantize_transfer(audio), lengths)
         if fields is not None:
             out = {k: v for k, v in out.items()
                    if k in fields or k == "frame_lengths"}
-        return _strip_pad_rows(out, len(wavs))
+        return _strip_pad_rows(self.rows.gather(out), len(wavs))
 
     def get_embeddings(self, wavs: Sequence[np.ndarray]) -> Dict:
         """The reference's dict: conv features (B, C, T), final hidden
@@ -274,18 +358,18 @@ class ForceAPTAIPredictor(_Predictor):
         if fields is not None:
             check_fields(fields, force_aptai.PREDICT_FIELDS,
                          "ForceAPTAI.predict")
-        audio, lengths = _prepare(wavs, self.transfer_dtype, self.device)
+        audio, lengths = self._prepare(wavs)
         audio = dequantize_transfer(audio)
         if self.model.decode_method == "beam_host":
             n = len(wavs) if real_rows is None else min(real_rows, len(wavs))
-            out = self.model.predict_from_encoded(
-                *self._encoded(audio, lengths, n))
+            out = self.model.predict_from_encoded(*self._encoded(
+                audio, lengths, self.rows.local_count(n, len(audio))))
         else:
             out = self.model.predict(audio, lengths)
         if fields is not None:
             out = {k: v for k, v in out.items()
                    if k in fields or k == "frame_lengths"}
-        return _strip_pad_rows(out, len(wavs))
+        return _strip_pad_rows(self.rows.gather(out), len(wavs))
 
     def get_faptai_output(self, wav) -> Dict:
         """The reference's single-utterance dict: per-TV lists, the frame
@@ -307,16 +391,16 @@ class ForceAPTAIPredictor(_Predictor):
         """``{"alignment": (phonemes × frames)}``: the log-softmax
         alignment of one utterance over its decoded phonemes and valid
         frames."""
-        audio, lengths = _prepare([np.asarray(wav, np.float32)],
-                                  self.transfer_dtype, self.device)
+        audio, lengths = self._prepare([np.asarray(wav, np.float32)])
         audio = dequantize_transfer(audio)
         if self.model.decode_method == "beam_host":
-            out = self.model.alignment_from_encoded(
-                *self._encoded(audio, lengths, 1))
+            out = self.model.alignment_from_encoded(*self._encoded(
+                audio, lengths, self.rows.local_count(1, len(audio))))
         else:
             out = self.model.get_alignment(audio, lengths)
-        host = fetch_outputs({k: out[k] for k in (
+        out = self.rows.gather({k: out[k] for k in (
             "frame_lengths", "phn_seq_lengths", "alignment")})
+        host = fetch_outputs(out)
         n = int(host["frame_lengths"][0])
         s = int(host["phn_seq_lengths"][0])
         return {"alignment": host["alignment"][0, :n, :s].T}

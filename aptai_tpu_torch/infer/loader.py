@@ -29,8 +29,6 @@ from aptai_tpu_torch.models import APTAI, W2V2PR, ForceAPTAI, Wav2Vec2Config
 from aptai_tpu_torch.train.checkpoints import (FLAX_PARAMS, PARAMS,
                                                load_json, read_params)
 
-_UNPORTED = "ROADMAP Queue 1 item 8e-ii"
-
 
 def _has_params(d: Path) -> bool:
     return (d / PARAMS).exists() or (d / FLAX_PARAMS).exists()
@@ -123,17 +121,15 @@ def load_predictor(path, device=None, transfer_dtype: str = "float32",
     """The predictor for a trainer checkpoint directory
     (``APTAIPredictor`` / ``ForceAPTAIPredictor`` / ``W2V2PRPredictor``)
     on ``device`` (``cuda`` unless named), with ``dtype`` and ``quant`` as
-    in :func:`load_model`. ``mesh`` (several devices) is not implemented
-    yet and raises."""
-    if mesh is not None:
-        raise NotImplementedError(f"mesh serving is not implemented in "
-                                  f"aptai_tpu_torch yet ({_UNPORTED})")
+    in :func:`load_model`, over the processes of ``mesh``
+    (``parallel.make_mesh``) when one is given (every process loads the
+    checkpoint and calls the predictor alike)."""
     kind, model, vocab = load_model(path, dtype=dtype, quant=quant)
     if kind == "w2v2_pr":
         return W2V2PRPredictor(model, vocab, device=device,
-                               transfer_dtype=transfer_dtype)
+                               transfer_dtype=transfer_dtype, mesh=mesh)
     if kind == "aptai":
         return APTAIPredictor(model, device=device,
-                              transfer_dtype=transfer_dtype)
+                              transfer_dtype=transfer_dtype, mesh=mesh)
     return ForceAPTAIPredictor(model, device=device,
-                               transfer_dtype=transfer_dtype)
+                               transfer_dtype=transfer_dtype, mesh=mesh)

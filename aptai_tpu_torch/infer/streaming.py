@@ -32,11 +32,10 @@ import numpy as np
 import torch
 
 from aptai_tpu_torch import FRAME_RATE_HZ, SAMPLE_RATE, TV_ORDER
-from aptai_tpu_torch.infer.api import (TRANSFER_DTYPES, dequantize_transfer,
+from aptai_tpu_torch.infer.api import (TRANSFER_DTYPES, MeshRows,
+                                       dequantize_transfer,
                                        quantize_transfer, resolve_device,
                                        serving_copy)
-
-_UNPORTED_MESH = "ROADMAP Queue 1 item 8e-ii"
 
 
 def model_cfg_strides(model) -> Tuple[int, ...]:
@@ -86,7 +85,12 @@ class StreamingPredictor:
         the device and copies each key once. The outputs are identical.
         ``fetch_workers`` is accepted for the JAX package's API: the copies
         here are asynchronous, so no thread pool waits on them.
-        ``mesh`` (several devices) is not implemented and raises."""
+        ``mesh`` (``parallel.make_mesh``): every process streams the same
+        recording; each group's chunk batch splits over the data axis
+        (``chunk_batch`` a multiple of its size) and the model is placed on
+        the model axis, and the outputs are gathered, so every process
+        returns the single device's result. ``upload_ahead`` applies only
+        without a mesh and raises with one, as in the JAX package."""
         if overlap_seconds >= chunk_seconds:
             raise ValueError("overlap must be smaller than the chunk")
         if getattr(model, "decode_method", "greedy") == "beam_host":
@@ -96,17 +100,20 @@ class StreamingPredictor:
                 "'beam_device', or use ForceAPTAIPredictor, whose split "
                 "beam path runs the host beam search between the tower and "
                 "the head")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh streaming (several devices) is not implemented in "
-                f"aptai_tpu_torch yet ({_UNPORTED_MESH})")
+        if upload_ahead and mesh is not None:
+            raise ValueError(
+                "upload_ahead only applies to the single-device window "
+                "path; the mesh path splits each window's chunk stack over "
+                "the data axis — drop upload_ahead or the mesh")
         if fetch_mode not in ("pipelined", "per_file"):
             raise ValueError(f"unknown fetch_mode {fetch_mode!r}")
         if transfer_dtype not in TRANSFER_DTYPES:
             raise ValueError(f"unknown transfer_dtype {transfer_dtype!r}; "
                              f"expected one of {list(TRANSFER_DTYPES)}")
         self.device = resolve_device(device)
-        self.model = serving_copy(model, self.device)
+        self.mesh = mesh
+        self.rows = MeshRows(mesh, self.device)
+        self.model = serving_copy(model, self.device, mesh)
         if frame_keys is not None:
             self.frame_keys = tuple(frame_keys)
         self.fetch_workers = max(int(fetch_workers), 1)
@@ -114,6 +121,10 @@ class StreamingPredictor:
         self.upload_ahead = bool(upload_ahead)
         self.fetch_mode = fetch_mode
         self.chunk_batch = max(int(chunk_batch), 1)
+        if self.chunk_batch % self.rows.n:
+            raise ValueError(f"chunk_batch {self.chunk_batch} does not "
+                             f"divide over the {self.rows.n} processes of "
+                             "the data axis")
         self.chunk = int(chunk_seconds * SAMPLE_RATE)
         self.overlap = int(overlap_seconds * SAMPLE_RATE)
         self.frame_hop = int(np.prod(model_cfg_strides(model)))
@@ -128,13 +139,20 @@ class StreamingPredictor:
         out = getattr(self.model, self.apply_method)(audio, lengths)
         return {k: out[k] for k in self.frame_keys}
 
+    def _run(self, stack: torch.Tensor, lengths: torch.Tensor
+             ) -> Dict[str, torch.Tensor]:
+        """:meth:`_forward` on this process's rows of the stack, gathered
+        over the data axis."""
+        return self.rows.gather(self._forward(self.rows.local(stack),
+                                              self.rows.local(lengths)))
+
     def _forward_window(self, win: torch.Tensor, lengths: torch.Tensor
                         ) -> Dict[str, torch.Tensor]:
         """One group: the uploaded window decoded, cut into its (g, chunk)
         stack at the static offsets ``i · hop``, and run."""
         win = dequantize_transfer(win)
         stack = win.unfold(0, self.chunk, self.hop).contiguous()
-        return self._forward(stack, lengths)
+        return self._run(stack, lengths)
 
     def _frames_for(self, n_samples: int) -> int:
         return int(self.model.cfg.feat_extract_output_lengths(

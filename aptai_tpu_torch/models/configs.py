@@ -22,6 +22,12 @@ QUANT_MODES = ("none", "w8a8_ffn", "w8a8")
 # (B, H, T, D), or (B, T, C) projections split into heads. This package
 # computes both alike; they differ only in what "w8a8" quantizes
 ATTENTION_LAYOUTS = ("bhtd", "bthd")
+# the activation_partition specs the port places: the residual stream's
+# batch split over the data axis (the rows each process holds; None gives
+# the same values) and its time over the model axis (sequence parallelism)
+# or not at all; the hidden dimension whole
+PLACEABLE_PARTITIONS = frozenset((b, t, None) for b in ("data", None)
+                                 for t in ("model", None))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,9 +96,15 @@ class Wav2Vec2Config:
 
     def __post_init__(self):
         if self.activation_partition is not None:
-            raise NotImplementedError(
-                "activation_partition is not implemented in aptai_tpu_torch "
-                "yet (ROADMAP Queue 1 item 8e-ii); leave it None")
+            # a config dict read from JSON gives a list
+            spec = tuple(self.activation_partition)
+            if spec not in PLACEABLE_PARTITIONS:
+                raise ValueError(
+                    f"activation_partition {spec!r} cannot be placed: the "
+                    "port splits the (B, T, C) residual stream's batch over "
+                    "the data axis and at most its time over the model axis; "
+                    f"one of {sorted(PLACEABLE_PARTITIONS, key=str)} or None")
+            object.__setattr__(self, "activation_partition", spec)
         if self.attention_layout not in ATTENTION_LAYOUTS:
             # the JAX package runs any other string as "bthd"
             raise ValueError(f"attention_layout must be one of "

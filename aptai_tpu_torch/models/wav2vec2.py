@@ -71,6 +71,11 @@ from aptai_tpu_torch.ops.fused_conv import fused_conv_ln_gelu, kernel_weight
 from aptai_tpu_torch.ops.quant import (quantize_rows, quantize_weight,
                                        w8a8_linear)
 from aptai_tpu_torch.parallel.global_batch import global_rows
+from aptai_tpu_torch.parallel.tensor import (copy_to_model, gather_time,
+                                             gather_time_replicated,
+                                             reduce_from_model,
+                                             reduce_scatter_time,
+                                             scatter_time)
 
 
 def compute_dtype(cfg: Wav2Vec2Config) -> torch.dtype:
@@ -87,10 +92,15 @@ def _gelu(x: torch.Tensor, cfg: Wav2Vec2Config) -> torch.Tensor:
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor,
-                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                dtype: Optional[torch.dtype] = None,
+                axis=None) -> torch.Tensor:
     """LayerNorm over the last dim with float32 statistics and parameters;
-    the result in ``dtype`` (None: the activation dtype)."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+    the result in ``dtype`` (None: the activation dtype). ``axis``: the
+    model axis ``x`` is a time shard of (sequence parallelism), over which
+    the parameters' gradients are summed."""
+    return F.layer_norm(x.float(), ln.normalized_shape,
+                        copy_to_model(ln.weight, axis),
+                        copy_to_model(ln.bias, axis),
                         ln.eps).to(dtype or x.dtype)
 
 
@@ -127,28 +137,51 @@ class QuantLinear(Linear):
     def forward(self, x, x_codes=None):
         """``x_codes``: :func:`quantize_rows` of ``x``, where the caller
         shares one quantization among the layers that read ``x``."""
+        self._refuse_gradient(x)
+        xq = quantize_rows(x) if x_codes is None else x_codes
+        y = w8a8_linear(xq, self.weight_codes(), self.fold_scales, x.dtype)
+        return y + self.bias.to(x.dtype)
+
+    def _refuse_gradient(self, x):
         if torch.is_grad_enabled() and (
                 x.requires_grad
                 or any(p.requires_grad for p in self.parameters())):
             raise NotImplementedError(
                 "quant (W8A8) is inference only: run under torch.no_grad() "
                 "or torch.inference_mode(), or train with quant='none'")
-        xq = quantize_rows(x) if x_codes is None else x_codes
-        y = w8a8_linear(xq, self.weight_codes(), self.fold_scales, x.dtype)
-        return y + self.bias.to(x.dtype)
 
-    def weight_codes(self):
-        """The weight's :func:`quantize_weight`: made once and reused until
-        the weight changes (in place, or by a move or a cast). Under
+    def row_parallel_product(self, x, axis):
+        """The product without its bias, this layer holding its input
+        features' slice on the model ``axis`` and ``x`` the matching slice
+        of the input: the activation's row maxima and the weight's channel
+        maxima are taken over the axis, so the codes are the unsharded
+        layer's, and the int32 products are summed over it (exact;
+        reduce-scattered over time under sequence parallelism) before the
+        dequantization, so the output is the unsharded layer's too."""
+        self._refuse_gradient(x)
+
+        def reduce(y, scale):
+            if axis.sequence:
+                return (reduce_scatter_time(y, axis),
+                        scale.chunk(axis.size, 1)[axis.rank])
+            return reduce_from_model(y, axis), scale
+
+        return w8a8_linear(quantize_rows(x, axis), self.weight_codes(axis),
+                           self.fold_scales, x.dtype, reduce=reduce)
+
+    def weight_codes(self, axis=None):
+        """The weight's :func:`quantize_weight` (its channel maxima over the
+        model ``axis`` for a row-parallel layer): made once and reused
+        until the weight changes (in place, or by a move or a cast). Under
         ``torch.export`` (whose parameters have no storage to key on) it is
         made in the traced program."""
         w = self.weight
         if torch.compiler.is_compiling():
-            return quantize_weight(w.detach())
-        key = (w.device, w.dtype, w.data_ptr(), w._version)
+            return quantize_weight(w.detach(), axis)
+        key = (w.device, w.dtype, w.data_ptr(), w._version, axis is None)
         if self._codes is None or self._codes[0] != key:
             with torch.no_grad():
-                self._codes = (key, quantize_weight(w.detach()))
+                self._codes = (key, quantize_weight(w.detach(), axis))
         return self._codes[1]
 
 
@@ -319,11 +352,46 @@ class PositionalConvEmbedding(nn.Module):
         return _gelu(h, self.cfg)
 
 
+def _column_input(x: torch.Tensor, axis) -> torch.Tensor:
+    """The input of a column-parallel product on the model ``axis``: ``x``
+    itself (its gradient summed over the axis), or under sequence
+    parallelism the whole sequence gathered from the time shards."""
+    if axis is None:
+        return x
+    return gather_time(x, axis) if axis.sequence else copy_to_model(x, axis)
+
+
+def _row_parallel(linear: Linear, x: torch.Tensor, axis) -> torch.Tensor:
+    """``linear`` on ``x``; on the model ``axis`` a row-parallel product
+    (``linear`` holds its slice of the input features, ``x`` the matching
+    slice of the input): the partial products summed over the axis (under
+    sequence parallelism reduce-scattered to this process's time shard),
+    then the bias, added once."""
+    if axis is None:
+        return linear(x)
+    if isinstance(linear, QuantLinear):
+        y = linear.row_parallel_product(x, axis)
+    else:
+        y = F.linear(x, linear.weight.to(x.dtype))
+        y = (reduce_scatter_time(y, axis) if axis.sequence
+             else reduce_from_model(y, axis))
+    bias = linear.bias.to(y.dtype)
+    # on a time shard each process adds it to its own frames
+    return y + (copy_to_model(bias, axis) if axis.sequence else bias)
+
+
 class SelfAttention(nn.Module):
+    """Multi-head self-attention. On the model axis (``model_axis``, set by
+    ``parallel.mesh.split_model_axis``) each process holds H/n heads: its
+    rows of q, k and v (column-parallel; the fused q/k/v product stays
+    whole, and each process reads its heads' views of it) and its columns
+    of the output projection (row-parallel)."""
+
+    model_axis = None
+
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         self.cfg = cfg
-        self.heads = cfg.num_attention_heads
         c = cfg.hidden_size
         # "w8a8_ffn" leaves the projections exact, and so does "w8a8" where
         # the JAX package's projections are plain Dense layers
@@ -339,17 +407,25 @@ class SelfAttention(nn.Module):
             self.v_proj = linear(c, c)
         self.out_proj = linear(c, c)
 
-    def forward(self, x, lengths):  # (B, T, C)
+    def forward(self, x, lengths):  # (B, T, C); a time shard under SP
+        axis = self.model_axis
+        x = _column_input(x, axis)
         b, t, c = x.shape
-        d = c // self.heads
+        d = self.cfg.head_dim
 
-        def to_heads(y):  # (B, T, C) -> a (B, H, T, D) view, no copy
-            return y.view(b, t, self.heads, d).transpose(1, 2)
+        def to_heads(y):  # (B, T, H·D) -> a (B, H, T, D) view, no copy
+            return y.view(b, t, y.shape[-1] // d, d).transpose(1, 2)
 
         if self.cfg.fused_qkv:
             # views of one (B, T, 3C) product: the kernels read its 3C time
-            # stride, and autograd stacks dq, dk and dv into its gradient
-            q, k, v = (to_heads(y) for y in self.qkv_proj(x).split(c, -1))
+            # stride, and autograd stacks dq, dk and dv into its gradient;
+            # on the model axis the product is whole on every process,
+            # which reads its own heads (its gradient summed over the axis)
+            w, bias = (copy_to_model(p, axis) for p in (
+                self.qkv_proj.weight, self.qkv_proj.bias))
+            own = slice(None) if axis is None else axis.shard(c)
+            q, k, v = (to_heads(y[..., own]) for y in F.linear(
+                x, w.to(x.dtype), bias.to(x.dtype)).split(c, -1))
         else:
             # q, k and v quantize x to the same codes: once, shared
             shared = {"x_codes": quantize_rows(x)} if self.quant else {}
@@ -357,11 +433,19 @@ class SelfAttention(nn.Module):
                        for proj in (self.q_proj, self.k_proj, self.v_proj))
         ctx = multi_head_attention_bhtd(q, k, v, lengths)
         # free when the kernel wrote its (B, T, H, D) buffer
-        out = self.out_proj(ctx.transpose(1, 2).reshape(b, t, c))
+        out = _row_parallel(self.out_proj,
+                            ctx.transpose(1, 2).reshape(b, t, -1), axis)
         return _dropout(out, self.cfg.attention_dropout, self.training)
 
 
 class FeedForward(nn.Module):
+    """The GELU FFN. On the model axis each process holds its slice of the
+    hidden units: rows of the first Linear (column-parallel), columns of
+    the second (row-parallel); its dropout after the GELU draws a mask of
+    its own for its units."""
+
+    model_axis = None
+
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         self.cfg = cfg
@@ -372,9 +456,10 @@ class FeedForward(nn.Module):
         self.output_dense = linear(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x):
-        h = _gelu(self.intermediate_dense(x), self.cfg)
+        axis = self.model_axis
+        h = _gelu(self.intermediate_dense(_column_input(x, axis)), self.cfg)
         h = _dropout(h, self.cfg.activation_dropout, self.training)
-        h = self.output_dense(h)
+        h = _row_parallel(self.output_dense, h, axis)
         return _dropout(h, self.cfg.hidden_dropout, self.training)
 
 
@@ -382,7 +467,11 @@ class EncoderLayer(nn.Module):
     """Pre-norm transformer layer. Its sublayers compute in the compute
     dtype; the residual adds keep the stream's dtype (float32 under
     ``do_stable_layer_norm=False``), as the JAX package's type promotion
-    does."""
+    does. Under sequence parallelism (``model_axis.sequence``) it takes
+    and returns this process's time shard of the residual stream, and its
+    LayerNorms, residual adds and dropouts act on that shard."""
+
+    model_axis = None
 
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
@@ -394,10 +483,12 @@ class EncoderLayer(nn.Module):
         self.feed_forward = FeedForward(cfg)
 
     def forward(self, x, lengths):
-        x = x + self.attention(_layer_norm(self.layer_norm, x, self.dtype),
-                               lengths)
+        axis = self.model_axis
+        sp = axis if axis is not None and axis.sequence else None
+        x = x + self.attention(
+            _layer_norm(self.layer_norm, x, self.dtype, sp), lengths)
         return x + self.feed_forward(
-            _layer_norm(self.final_layer_norm, x, self.dtype))
+            _layer_norm(self.final_layer_norm, x, self.dtype, sp))
 
 
 # the dense products F.linear and torch.matmul dispatch to: the ops whose
@@ -423,6 +514,14 @@ _DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
 
 
 class Encoder(nn.Module):
+    """The positional conv and the transformer stack. Under sequence
+    parallelism (``model_axis.sequence``) the stack runs on time shards:
+    the sequence is padded to a multiple of the model axis's size (the pad
+    frames lie past every length, so no valid frame attends to them) and
+    split, and gathered again after the last layer."""
+
+    model_axis = None
+
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         self.cfg = cfg
@@ -448,6 +547,15 @@ class Encoder(nn.Module):
         kwargs = ({"context_fn": _DOTS_CONTEXT}
                   if self.cfg.remat_policy == "dots" else {})
         all_hidden = [h] if output_hidden_states else None
+        axis = self.model_axis
+        sp = axis is not None and axis.sequence
+        t = h.shape[1]
+        if sp:
+            h = scatter_time(F.pad(h, (0, 0, 0, -t % axis.size)), axis)
+
+        def whole(x):  # the whole sequence from this process's shard
+            return gather_time_replicated(x, axis)[:, :t] if sp else x
+
         for i, layer in enumerate(self.layers):
             if remat:
                 h = checkpoint(layer, h, frame_lengths, use_reentrant=False,
@@ -455,7 +563,8 @@ class Encoder(nn.Module):
             else:
                 h = layer(h, frame_lengths)
             if output_hidden_states and i < len(self.layers) - 1:
-                all_hidden.append(h)
+                all_hidden.append(whole(h))
+        h = whole(h)
         if stable:
             h = _layer_norm(self.layer_norm, h)
         if output_hidden_states:

@@ -33,6 +33,12 @@ multiples of 8, which :func:`int8_mm` checks on every device, and more
 than 16 rows on the card, which it pads with zero rows (codes 0) and
 slices off.
 
+On the model axis (``parallel/tensor.py``) a row-parallel layer holds a
+slice of the contracted width: its row and channel maxima are taken over
+the axis (``axis=``) and its int32 products summed over it before the
+dequantization (``reduce=``), so the codes and the outputs are the
+unsharded layer's.
+
 INFERENCE ONLY: rounding has no useful gradient. The model's quantized
 layers refuse a forward that needs one (``models/wav2vec2.py``
 ``QuantLinear``), where the JAX package trains through ``round``'s zero
@@ -46,6 +52,8 @@ from typing import NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from aptai_tpu_torch.parallel.tensor import max_over_model
 
 QMAX = 127.0
 # XLA's rewrite of ``/ 127`` under jit: a multiply by the float32 reciprocal
@@ -69,27 +77,32 @@ class QuantizedWeight(NamedTuple):
     scale: torch.Tensor
 
 
-def dynamic_quantize(x: torch.Tensor, dims: Union[int, Sequence[int]]):
+def dynamic_quantize(x: torch.Tensor, dims: Union[int, Sequence[int]],
+                     axis=None):
     """Quantize ``x`` to int8 with one max-abs scale per slice over
-    ``dims`` (the contracted dims). Returns ``(codes int8, scale float32
-    with the dims kept)``, ``codes · scale ≈ x``."""
+    ``dims`` (the contracted dims; ``axis``: the model axis that splits
+    them, over which the maxima are taken). Returns ``(codes int8, scale
+    float32 with the dims kept)``, ``codes · scale ≈ x``."""
     # the max and the division in float32 without a float32 copy of x:
     # |x| and its max are exact in x's dtype, and x / scale promotes each
     # element exactly
-    scale = x.abs().amax(dim=dims, keepdim=True).float() * INV_QMAX
+    amax = max_over_model(x.abs().amax(dim=dims, keepdim=True), axis)
+    scale = amax.float() * INV_QMAX
     scale = scale.clamp_min(MIN_SCALE)
     codes = (x / scale).round_().clamp_(-QMAX, QMAX).to(torch.int8)
     return codes, scale
 
 
-def quantize_rows(x: torch.Tensor) -> QuantizedRows:
-    """``x`` (..., K) quantized row by row over its last dim."""
-    return QuantizedRows(*dynamic_quantize(x, -1))
+def quantize_rows(x: torch.Tensor, axis=None) -> QuantizedRows:
+    """``x`` (..., K) quantized row by row over its last dim (and over the
+    model ``axis`` that splits it)."""
+    return QuantizedRows(*dynamic_quantize(x, -1, axis))
 
 
-def quantize_weight(w: torch.Tensor) -> QuantizedWeight:
-    """A Linear weight (N, K) quantized by output channel."""
-    codes, scale = dynamic_quantize(w, 1)
+def quantize_weight(w: torch.Tensor, axis=None) -> QuantizedWeight:
+    """A Linear weight (N, K) quantized by output channel (its K split
+    over the model ``axis``, if one is given)."""
+    codes, scale = dynamic_quantize(w, 1, axis)
     return QuantizedWeight(codes.contiguous(), scale.reshape(1, -1))
 
 
@@ -114,14 +127,23 @@ def int8_mm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def w8a8_linear(x: QuantizedRows, w: QuantizedWeight,
-                fold_scales: bool, out_dtype: torch.dtype) -> torch.Tensor:
+                fold_scales: bool, out_dtype: torch.dtype,
+                reduce=None) -> torch.Tensor:
     """The quantized product ``x @ w.T`` over codes: (..., K) rows, an
     (N, K) weight → (..., N) in ``out_dtype``. ``fold_scales`` picks the
     dequantization order: ``y · (x_scale · w_scale)`` (the attention
-    projections) or ``(y · x_scale) · w_scale`` (the FFN)."""
+    projections) or ``(y · x_scale) · w_scale`` (the FFN). ``reduce(y,
+    x_scale)``, given the int32 products (..., N) and the row scales
+    (..., 1), returns the pair the dequantization reads (their sums and
+    scales over the model axis)."""
     lead, k = x.codes.shape[:-1], x.codes.shape[-1]
     y = int8_mm(x.codes.reshape(-1, k), w.codes.t())
-    xs = x.scale.reshape(-1, 1)
+    xs = x.scale
+    if reduce is not None:
+        y, xs = reduce(y.reshape(*lead, -1), xs)
+        lead = y.shape[:-1]
+        y = y.reshape(-1, y.shape[-1])
+    xs = xs.reshape(-1, 1)
     # the last product in float32, written in out_dtype (one rounding, as
     # a float32 product then a cast)
     out = torch.empty(y.shape, dtype=out_dtype, device=y.device)

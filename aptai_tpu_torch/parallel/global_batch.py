@@ -15,6 +15,10 @@ global answer:
   spans). Each process draws for the global batch and keeps its own rows,
   so its masks are the ones a single device draws for those rows.
 
+The processes of the model axis hold the same rows and compute the same
+loss: ``group`` is the data axis's, so the counts are summed once per data
+index.
+
 Outside :func:`data_parallel_batch` (one process, evaluation) both are
 the plain single-batch forms. This module imports nothing of the package,
 so the models can use it.

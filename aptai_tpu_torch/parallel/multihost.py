@@ -12,10 +12,13 @@ launcher that sets ``RANK`` / ``WORLD_SIZE``) the last two flags can be
 left out: :func:`process_env_defaults` reads them from the environment.
 
 The collectives run on NCCL when the run's device is the card and on gloo
-when it is the CPU; one never stands in for the other. Host-side control
-(the barrier around a checkpoint write, a preemption flag agreed by every
-process) runs on a gloo group of the same processes, so a slow disk write
-does not sit inside an NCCL collective's timeout.
+when it is the CPU; one never stands in for the other. A caller may ask
+for gloo on the card (``backend="gloo"``): it carries CUDA tensors through
+host memory, and lets several processes share one card, which NCCL
+refuses. Host-side control (the barrier around a checkpoint write, a
+preemption flag agreed by every process) runs on a gloo group of the same
+processes, so a slow disk write does not sit inside an NCCL collective's
+timeout.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ def init_distributed(coordinator_address: str = "",
                      num_processes: int = 0,
                      process_id: int = -1,
                      local_device_ids: Optional[Sequence[int]] = None,
-                     device: Union[str, torch.device] = "cuda") -> bool:
+                     device: Union[str, torch.device] = "cuda",
+                     backend: Optional[str] = None) -> bool:
     """Join this process to a multi-process run; True when a process group
     was set up, False when ``coordinator_address`` is empty (one process).
 
@@ -43,7 +47,8 @@ def init_distributed(coordinator_address: str = "",
     backend follows ``device``, the run's device: NCCL for ``cuda`` (and
     this process's card becomes the current device: ``local_device_ids``'s
     one entry, else ``LOCAL_RANK``, else the rank modulo the cards
-    present), gloo for ``cpu``.
+    present), gloo for ``cpu``; ``backend="gloo"`` with ``cuda`` runs the
+    card's collectives through host memory (processes sharing a card).
 
     ``"auto"`` takes the rank and size from :func:`process_env_defaults`
     and the address from ``MASTER_ADDR`` / ``MASTER_PORT``, and raises if
@@ -82,15 +87,20 @@ def init_distributed(coordinator_address: str = "",
         return True
     device = torch.device(device)
     kwargs = {}
+    if backend not in (None, "nccl", "gloo"):
+        raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("init_distributed on cuda, but CUDA is not "
                                "available (pass device='cpu' for gloo)")
         local = _local_device(process_id, local_device_ids)
         torch.cuda.set_device(local)
-        backend = "nccl"
-        kwargs["device_id"] = torch.device("cuda", local)
+        backend = backend or "nccl"
+        if backend == "nccl":
+            kwargs["device_id"] = torch.device("cuda", local)
     elif device.type == "cpu":
+        if backend == "nccl":
+            raise ValueError("NCCL runs on the card, not on the CPU")
         backend = "gloo"
     else:
         raise ValueError(f"no process-group backend for device {device}")

@@ -48,7 +48,8 @@ from aptai_tpu_torch.models.convert import (any_state_dict_from_jax,
                                             jax_params_from_any_state_dict,
                                             jax_tree_family,
                                             state_dict_family)
-from aptai_tpu_torch.parallel.mesh import load_full_optimizer_state
+from aptai_tpu_torch.parallel.mesh import (full_shapes,
+                                           load_full_optimizer_state)
 from aptai_tpu_torch.utils.trees import fetch_pytree
 
 PARAMS = "params.pt"
@@ -377,8 +378,11 @@ class JaxAdamState:
                          model: torch.nn.Module) -> Dict:
         """``optimizer``'s ``state_dict`` holding these moments, each keyed
         to its parameter by the name ``model`` gives it; ``step`` is the
-        optax ``count`` (float32, as ``torch.optim.Adam`` keeps it)."""
+        optax ``count`` (float32, as ``torch.optim.Adam`` keeps it). The
+        moments are a single device's, also for a model placed on a mesh
+        (``parallel.mesh.load_full_optimizer_state`` slices them)."""
         names = {id(p): n for n, p in model.named_parameters()}
+        shapes = full_shapes(model)
         state, index = {}, 0
         for group in optimizer.param_groups:
             for p in group["params"]:
@@ -391,10 +395,10 @@ class JaxAdamState:
                     raise ValueError(f"parameter {name!r} is frozen "
                                      "(optax.masked) in the JAX run but "
                                      "trained by this optimizer")
-                if m.shape != p.shape:
+                if m.shape != shapes[name]:
                     raise ValueError(f"the JAX Adam moments of {name!r} have "
                                      f"shape {tuple(m.shape)}, the parameter "
-                                     f"{tuple(p.shape)}")
+                                     f"{tuple(shapes[name])}")
                 state[index] = {
                     "step": torch.tensor(float(self.count), dtype=torch.float32),
                     "exp_avg": m, "exp_avg_sq": self.exp_avg_sq[name]}

@@ -12,10 +12,13 @@ as ``models/configs.py`` checks its unported fields:
   multi-process run, one process per device (``parallel/multihost.py``):
   :meth:`TrainConfig.finalize` joins the process group, filling the last
   two from the launcher's environment when they are unset;
-* ``mesh_data``, ``fsdp``: the data axis of those processes
-  (``parallel/mesh.py``; ``train/harness.py::make_engine``);
-  ``mesh_model`` other than 1 (tensor parallelism) is not implemented yet
-  and raises ``NotImplementedError``;
+* ``mesh_data``, ``mesh_model``, ``fsdp``: the ``(data, model)`` mesh of
+  those processes (``parallel/mesh.py``; ``train/harness.py::
+  make_engine``): ``mesh_model`` processes split each encoder layer
+  (tensor parallelism, and sequence parallelism under the backbone's
+  ``activation_partition``), and the data axis splits the batch, under
+  FSDP the parameters too; a process count that ``mesh_model`` does not
+  divide raises the JAX package's ``ValueError`` at ``finalize``;
 * ``rng_impl``: ``"rbg"`` and ``"threefry"`` are both accepted and mean the
   same here: torch has one Philox generator per device, which the train
   step seeds per step (``train/harness.py``);
@@ -120,6 +123,12 @@ class TrainConfig:
                              self.process_id,
                              device="cpu" if self.platform == "cpu"
                              else "cuda")
+        from aptai_tpu_torch.parallel.multihost import process_count
+
+        n = process_count()
+        if n % self.mesh_model:
+            raise ValueError(
+                f"{n} devices not divisible by model={self.mesh_model}")
         self.date_time = datetime.now().strftime("%Y-%m-%d_%H:%M:%S")
         if self.laptop:  # debug mode truncation (reference :186-189)
             self.num_epochs = 1
@@ -143,11 +152,8 @@ def _check_fields(cfg: TrainConfig) -> None:
     if cfg.rng_impl not in RNG_IMPLS:
         raise ValueError(f"rng_impl must be one of {RNG_IMPLS}, got "
                          f"{cfg.rng_impl!r}")
-    if cfg.mesh_model != 1:
-        raise NotImplementedError(
-            f"mesh_model={cfg.mesh_model} asks for tensor parallelism, which "
-            "aptai_tpu_torch does not implement yet (ROADMAP Queue 1 item "
-            "8e-ii: the model and pipe axes); leave it at 1")
+    if cfg.mesh_model < 1:
+        raise ValueError(f"mesh_model must be >= 1, got {cfg.mesh_model}")
 
 
 def run_device(cfg) -> torch.device:

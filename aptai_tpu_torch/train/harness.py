@@ -23,12 +23,14 @@ gradient) carry no optimizer state and stay bit-identical.
 
 On a mesh (``TrainStep(mesh=...)``) each process steps on its rows of the
 global batch, and the step is the single-device step on the global batch:
-under ``DistributedDataParallel``, or on a model ``shard_tree(fsdp=True)``
-sharded, the gradients are averaged over the data axis, the masked means
-of the loss and SpecAugment's spans are the global batch's
-(``parallel/global_batch.py``), and the returned metrics are averaged over
-the processes. Dropout draws for the local rows, so under dropout the
-processes' masks are not the single device's.
+the model axis splits the encoder's attention heads and FFN units
+(``parallel/tensor.py``), and under ``DistributedDataParallel``, or on a
+model ``shard_tree(fsdp=True)`` sharded, the gradients are averaged over
+the data axis, the masked means of the loss and SpecAugment's spans are
+the global batch's (``parallel/global_batch.py``), and the returned
+metrics are averaged over the data axis. Dropout draws for the local rows
+(and units), so under dropout the processes' masks are not the single
+device's.
 """
 
 from __future__ import annotations
@@ -91,12 +93,18 @@ class TrainStep:
     as they were.
 
     ``mesh`` (``parallel.make_mesh``): ``batch`` is this process's rows of
-    the global batch, ``grad_accum`` splits them, and the one gradient
-    all-reduce (or reduce-scatter) comes with the last microbatch. A
-    ``model`` sharded by ``parallel.shard_tree(model, mesh, fsdp=True)``
-    (before ``optimizer`` is built over it) steps as it is; any other runs
-    under ``DistributedDataParallel``. Every process of the mesh calls the
-    step.
+    the global batch (those of its index on the data axis), ``grad_accum``
+    splits them, and the one gradient all-reduce (or reduce-scatter) over
+    the data axis comes with the last microbatch. A ``model`` sharded by
+    ``parallel.shard_tree(model, mesh, fsdp=True)`` (before ``optimizer``
+    is built over it) steps as it is; any other is placed on the model
+    axis in place (``parallel.mesh.split_model_axis``: tensor parallelism,
+    and sequence parallelism under the encoder's ``activation_partition``)
+    and runs under ``DistributedDataParallel`` over the data axis. Every
+    process of the mesh calls the step. The processes of one data index
+    draw the same dropout masks on the tensors they all hold (each is
+    seeded alike); the FFN's hidden units and, under sequence parallelism,
+    the time shards draw masks of their own.
     """
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -122,7 +130,8 @@ class TrainStep:
             self._place(mesh)
 
     def _place(self, mesh) -> None:
-        from aptai_tpu_torch.parallel.mesh import (is_fsdp, mesh_device,
+        from aptai_tpu_torch.parallel.mesh import (DATA_AXIS, axis_size,
+                                                   is_fsdp, mesh_device,
                                                    shard_tree)
 
         if mesh_device(mesh).type != self.device.type:
@@ -135,10 +144,12 @@ class TrainStep:
                              "not (built before shard_tree?)")
         self.fsdp = is_fsdp(self.model)
         if not self.fsdp:
+            # the model axis in place (the optimizer's parameters keep
+            # their identity), then DDP over the data axis
             self._runner = shard_tree(self._runner, mesh)
-        self._group = mesh.get_group()
-        self._rank = mesh.get_local_rank()
-        self._size = mesh.size()
+        self._group = mesh.get_group(DATA_AXIS)
+        self._rank = mesh.get_local_rank(DATA_AXIS)
+        self._size = axis_size(mesh, DATA_AXIS)
 
     def _batch(self, batch) -> Tuple[Dict[str, torch.Tensor], int]:
         """The adapter's keys on the device, and the batch size."""

@@ -16,12 +16,13 @@ On the card:
     tree the JAX trainer of the model's family holds.
 
 In a run of several processes (``parallel/``), each process trains on its
-rows of every global batch (the loader's split), and host-side writes are
-the primary's: checkpoints and the run logger's metrics, the other
-processes waiting at a barrier until each write is done. An FSDP model's
-parameters and Adam state are gathered whole to the primary's host for
-every checkpoint, so its files are a single device's; a resume shards them
-back. A preemption signal received by any process stops every process at
+rows of every global batch (the loader's split over the data axis), and
+host-side writes are the primary's: checkpoints and the run logger's
+metrics, the other processes waiting at a barrier until each write is
+done. The parameters and Adam state of a model placed on the mesh
+(tensor-parallel, FSDP, or both) are gathered whole to the primary's host
+for every checkpoint, so its files are a single device's; a resume shards
+them back. A preemption signal received by any process stops every process at
 the same step boundary.
 """
 
@@ -39,7 +40,8 @@ import torch
 from torch import nn
 
 from aptai_tpu_torch.data.batching import BucketedLoader
-from aptai_tpu_torch.parallel.mesh import (full_optimizer_state,
+from aptai_tpu_torch.parallel.mesh import (DATA_AXIS, axis_size,
+                                           full_optimizer_state,
                                            full_state_dict,
                                            load_full_state_dict)
 from aptai_tpu_torch.parallel.multihost import (any_process, host_barrier,
@@ -121,7 +123,7 @@ def require_one_process(what: str) -> None:
     if process_count() > 1:
         raise NotImplementedError(
             f"{what} runs in one process only (ROADMAP Queue 1 item "
-            "8e-ii); launch it without --coordinator_address")
+            "8e-iv); launch it without --coordinator_address")
 
 
 def split_rows(loader, index: int, count: int) -> None:
@@ -166,8 +168,9 @@ def fit(cfg, loss_fn: Callable, model: nn.Module, train_loader,
       and the step counter (which seeds dropout and SpecAugment) are
       restored and training resumes after the saved epoch;
     * several processes (the engine on a mesh): ``train_loader``'s batches
-      are global batches, of which each process takes its rows
-      (:func:`split_rows`); every process calls ``fit`` and
+      are global batches, of which each process takes the rows of its
+      index on the data axis (:func:`split_rows`; the processes of the
+      model axis take the same rows); every process calls ``fit`` and
       ``validate_fn``.
     """
     step = engine if engine is not None else make_engine(
@@ -175,7 +178,12 @@ def fit(cfg, loss_fn: Callable, model: nn.Module, train_loader,
     model, optimizer = step.model, step.optimizer
     nproc = process_count()
     primary = is_primary()
-    if nproc > 1:
+    if step.mesh is not None:
+        # the processes of one data index take the same rows
+        if axis_size(step.mesh, DATA_AXIS) > 1:
+            split_rows(train_loader, step.mesh.get_local_rank(DATA_AXIS),
+                       axis_size(step.mesh, DATA_AXIS))
+    elif nproc > 1:
         split_rows(train_loader, process_index(), nproc)
     start_epoch = 0
     if getattr(cfg, "train_from_ckpt", False) and ckpt.has_last():

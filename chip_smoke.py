@@ -289,6 +289,27 @@ Phases (any failure ends the run with a non-zero exit code):
    profiled step of each (kernel time against wall time, top kernels); ``fetch_pytree`` of the parameters and Adam state bit for bit
    ``.cpu()`` leaf by leaf, GB/s of both; ``device_peak_int8_tops()`` and
    phase 12a's int8 bounds from it; the group destroyed.
+17. The model axis (tensor and sequence parallelism) on two processes that
+   share the card over gloo (NCCL takes one rank a device): two ranks
+   (``chip_smoke.py --tensor-parallel-rank``) start and join a 1 x 2 mesh
+   on the card while the script takes two plain full-width APTAI steps
+   (bf16, 8 x 5 s, seed 0, no dropout or SpecAugment) and the same with
+   plain attention autograd (bf16's noise floor) and serves 32 x 10 s
+   with the kernels and with plain attention; then the ranks run: 17a two
+   ``TrainStep`` steps with tensor parallelism, then two with
+   ``activation_partition=("data", "model", None)``: losses within 1e-3,
+   the first step's gathered gradients within phase 5's bf16 gradient
+   gates (sequence parallelism's of tensor parallelism's), the gathered
+   tensor-parallel parameters served against the plain model within
+   twice the noise floor, 24 launches of each flash kernel a step on each
+   rank with 8 heads, per-rank bytes, step times; 17b
+   ``APTAIPredictor(mesh=)`` at 32 x 10 s within phase 3's gates of the
+   single-device predictor (widened to twice that batch's noise floor
+   where it lies outside them), 24 forward launches a batch on each rank,
+   audio-s/s; 17c one ``w8a8_ffn`` batch of 4 x 10 s against the
+   unsharded model, given the ranks' codes and free, the codes that
+   differ counted; gloo's all-reduce time at the train and serving
+   shapes; each rank's stage times.
 
 Output: the phases' lines, then one JSON line of kernel records, the card
 line, and last ``{"ok": true, "device": {...}}``. A flash kernel record's
@@ -308,8 +329,10 @@ W2V2PR and one FORCE batch in ``w8a8``, one request to the
 ``w8a8_ffn`` app of 12d, one APTAI batch in each encoder variant of 13b,
 the train step of 13c, the two ``w8a8`` batches of 13d, the APTAI
 epoch of 14 from the prepared manifest, the six APTAI steps of 15, and
-the two DDP and two FSDP steps of 16), each read with the counts set to
-0 just before it.
+the two DDP and two FSDP steps of 16, rank 0's two tensor-parallel and
+two sequence-parallel steps, one tensor-parallel batch and one
+``w8a8_ffn`` batch on the model axis of 17), each read with the counts
+set to 0 just before it.
 
 Phase 13 alone, from the repository root (the kernels build at first
 use; ``main`` also turns TF32 off, which the small float32 models' gates
@@ -327,8 +350,10 @@ Phase 14 alone, in a temporary directory:
 
 Phase 15 alone the same way: ``cs.phase_checkpoint(cs.card_line(),
 pathlib.Path(tempfile.mkdtemp()))``; phase 16 as
-``cs.phase_data_parallel(cs.card_line())``. The other phases' functions
-run alone the same way.
+``cs.phase_data_parallel(cs.card_line())``; phase 17 as
+``cs.phase_tensor_parallel(cs.card_line())`` after
+``aptai_tpu_torch.ops.kernels.build_all()`` (its ranks load the kernels
+the script built). The other phases' functions run alone the same way.
 """
 
 from __future__ import annotations
@@ -413,7 +438,7 @@ from aptai_tpu_torch.train.train_force_aptai import \
     make_eval_forward as force_eval_forward
 from aptai_tpu_torch.train.train_pr import make_eval_forward
 from aptai_tpu_torch.parallel import init_distributed, make_mesh, shard_tree
-from aptai_tpu_torch.parallel.mesh import full_state_dict
+from aptai_tpu_torch.parallel.mesh import full_state_dict, gather_full
 from aptai_tpu_torch.utils.flops import (aptai_forward_flops,
                                          device_peak_int8_tops,
                                          device_peak_tflops, encoder_flops,
@@ -5897,6 +5922,560 @@ def _phase_data_parallel(card, t_phase):
             "fsdp_train_step": (DP_STEPS, counts["fsdp"])}
 
 
+TP_RANKS = 2  # the model axis: two processes sharing the card over gloo
+TP_STEPS = 2  # full-width steps of each layout, counted, timed, compared
+TP_SERVE_BATCHES = 1  # timed 32 x 10 s batches on the mesh, after one warm
+TP_QUANT_ROWS = 4  # 17c's w8a8_ffn batch: 4 x 10 s
+TP_TIMEOUT = 600  # seconds the ranks may take together
+SP = ("data", "model", None)  # the residual stream's time on the model axis
+TP_DEVICE = "cuda"  # the ranks' device (and their mesh's)
+T_START = time.perf_counter()  # a rank's stage times count from its imports
+
+
+def tp_config():
+    """Phase 17's model: full-width APTAI in bf16, no dropout or
+    SpecAugment (the CPU tests pin their draws on the model axis)."""
+    return Wav2Vec2Config(dtype="bfloat16", mask_time_prob=0.0, **NO_DROP)
+
+
+def tp_wavs(n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(10 * SAMPLE_RATE) * 0.1).astype(np.float32)
+            for _ in range(n)]
+
+
+def serving_gates(got, want):
+    """Phase 3's serving measures of ``got`` against ``want`` (host dicts
+    of ``tvs_pred`` and ``phn_fc_pred``): the smallest per-TV Pearson and
+    the phoneme argmax agreement over the valid frames."""
+    n = np.asarray(want["frame_lengths"])
+    tv_g = np.concatenate([got["tvs_pred"][b, :m] for b, m in enumerate(n)])
+    tv_w = np.concatenate([want["tvs_pred"][b, :m] for b, m in enumerate(n)])
+    agree = np.mean(np.concatenate([
+        got["phn_fc_pred"][b, :m] == want["phn_fc_pred"][b, :m]
+        for b, m in enumerate(n)]))
+    return min(pearson(tv_g[:, i].astype(np.float64),
+                       tv_w[:, i].astype(np.float64)) for i in range(9)), \
+        float(agree)
+
+
+def within_floor(got, floor) -> bool:
+    """Phase 3's serving gates (per-TV Pearson ≥ 0.999, argmax agreement ≥
+    99 %), widened to twice bf16's noise floor where that floor, the same
+    comparison between two bf16 runs that round differently (plain
+    attention against the kernel), lies outside them: ``got`` and
+    ``floor`` are ``(Pearson min, agreement)``."""
+    return (1 - got[0] <= max(2 * (1 - floor[0]), 1e-3)
+            and 1 - got[1] <= max(2 * (1 - floor[1]), 1e-2))
+
+
+def host_outputs(out, keys=("frame_lengths", "tvs_pred", "phn_fc_pred")):
+    return {k: (out[k].float() if out[k].dtype == torch.bfloat16
+                else out[k]).cpu().numpy() for k in keys}
+
+
+def record_heads():
+    """Wrap the three flash wrappers so that each launch records its head
+    count; returns the set they fill. The ops look the wrappers up at call
+    time, and each wrapper counts its launch on the module's name for it,
+    so the counts move to the new functions (``COUNTED`` with them)."""
+    heads = set()
+    for key, name in (("flash_attn_fwd", "flash_attention_bhtd_cuda"),
+                      ("flash_attn_bwd_dq", "flash_attention_bwd_dq_cuda"),
+                      ("flash_attn_bwd_dkv", "flash_attention_bwd_dkv_cuda")):
+        real = getattr(attention, name)
+
+        def wrapped(q, *a, _real=real, **kw):
+            heads.add(int(q.shape[1]))
+            return _real(q, *a, **kw)
+
+        wrapped.launches = real.launches
+        setattr(attention, name, wrapped)
+        COUNTED[key] = wrapped
+    return heads
+
+
+def gloo_ms(shape, n: int = 5) -> float:
+    """Mean wall time of an all-reduce of a bf16 ``shape`` over the default
+    group (gloo: through host memory), after one warm-up."""
+    t = torch.randn(shape, device=TP_DEVICE).to(torch.bfloat16)
+    torch.distributed.all_reduce(t)
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        torch.distributed.all_reduce(t)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def model_on_card(cfg, state_dict):
+    """An APTAI of ``cfg`` holding ``state_dict``, built on the card (its
+    own init, overwritten, is quick there)."""
+    with torch.device(TP_DEVICE):
+        model = APTAI(cfg, num_phonemes=46)
+    model.load_state_dict(state_dict)
+    return model
+
+
+def tensor_parallel_rank(rank: int, port: int, work: Path) -> None:
+    """One rank of phase 17 (``python3 chip_smoke.py --tensor-parallel-rank
+    RANK PORT DIR``): a gloo group of ``TP_RANKS`` processes on the card, a
+    1 x 2 mesh, then, once the script has written its inputs
+    (``DIR/go``), 17a's steps (sequence parallelism held here to tensor
+    parallelism's first-step gradients and final parameters), 17b's
+    batches and 17c's quantized batch; its results in
+    ``DIR/out<RANK>.pt``, rank 0's gathered tensor-parallel gradients and
+    parameters and its codes beside them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(f"127.0.0.1:{port}", TP_RANKS, rank, device=TP_DEVICE,
+                     backend="gloo")
+    mesh = make_mesh(data=1, model=TP_RANKS, device=TP_DEVICE)
+    while not (work / "go").exists():  # the script's references first
+        time.sleep(0.05)
+    inp = torch.load(work / "in.pt", weights_only=False)
+    out = {"mesh": mesh.device_type, "backend":
+           torch.distributed.get_backend(), "gloo_ms": {
+               "train_8x249x1024": gloo_ms((8, 249, 1024)),
+               "serve_32x499x1024": gloo_ms((32, 499, 1024))}}
+    heads = record_heads()
+    cfg = tp_config()
+    init = torch.load(work / "init.pt", mmap=True)
+    stages = {"start": time.perf_counter() - T_START}
+    tp = {}  # tensor parallelism's gathered gradients and parameters
+    for name, kw in (("tp", {}), ("tp_sp", {"activation_partition": SP})):
+        model = model_on_card(dataclasses.replace(cfg, **kw), init)
+        step = TrainStep(model, torch_adam(model), mesh=mesh)
+        losses, counts, times = [], [], []
+        for i in range(TP_STEPS):
+            torch.cuda.synchronize()
+            torch.distributed.barrier()  # rank 0's writes out of the time
+            reset_counts()
+            t0 = time.perf_counter()
+            losses.append(step(inp["batch"], 1e-5)["loss"].item())
+            times.append(time.perf_counter() - t0)
+            counts.append(read_counts())
+            if i == 0:  # the first step's gradients, a single device's
+                grads = gather_full(step.model, {
+                    n: p.grad for n, p in step.model.named_parameters()
+                    if p.grad is not None and n.startswith("wav2vec2.")})
+        out[name] = {"losses": losses, "counts": counts, "times": times,
+                     "bytes": (tree_bytes(step.model.state_dict()),
+                               tree_bytes(step.optimizer.state_dict()
+                                          ["state"]))}
+        params = gather_full(step.model, step.model.state_dict())
+        if name == "tp":
+            tp = {"grads": grads, "params": params}
+            if rank == 0:
+                torch.save({n: g.cpu() for n, g in grads.items()},
+                           work / "tp_grads.pt")
+                torch.save({n: v.cpu() for n, v in params.items()},
+                           work / "tp.pt")
+        else:
+            a = torch.cat([grads[n].double().flatten() for n in tp["grads"]])
+            b = torch.cat([g.double().flatten() for g in tp["grads"].values()])
+            out[name]["vs_tp"] = {
+                "grad_rel": ((a - b).norm() / b.norm()).item(),
+                "grad_cos": torch.nn.functional.cosine_similarity(
+                    a, b, dim=0).item(),
+                "param_gap": max((v.float() - tp["params"][n].float())
+                                 .abs().max().item()
+                                 for n, v in params.items())}
+            del a, b
+        del step, model, params, grads
+        torch.cuda.empty_cache()
+        stages[name] = time.perf_counter() - T_START
+    del tp
+
+    pred = APTAIPredictor(model_on_card(cfg, init), mesh=mesh)
+    pred.predict_batch(inp["serve"])  # warm
+    times, counts = [], []
+    for _ in range(TP_SERVE_BATCHES):
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = host_outputs(pred.predict_batch(inp["serve"]))
+        times.append(time.perf_counter() - t0)
+        counts.append(read_counts())
+    out["serve"] = {"times": times, "counts": counts, "out": got}
+    del pred
+    torch.cuda.empty_cache()
+    stages["serve"] = time.perf_counter() - T_START
+
+    qpred = APTAIPredictor(model_on_card(dataclasses.replace(
+        cfg, quant="w8a8_ffn"), init), mesh=mesh)
+    qpred.predict_batch(inp["quant"])  # warm: the weight codes
+    codes = []
+    real = w2v.quantize_rows
+
+    def record(x, axis=None):
+        rows = real(x, axis)
+        codes.append((rows.codes.cpu(), rows.scale.cpu(), axis is not None))
+        return rows
+
+    w2v.quantize_rows = record
+    try:
+        reset_counts()
+        got = host_outputs(qpred.predict_batch(inp["quant"]),
+                           ("frame_lengths", "tvs_pred", "phn_fc_pred",
+                            "phn_fc_probs"))
+        out["quant"] = {"counts": read_counts(), "out": got}
+    finally:
+        w2v.quantize_rows = real
+    torch.save(codes, work / f"codes{rank}.pt")
+    stages["quant"] = time.perf_counter() - T_START
+    out["heads"] = sorted(heads)
+    out["stages"] = stages
+    torch.save(out, work / f"out{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def start_tp_ranks(work: Path):
+    port = free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    return [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()),
+         "--tensor-parallel-rank", str(r), str(port), str(work)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(TP_RANKS)]
+
+
+def finish_tp_ranks(procs, work: Path):
+    """The ranks' outputs; a rank that fails fails the phase, and no rank
+    outlives the call."""
+    deadline = time.perf_counter() + TP_TIMEOUT
+    errors = []
+    try:
+        for r, p in enumerate(procs):
+            text, _ = p.communicate(
+                timeout=max(deadline - time.perf_counter(), 1))
+            if p.returncode:
+                errors.append(f"rank {r} exited {p.returncode}:\n"
+                              f"{text[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if errors:
+        raise AssertionError("17: " + "\n".join(errors))
+    return [torch.load(work / f"out{r}.pt", weights_only=False)
+            for r in range(len(procs))]
+
+
+def tp_codes(work: Path):
+    """17c's codes as the unsharded model's: a row-parallel input's
+    columns from the two ranks side by side."""
+    ranks = [torch.load(work / f"codes{r}.pt", weights_only=False)
+             for r in range(TP_RANKS)]
+    rows = []
+    for calls in zip(*ranks):
+        codes, scale, split = calls[0]
+        if split:
+            codes = torch.cat([c for c, _, _ in calls], -1)
+        rows.append(quant.QuantizedRows(codes.cuda(), scale.cuda()))
+    return rows
+
+
+def tp_references(cfg, batch, serve, quant_wavs, work: Path, card,
+                  start_ranks):
+    """Phase 17's references in this process: the seed-0 weights (drawn on
+    the card; a CPU draw of 315 M takes seconds), written with the ranks'
+    inputs to ``work``; ``TP_STEPS`` plain steps (their times, losses and
+    first-step gradients) and one 32 x 10 s batch served, timed alone on
+    the card; then ``start_ranks()`` (their imports and start overlap the
+    rest), the same steps with plain attention autograd (bf16's noise
+    floor) and the batch served with plain attention."""
+    torch.save({"batch": batch, "serve": serve, "quant": quant_wavs},
+               work / "in.pt")
+    with torch.device(TP_DEVICE):
+        model = APTAI(cfg, num_phonemes=46)
+    w2v.init_weights_(model, torch.Generator(TP_DEVICE).manual_seed(0))
+    init = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()}
+    torch.save(init, work / "init.pt")
+    plain = TrainStep(model, torch_adam(model))
+    losses, times = [], []
+    for i in range(TP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(plain(batch, 1e-5)["loss"].item())
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            grads = flat_grads(model, "wav2vec2.")
+    nbytes = (tree_bytes(model.state_dict()),
+              tree_bytes(plain.optimizer.state_dict()["state"]))
+    del plain
+    pred = APTAIPredictor(model_on_card(cfg, init))
+    pred.predict_batch(serve)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = host_outputs(pred.predict_batch(serve))
+    serve_s = time.perf_counter() - t0
+    start_ranks()
+    floor = model_on_card(cfg, init)
+    w2v.multi_head_attention_bhtd = attention.flash_attention_bhtd_plain
+    try:
+        serve_floor = serving_gates(host_outputs(pred.predict_batch(serve)),
+                                    want)
+        floor_step = TrainStep(floor, torch_adam(floor))
+        floor_losses = [floor_step(batch, 1e-5)["loss"].item()
+                        for _ in range(TP_STEPS)]
+    finally:
+        w2v.multi_head_attention_bhtd = attention.multi_head_attention_bhtd
+    del floor_step, pred
+    torch.cuda.empty_cache()
+    log(f"  17 plain, one process: steps "
+        f"{[round(t * 1e3, 2) for t in times]} ms, losses {losses}; "
+        f"parameters {nbytes[0] / 1e9:.3f} GB, Adam state "
+        f"{nbytes[1] / 1e9:.3f} GB; a 32 x 10 s batch {serve_s * 1e3:.1f} "
+        f"ms ({320 / serve_s:.1f} audio-s/s), bf16's noise floor there "
+        f"(plain attention against the kernel): per-TV Pearson min "
+        f"{serve_floor[0]:.6f}, phoneme argmax agreement "
+        f"{serve_floor[1]:.4%} on {card}")
+    return {"model": model, "grads": grads, "floor": floor, "init": init,
+            "losses": losses, "times": times, "floor_losses": floor_losses,
+            "want": want, "serve_floor": serve_floor, "serve_s": serve_s}
+
+
+def phase_tensor_parallel(card):
+    """Phase 17: the model axis (tensor and sequence parallelism) on two
+    processes sharing the card over gloo (NCCL takes one rank a device),
+    against full-width APTAI in one process. The parent takes
+    ``TP_STEPS`` plain steps (8 x 5 s, no dropout or SpecAugment) and
+    serves one 32 x 10 s batch, alone on the card; then the two ranks run
+    on a 1 x 2 mesh on the card: 17a ``TP_STEPS`` steps of ``TrainStep``,
+    then ``TP_STEPS`` more with ``activation_partition=("data", "model",
+    None)``, each from the seed-0 weights: losses within 1e-3 of the
+    plain ones; tensor parallelism's first-step gradients, gathered, within
+    phase 5's bf16 gradient gates (relative L2 0.1, cosine 0.99) of the
+    plain step's and its gathered parameters served against the plain
+    model within twice bf16's noise floor (the plain steps with plain
+    attention autograd, served against the kernels' steps; phase 3's
+    gates where the floor is under them); sequence parallelism's gradients
+    within the same gradient gates of tensor parallelism's, in the ranks;
+    24 launches of each flash kernel a step on each rank with 8 heads,
+    per-rank bytes, step times; 17b ``APTAIPredictor(mesh=)``
+    on 32 x 10 s against the single-device predictor, phase 3's gates
+    widened to twice bf16's noise floor on that batch where it lies
+    outside them (``within_floor``), 24 forward launches a batch on each
+    rank, audio-s/s; 17c one ``w8a8_ffn`` batch of 4 x 10 s held to the
+    unsharded model as phase 12b holds the card to the CPU: given the
+    ranks' codes, within 17b's gates, its own codes of the FFN's hidden
+    units (the row-parallel
+    input) one step from them at most, those of the FFN's input (after the
+    attention's per-rank bf16 roundings) counted; free, the codes that
+    differ counted, the TV error within 12c's gate, the frame agreement
+    reported beside its floor (the same quantized model with plain
+    attention): the random heads' near-tied argmax moves with every flip
+    the free runs cascade, so the forced run gates the agreement. Returns
+    the paths' launch counts (rank 0's, equal to rank 1's)."""
+    log(f"== phase 17: the model axis on {TP_RANKS} gloo ranks sharing the "
+        "card")
+    t_phase = time.perf_counter()
+    cfg = tp_config()
+    layers = cfg.num_hidden_layers
+    batch = train_batch(cfg)
+    serve, quant_wavs = tp_wavs(32, 17), tp_wavs(TP_QUANT_ROWS, 18)
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        # the ranks start (imports, the card, the group) while this process
+        # computes its untimed references, and wait for DIR/go
+        procs = []
+        try:
+            refs = tp_references(cfg, batch, serve, quant_wavs, work, card,
+                                 lambda: procs.extend(start_tp_ranks(work)))
+        except BaseException:
+            for p in procs:
+                p.kill()
+                p.wait()
+            raise
+        model, plain_grads, floor = refs["model"], refs["grads"], refs["floor"]
+        (work / "go").touch()
+        t0 = time.perf_counter()
+        ranks = finish_tp_ranks(procs, work)
+        ranks_s = time.perf_counter() - t0
+        r0 = ranks[0]
+        log(f"  17 ranks: {ranks_s:.1f} s for both from their inputs; "
+            f"backend {[r['backend'] for r in ranks]}, mesh device "
+            f"{[r['mesh'] for r in ranks]}, heads a kernel launch "
+            f"{[r['heads'] for r in ranks]}; gloo all-reduce of a bf16 "
+            f"tensor, two ranks on one card: {r0['gloo_ms']} ms")
+        if not all(r["mesh"] == TP_DEVICE and r["backend"] == "gloo"
+                   and r["heads"] == [cfg.num_attention_heads // TP_RANKS]
+                   for r in ranks):
+            raise AssertionError("17: the ranks did not run on the card's "
+                                 "mesh over gloo with 8 heads a kernel")
+
+        audio = torch.as_tensor(batch["audio"]).cuda()
+        lengths = torch.as_tensor(batch["audio_lengths"]).cuda()
+        floor_r, floor_agree = served_agreement_with(floor, model, audio,
+                                                     lengths)
+        del floor
+        log(f"  17a bf16's noise floor, the plain steps with plain attention "
+            f"autograd: losses {refs['floor_losses']}; served per-TV Pearson "
+            f"min {floor_r:.6f}, phoneme argmax agreement {floor_agree:.4%} "
+            "against the kernels' steps")
+        paths = {}
+        plain_losses, plain_times = refs["losses"], refs["times"]
+        for name in ("tp", "tp_sp"):
+            runs = [r[name] for r in ranks]
+            for r in runs:
+                for c in r["counts"]:
+                    if not (all(c[n] == layers for n in FLASH)
+                            and c["fused_conv_ln_gelu"] == 0):
+                        raise AssertionError(f"17a {name}: launches {c}")
+            loss_gap = max(abs(a - b) / abs(b) for r in runs
+                           for a, b in zip(r["losses"], plain_losses))
+            if name == "tp":
+                grads = torch.load(work / "tp_grads.pt",
+                                   map_location=TP_DEVICE)
+                compare_grads("17a tp first step's gradients, gathered, vs "
+                              "plain", grads, torch.cat([
+                                  grads[n].float().flatten()
+                                  for n in plain_grads[0]]), *plain_grads,
+                              max_rel=0.1, min_cos=0.99)
+                del grads
+                got = model_on_card(cfg, torch.load(
+                    work / "tp.pt", map_location=TP_DEVICE))
+                gap = max((p.float() - q.detach().float()).abs().max().item()
+                          for (_, p), (_, q) in zip(
+                              got.state_dict().items(),
+                              model.state_dict().items()))
+                served = served_agreement_with(got, model, audio, lengths)
+                del got
+                held = (f"gathered parameters' largest difference "
+                        f"{gap:.3e} from plain's, served per-TV Pearson min "
+                        f"{served[0]:.6f}, phoneme argmax agreement "
+                        f"{served[1]:.4%}")
+                # Adam's first steps move every parameter by about the LR
+                # whatever its gradient's size, so bf16 roundings that flip
+                # a small gradient's sign move the trained model: the
+                # served gates are relative to that floor
+                ok = within_floor(served, (floor_r, floor_agree))
+            else:
+                # held to tensor parallelism's step in the ranks
+                v = runs[0]["vs_tp"]
+                held = (f"first step's gradients against TP's: relative L2 "
+                        f"{v['grad_rel']:.3e}, cosine {v['grad_cos']:.12f}; "
+                        f"parameters' largest difference from TP's "
+                        f"{v['param_gap']:.3e}")
+                ok = v["grad_rel"] <= 0.1 and v["grad_cos"] >= 0.99
+            log(f"  17a {name} on the 1 x {TP_RANKS} mesh: losses "
+                f"{[r['losses'] for r in runs]} (largest relative gap to "
+                f"plain {loss_gap:.3e}); steps "
+                f"{[[round(t * 1e3, 2) for t in r['times']] for r in runs]} "
+                f"ms (plain {[round(t * 1e3, 2) for t in plain_times]}); "
+                f"per-rank parameters "
+                f"{[round(r['bytes'][0] / 1e9, 3) for r in runs]} GB, Adam "
+                f"state {[round(r['bytes'][1] / 1e9, 3) for r in runs]} GB; "
+                f"{held}; launches a step {runs[0]['counts'][-1]} on {card}")
+            if not (loss_gap <= 1e-3 and ok):
+                raise AssertionError(f"17a {name}: outside the bf16 gates "
+                                     "of the plain steps")
+            total = {n: sum(c[n] for c in runs[0]["counts"])
+                     for n in runs[0]["counts"][0]}
+            paths[f"{name}_train_step"] = (TP_STEPS, total)
+        want, serve_floor = refs["want"], refs["serve_floor"]
+        plain_serve_s, init = refs["serve_s"], refs["init"]
+        del model, refs
+        torch.cuda.empty_cache()
+
+        serves = [r["serve"] for r in ranks]
+        r_min, agree = serving_gates(serves[0]["out"], want)
+        same = all(np.array_equal(serves[0]["out"][k], s["out"][k])
+                   for s in serves for k in want)
+        log(f"  17b APTAIPredictor(mesh=) at 32 x 10 s: batches "
+            f"{[[round(t * 1e3, 1) for t in s['times']] for s in serves]} ms "
+            f"({[round(320 / min(s['times']), 1) for s in serves]} "
+            f"audio-s/s; one process {320 / plain_serve_s:.1f}); per-TV "
+            f"Pearson min {r_min:.6f}, phoneme argmax agreement "
+            f"{agree:.4%} against the single-device predictor; both ranks "
+            f"return the same outputs {same}; launches a batch "
+            f"{serves[0]['counts'][-1]} on {card}")
+        for s in serves:
+            for c in s["counts"]:
+                if not (c["flash_attn_fwd"] == layers
+                        and c["flash_attn_bwd_dq"] == 0):
+                    raise AssertionError(f"17b: launches {c}")
+        if not (same and within_floor((r_min, agree), serve_floor)):
+            raise AssertionError("17b: outside the bf16 serving gates")
+        paths["tp_serving"] = (1, serves[0]["counts"][-1])
+
+        tp_q = [r["quant"] for r in ranks]
+        card_rows = tp_codes(work)
+        qpred = APTAIPredictor(model_on_card(dataclasses.replace(
+            cfg, quant="w8a8_ffn"), init))
+        counts = {"forced": [], "free": []}
+
+        def compare(run):
+            def hook(x, rows):
+                ref = card_rows[len(counts[run])]
+                diff = (rows.codes.int() - ref.codes.int()).abs()
+                counts[run].append((int((diff != 0).sum()),
+                                    int(diff.max())))
+                return ref if run == "forced" else rows
+            return hook
+
+        keys = ("frame_lengths", "tvs_pred", "phn_fc_pred", "phn_fc_probs")
+        out = {run: with_quantize_rows(lambda: host_outputs(
+            qpred.predict_batch(quant_wavs), keys), compare(run))
+            for run in counts}
+        # the free run's floor, reported: the same quantized model with
+        # plain attention, whose other roundings flip codes that cascade as
+        # the ranks' do
+        w2v.multi_head_attention_bhtd = attention.flash_attention_bhtd_plain
+        try:
+            plain_q = host_outputs(qpred.predict_batch(quant_wavs), keys)
+        finally:
+            w2v.multi_head_attention_bhtd = attention.multi_head_attention_bhtd
+        del qpred
+        torch.cuda.empty_cache()
+        tp_out = tp_q[0]["out"]
+        f_min, f_agree = serving_gates(out["forced"], tp_out)
+
+        def deviation(got, want):
+            return quant_deviation(
+                {k: torch.as_tensor(v) for k, v in got.items()},
+                {k: torch.as_tensor(v) for k, v in want.items()})
+
+        rel, agree = deviation(out["free"], tp_out)
+        floor_rel, floor_agree = deviation(plain_q, out["free"])
+        total = sum(r.codes.numel() for r in card_rows)
+        # each layer quantizes the FFN's input, then its hidden units (the
+        # row-parallel input, split over the ranks): given the ranks' codes
+        # of the first, the second follows exactly but for ties; the first
+        # follows the bf16 residual stream, which the ranks' attention
+        # rounds per rank before its sum
+        hidden_step = max(m for _, m in counts["forced"][1::2])
+        log(f"  17c w8a8_ffn at {TP_QUANT_ROWS} x 10 s, the unsharded model "
+            f"given the ranks' codes: per-TV Pearson min {f_min:.6f}, "
+            f"phoneme argmax agreement {f_agree:.4%}; its own codes differ "
+            f"from the ranks' in {[c for c, _ in counts['forced']]} of "
+            f"{total} (FFN inputs, then hidden units, a layer), by "
+            f"{[m for _, m in counts['forced']]} steps at most; free, the "
+            f"codes that differ {[c for c, _ in counts['free']]}, TV RMS "
+            f"relative error {rel:.5f}, frame-phoneme agreement "
+            f"{agree:.4%} (the floor, plain attention against the kernel "
+            f"in one process: {floor_rel:.5f}, {floor_agree:.4%}); "
+            f"launches a batch {tp_q[0]['counts']} on {card}")
+        if not (len(card_rows) == len(counts["forced"]) == 2 * layers
+                and all(q["counts"]["flash_attn_fwd"] == layers
+                        for q in tp_q)
+                and within_floor((f_min, f_agree), serve_floor)
+                and hidden_step <= 1
+                and rel <= QUANT_TV_REL_TOL):
+            raise AssertionError("17c: the ranks' w8a8_ffn batch disagrees "
+                                 "with the unsharded model")
+        paths["tp_w8a8_ffn_serving"] = (1, tp_q[0]["counts"])
+    log("  17 the ranks' stages, s from their imports: " + "; ".join(
+        ", ".join(f"{k} {v:.1f}" for k, v in r["stages"].items())
+        for r in ranks))
+    log(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return paths
+
+
 def leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5973,6 +6552,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp15:
         ckpt_counts, ckpt_steps = phase_checkpoint(card, Path(tmp15))
     data_parallel = phase_data_parallel(card)
+    tensor_parallel = phase_tensor_parallel(card)
     for rec in records:
         name = rec["name"]
         rec["launches"] = (pr_serving if name == "fused_conv_ln_gelu"
@@ -6022,6 +6602,9 @@ def main() -> int:
                 "steps": ckpt_steps, "launches": ckpt_counts[name]},
             **{path: {"steps": n, "launches": c[name]}
                for path, (n, c) in data_parallel.items()},
+            **{path: {("steps" if path.endswith("_step") else "batches"): n,
+                      "launches": c[name]}
+               for path, (n, c) in tensor_parallel.items()},
             **{path: {"batches": 1, "launches": counts[name]}
                for path, counts in late.items()}}
 
@@ -6034,4 +6617,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tensor-parallel-rank"]:
+        # one of phase 17's ranks, started by phase_tensor_parallel
+        tensor_parallel_rank(int(sys.argv[2]), int(sys.argv[3]),
+                             Path(sys.argv[4]))
+        sys.exit(0)
     sys.exit(main())

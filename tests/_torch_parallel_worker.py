@@ -1,6 +1,7 @@
 """One rank of the port's multi-process CPU tests (gloo), launched by
-``tests/test_torch_parallel.py`` and ``tests/test_torch_parallel_fit.py``
-as ``python _torch_parallel_worker.py SCENARIO RANK WORLD PORT DIR``.
+``tests/test_torch_parallel.py``, ``tests/test_torch_parallel_fit.py`` and
+``tests/test_torch_tensor_parallel*.py`` as ``python
+_torch_parallel_worker.py SCENARIO RANK WORLD PORT DIR``.
 
 It imports torch and the port only, never JAX. Its inputs (``DIR/in.pt``:
 weights, batches, configs as plain values) come from the parent test,
@@ -21,11 +22,19 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 from aptai_tpu_torch.data.batching import BucketedLoader, collate_tv  # noqa
+from aptai_tpu_torch.infer.api import (APTAIPredictor,  # noqa: E402
+                                      ForceAPTAIPredictor, W2V2PRPredictor)
+from aptai_tpu_torch.infer.loader import load_predictor  # noqa: E402
+from aptai_tpu_torch.infer.streaming import StreamingAPTAI  # noqa: E402
+from aptai_tpu_torch.infer.transfer import fetch_outputs  # noqa: E402
 from aptai_tpu_torch.models import configs as tcfg  # noqa: E402
 from aptai_tpu_torch.models.aptai import APTAI  # noqa: E402
+from aptai_tpu_torch.models.force_aptai import ForceAPTAI  # noqa: E402
 from aptai_tpu_torch.models.w2v2_pr import W2V2PR  # noqa: E402
 from aptai_tpu_torch.parallel import (init_distributed, is_primary,  # noqa
                                       make_mesh, shard_batch, shard_tree)
+from aptai_tpu_torch.parallel.mesh import (gather_full,  # noqa: E402
+                                           split_model_axis)
 from aptai_tpu_torch.train import TrainStep, torch_adam  # noqa: E402
 from aptai_tpu_torch.train.checkpoints import CheckpointManager  # noqa
 from aptai_tpu_torch.train.config import APTAIConfig  # noqa: E402
@@ -35,6 +44,8 @@ from aptai_tpu_torch.train.train_pr import pr_loss_fn  # noqa: E402
 from aptai_tpu_torch.utils.trees import tree_bytes  # noqa: E402
 
 NUM_PHN = 11
+# sequence parallelism: the residual stream's time over the model axis
+SP = ("data", "model", None)
 
 
 def aptai(cfg_kwargs, state_dict) -> APTAI:
@@ -50,12 +61,20 @@ def w2v2_pr(cfg_kwargs, state_dict) -> W2V2PR:
     return model
 
 
+def whole_params(model):
+    """A single device's state dict of ``model``, on every rank (gathered
+    over the data axis from FSDP and over the model axis)."""
+    return {k: v.detach().clone()
+            for k, v in gather_full(model, model.state_dict()).items()}
+
+
 def sgd_steps(model, batch, mesh, fsdp, grad_accum=1, lr=1e-3, n=2,
               loss_fn=None):
     """``n`` SGD steps (the JAX tests' ``optax.identity`` with the LR) of
     ``model`` on this rank's rows of ``batch`` (APTAI's loss unless
     ``loss_fn``; ``mesh`` None: one process on the whole batch); the last
-    loss and the full parameters after them."""
+    loss and the full parameters after them (a single device's tensors,
+    gathered over the mesh)."""
     if fsdp:
         model = shard_tree(model, mesh, fsdp=True, fsdp_min_size=0)
     opt = torch.optim.SGD([p for p in model.parameters() if p.requires_grad],
@@ -64,9 +83,7 @@ def sgd_steps(model, batch, mesh, fsdp, grad_accum=1, lr=1e-3, n=2,
                      grad_accum=grad_accum, device="cpu", mesh=mesh)
     for _ in range(n):
         m = step(shard_batch(mesh, batch), lr)
-    params = {k: (v.full_tensor() if hasattr(v, "full_tensor") else v)
-              .detach().clone() for k, v in model.state_dict().items()}
-    return {"loss": m["loss"].item(), "params": params,
+    return {"loss": m["loss"].item(), "params": whole_params(model),
             "local_bytes": tree_bytes(model.state_dict())}
 
 
@@ -132,10 +149,11 @@ class SignalAt:
             yield b
 
 
-def run_fit(inp, exp_dir, fsdp, epochs, resume, signal_rank=None):
+def run_fit(inp, exp_dir, fsdp, epochs, resume, signal_rank=None,
+            mesh_model=1, lr=1e-3):
     cfg = APTAIConfig(exp_dir=str(exp_dir), platform="cpu", batch_size=4,
-                      num_epochs=epochs, learning_rate=1e-3, fsdp=fsdp,
-                      ckpt_every=1).finalize("APTAI")
+                      num_epochs=epochs, learning_rate=lr, fsdp=fsdp,
+                      ckpt_every=1, mesh_model=mesh_model).finalize("APTAI")
     cfg.train_from_ckpt = resume
     model = aptai(inp["det"], inp["sd"])
     loader = BucketedLoader(Items(inp["items"]), batch_size=cfg.batch_size,
@@ -175,6 +193,116 @@ def fits(inp, rank, world):
     # rank 1 alone is signalled during the second batch of the first epoch
     out["signalled"] = run_fit(inp, root / "signalled", False, 2, False,
                                signal_rank=1)
+    return out
+
+
+def tensor_steps(inp, rank, world):
+    """The DP2×TP2 mesh of four ranks: SGD steps under TP (DDP over the
+    data axis), TP with FSDP and TP with sequence parallelism, each rank's
+    bytes, and the forward through a predictor on the mesh."""
+    mesh = make_mesh(model=2)
+    det, sd, batch = inp["det"], inp["sd"], inp["batch"]
+    sp = dict(det, activation_partition=SP)
+    out = {name: sgd_steps(aptai(kw, sd), batch, mesh, fsdp)
+           for name, kw, fsdp in (("tp", det, False), ("tp_fsdp", det, True),
+                                  ("tp_sp", sp, False))}
+    out["bytes"] = {name: adam_bytes(det, sd, batch, mesh, fsdp)
+                    for name, fsdp in (("tp", False), ("tp_fsdp", True))}
+    pred = APTAIPredictor(aptai(sp, sd), device="cpu", mesh=mesh)
+    out["predict"] = fetch_outputs(pred.predict_batch(inp["wavs"]))
+    out["heads"] = pred.model.wav2vec2.encoder.layers[0].attention \
+        .q_proj.weight.shape[0] // pred.model.cfg.head_dim
+    return out
+
+
+def force(cfg_kwargs, state_dict) -> ForceAPTAI:
+    model = ForceAPTAI(tcfg.Wav2Vec2Config(**cfg_kwargs), vocab_size=NUM_PHN)
+    model.load_state_dict(state_dict)
+    return model
+
+
+def quant_encoder(q, mesh):
+    """The W8A8 encoder on the model axis of ``mesh`` (``q``: its config,
+    weights and input): its hidden states free and with each quantized
+    layer given the reference's codes and scales for its input (this
+    rank's columns of them for a row-parallel layer), and this rank's own
+    codes of the forced run, in call order."""
+    from aptai_tpu_torch.models import wav2vec2 as tw2v
+    from aptai_tpu_torch.ops.quant import QuantizedRows
+
+    model = split_model_axis(aptai(q["cfg"], q["sd"]).wav2vec2.eval(), mesh)
+    real = tw2v.quantize_rows
+    own = []
+
+    def run(forced):
+        own.clear()
+
+        def hook(x, axis=None):
+            rows = real(x, axis)
+            own.append(rows.codes.numpy())
+            if not forced:
+                return rows
+            codes, scale = q["rows"][len(own) - 1]
+            if axis is not None:
+                codes = codes[..., axis.shard(codes.shape[-1])]
+            return QuantizedRows(torch.from_numpy(codes.copy()),
+                                 torch.from_numpy(scale))
+
+        tw2v.quantize_rows = hook
+        try:
+            with torch.no_grad():
+                return model(torch.from_numpy(q["audio"]),
+                             torch.from_numpy(q["lens"]))[0].numpy()
+        finally:
+            tw2v.quantize_rows = real
+
+    free = run(False)
+    return {"free": free, "forced": run(True), "codes": list(own)}
+
+
+def tensor_serving(inp, rank, world):
+    """Two ranks on a 1×2 mesh: the predictors, ``load_predictor`` and the
+    streamer over the model axis (sequence parallelism too), W8A8 on it
+    beside the unsharded quantized predictor, the dropout draws of a TP
+    step, and ``fit`` with ``mesh_model=2`` (written, then resumed)."""
+    mesh = make_mesh(model=2)
+    cfg, wavs = inp["cfg"], inp["wavs"]
+
+    def served(pred, method="predict_batch"):
+        return fetch_outputs(getattr(pred, method)(wavs))
+
+    out = {name: served(APTAIPredictor(aptai(kw, inp["sd_serve"]),
+                                       device="cpu", mesh=mesh))
+           for name, kw in (("aptai", cfg),
+                            ("aptai_sp", dict(cfg, activation_partition=SP)))}
+    out["w2v2_pr"] = served(W2V2PRPredictor(
+        w2v2_pr(cfg, inp["sd_pr"]), device="cpu", mesh=mesh), "encode_batch")
+    out["force"] = served(ForceAPTAIPredictor(
+        force(inp["force_cfg"], inp["sd_force"]), device="cpu", mesh=mesh))
+    out["loaded"] = served(load_predictor(inp["ckpt"], device="cpu",
+                                          mesh=mesh))
+    out["stream"] = StreamingAPTAI(
+        aptai(cfg, inp["sd_serve"]), device="cpu", mesh=mesh,
+        **inp["chunking"]).predict(inp["long"])
+    quant = dict(cfg, quant="w8a8")
+    out["w8a8"] = served(APTAIPredictor(aptai(quant, inp["sd_serve"]),
+                                        device="cpu", mesh=mesh))
+    out["w8a8_single"] = served(APTAIPredictor(aptai(quant, inp["sd_serve"]),
+                                               device="cpu"))
+    out["w8a8_encoder"] = quant_encoder(inp["quant"], mesh)
+    # dropout on the tensors every rank holds draws the single device's
+    # masks; the FFN's hidden units draw their own
+    for name, kw in inp["dropouts"].items():
+        out[name] = sgd_steps(aptai(kw, inp["sd"]), inp["batch"], mesh,
+                              False, n=1)
+    root = Path(inp["root"])
+    out["fit"] = run_fit(inp, root / "tp", False, 2, False, mesh_model=2)
+    out["fit_first"] = run_fit(inp, root / "tp_resumed", False, 1, False,
+                               mesh_model=2)
+    out["fit_resumed"] = run_fit(inp, root / "tp_resumed", False, 2, True,
+                                 mesh_model=2)
+    out["fit_lr0"] = run_fit(inp, root / "tp_lr0", False, 1, False,
+                             mesh_model=2, lr=0.0)
     return out
 
 
@@ -230,7 +358,8 @@ def main():
     work = Path(work)
     inp = torch.load(work / "in.pt", weights_only=False)
     assert init_distributed(f"127.0.0.1:{port}", world, rank, device="cpu")
-    out = {"steps": steps, "fits": fits}[scenario](inp, rank, world)
+    out = {"steps": steps, "fits": fits, "tensor_steps": tensor_steps,
+           "tensor_serving": tensor_serving}[scenario](inp, rank, world)
     out["jax_loaded"] = any(m.split(".")[0] in ("jax", "aptai_tpu")
                             for m in sys.modules)
     torch.save(out, work / f"out{rank}.pt")

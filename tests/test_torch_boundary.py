@@ -66,6 +66,10 @@ print("TRAINERS", all(m in sys.modules for m in (
     "aptai_tpu_torch.train.checkpoints", "aptai_tpu_torch.train.builders",
     "aptai_tpu_torch.train.loop", "aptai_tpu_torch.train.eval_cli",
     "aptai_tpu_torch.infer.loader")))
+print("PARALLEL", all(m in sys.modules for m in (
+    "aptai_tpu_torch.parallel.mesh", "aptai_tpu_torch.parallel.tensor",
+    "aptai_tpu_torch.parallel.multihost",
+    "aptai_tpu_torch.parallel.global_batch")))
 print("PRETRAIN", all(m in sys.modules for m in (
     "aptai_tpu_torch.models.pretrain", "aptai_tpu_torch.train.pretrain")))
 print("SERVING", all(m in sys.modules for m in (
@@ -98,6 +102,7 @@ def test_port_imports_no_jax_or_reference_package():
     assert "TRAINERS True" in res.stdout, res.stdout
     assert "SERVING True" in res.stdout, res.stdout
     assert "PRETRAIN True" in res.stdout, res.stdout
+    assert "PARALLEL True" in res.stdout, res.stdout
     assert "NATIVE_LOADED False" in res.stdout, res.stdout
     assert "HTTP_LOADED False" in res.stdout, res.stdout
 

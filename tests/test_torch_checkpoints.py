@@ -17,6 +17,7 @@
 
 import dataclasses
 import json
+import types
 
 import jax
 import jax.numpy as jnp
@@ -209,9 +210,13 @@ def test_backbone_dicts_cross_and_unported_fields_raise(jax_experiments):
                     do_stable_layer_norm=False)
     assert (dataclasses.asdict(backbone_from_dict(variants))
             == dataclasses.asdict(tcfg.tiny_config(**STACK, **VARIANTS)))
-    with pytest.raises(NotImplementedError, match="activation_partition"):
+    # a JSON list crosses as the tuple; a spec the port cannot place raises
+    assert backbone_from_dict(dict(d, activation_partition=[
+        "data", "model", None])).activation_partition == ("data", "model",
+                                                           None)
+    with pytest.raises(ValueError, match="activation_partition"):
         backbone_from_dict(dict(d, activation_partition=["data", None,
-                                                         None]))
+                                                         "model"]))
     # quant replaces the backbone's field; the parameters do not change
     _, exact, _ = load_model(jax_experiments["aptai"])
     _, model, _ = load_model(jax_experiments["aptai"], quant="w8a8")
@@ -221,8 +226,10 @@ def test_backbone_dicts_cross_and_unported_fields_raise(jax_experiments):
     got = model.state_dict()
     assert list(got) == list(want)
     assert all(torch.equal(got[k], want[k]) for k in want)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        load_predictor(jax_experiments["aptai"], device="cpu", mesh=object())
+    # a mesh on another kind of device than the predictor's raises
+    with pytest.raises(ValueError, match="the mesh runs on cuda"):
+        load_predictor(jax_experiments["aptai"], device="cpu",
+                       mesh=types.SimpleNamespace(device_type="cuda"))
 
 
 def test_load_model_on_a_jax_experiment_with_the_encoder_variants(tmp_path):

@@ -233,12 +233,17 @@ def test_split_views_pass_the_kernel_checks():
 def test_layouts_and_config_dicts_cross():
     """The variants' config dicts are the JAX package's; an
     ``attention_layout`` other than ``"bhtd"`` / ``"bthd"`` raises (the JAX
-    package runs it as ``"bthd"``), and ``activation_partition`` still
-    does."""
+    package runs it as ``"bthd"``), and so does an ``activation_partition``
+    the port cannot place (the time axis over the data axis); the
+    placeable ones cross."""
     for kw in VARIANTS.values():
         assert (dataclasses.asdict(tcfg.tiny_config(**kw))
                 == dataclasses.asdict(jcfg.tiny_config(**kw)))
     with pytest.raises(ValueError, match="attention_layout"):
         tcfg.Wav2Vec2Config(attention_layout="bhdt")
-    with pytest.raises(NotImplementedError, match="activation_partition"):
-        tcfg.Wav2Vec2Config(activation_partition=("data", None, None))
+    with pytest.raises(ValueError, match="activation_partition"):
+        tcfg.Wav2Vec2Config(activation_partition=(None, "data", None))
+    for spec in (("data", None, None), ("data", "model", None)):
+        assert (dataclasses.asdict(tcfg.tiny_config(activation_partition=spec))
+                == dataclasses.asdict(jcfg.tiny_config(
+                    activation_partition=spec)))

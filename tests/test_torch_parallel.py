@@ -194,6 +194,13 @@ def test_init_distributed_argument_errors_match_jax(monkeypatch):
         assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="not below"):
         tmultihost.init_distributed("127.0.0.1:1", 2, 2)
+    # gloo may carry the card's tensors (processes sharing a card); NCCL
+    # never runs on the CPU, and no other backend is taken
+    with pytest.raises(ValueError, match="NCCL runs on the card"):
+        tmultihost.init_distributed("127.0.0.1:1", 2, 0, device="cpu",
+                                    backend="nccl")
+    with pytest.raises(ValueError, match="backend must be"):
+        tmultihost.init_distributed("127.0.0.1:1", 2, 0, backend="mpi")
     for k in ENV + ("MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv("RANK", "0")
@@ -205,9 +212,10 @@ def test_init_distributed_argument_errors_match_jax(monkeypatch):
 
 def test_make_mesh_rule_and_errors_match_jax(monkeypatch):
     """``data=-1`` takes every process and the two ``ValueError``s are the
-    JAX function's; the model axis and a mesh over part of the processes
-    raise ``NotImplementedError`` (ROADMAP item 8e-ii); one process has no
-    mesh to place on."""
+    JAX function's; a mesh over part of the processes raises
+    ``NotImplementedError``; a model axis is a mesh like any other (none
+    without a process group here); one process has no mesh to place
+    on."""
     devices = jax.devices()[:4]
     monkeypatch.setattr(tmesh, "process_count", lambda: 4)
     for data, model in ((-1, 3), (8, 1), (3, 2)):
@@ -218,9 +226,8 @@ def test_make_mesh_rule_and_errors_match_jax(monkeypatch):
         assert str(got.value) == str(want.value)
     assert jmesh.make_mesh(-1, 1, devices=devices).shape["data"] == 4
     assert tmesh.make_mesh(-1, 1) is None  # no process group here
-    jmesh.make_mesh(2, 2, devices=devices)
-    with pytest.raises(NotImplementedError, match="8e-ii"):
-        tmesh.make_mesh(2, 2)
+    assert jmesh.make_mesh(-1, 2, devices=devices).shape["data"] == 2
+    assert tmesh.make_mesh(2, 2) is None and tmesh.make_mesh(-1, 2) is None
     with pytest.raises(NotImplementedError, match="data=-1"):
         tmesh.make_mesh(2, 1)
     monkeypatch.setattr(tmesh, "process_count", lambda: 1)
@@ -228,13 +235,16 @@ def test_make_mesh_rule_and_errors_match_jax(monkeypatch):
 
 
 class _Mesh:
-    """A stand-in for a DeviceMesh: the data axis's size and this rank."""
+    """A stand-in for a DeviceMesh: the data axis's size and this rank, on
+    a model axis of one process."""
+
+    mesh_dim_names = (tmesh.DATA_AXIS, tmesh.MODEL_AXIS)
 
     def __init__(self, n, r):
         self.n, self.r = n, r
 
-    def size(self):
-        return self.n
+    def size(self, dim=None):
+        return {0: self.n, 1: 1, None: self.n}[dim]
 
     def get_local_rank(self, axis):
         assert axis == tmesh.DATA_AXIS

@@ -171,9 +171,9 @@ def test_children_import_only_the_port(runs):
 @pytest.mark.parametrize("run", [train_force_aptai.run, pretrain.run])
 def test_single_process_trainers_refuse_several(monkeypatch, run):
     """FORCE-APTAI's trainer and pretraining run in one process only
-    (ROADMAP item 8e-ii)."""
+    (ROADMAP item 8e-iv)."""
     monkeypatch.setattr(loop, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="8e-ii"):
+    with pytest.raises(NotImplementedError, match="8e-iv"):
         run(object())
 
 

@@ -10,8 +10,9 @@ CPU, with the same weights (a JAX tree crossed through the bridge):
   of the whole recording, at any chunking;
 * the window path's variants: int16 ≡ float32 on PCM-quantized input, and
   ``per_file`` ≡ ``upload_ahead`` ≡ the default, bit for bit;
-* a ``beam_host`` FORCE model is refused at construction, ``mesh=``
-  raises, and nothing runs on the card unless asked.
+* a ``beam_host`` FORCE model is refused at construction, so is
+  ``upload_ahead`` with a ``mesh=`` (as in the JAX package), and nothing
+  runs on the card unless asked.
 
 The config is tiny in width with the 7-layer conv stack (49 frames a
 second); each family's JAX references are computed once per module.
@@ -176,8 +177,8 @@ def test_refusals(families):
     with pytest.raises(ValueError, match="on-device in-step decode"):
         _stream("force_aptai", beam_host)
     aptai, _ = families["aptai"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8e"):
-        _stream("aptai", aptai, mesh=object())
+    with pytest.raises(ValueError, match="upload_ahead only applies"):
+        _stream("aptai", aptai, mesh=object(), upload_ahead=True)
     with pytest.raises(ValueError, match="overlap must be smaller"):
         _stream("aptai", aptai, overlap_seconds=1.0)
     with pytest.raises(ValueError, match="unknown fetch_mode"):

@@ -50,7 +50,7 @@ LAUNCH_ENV = ("SLURM_PROCID", "OMPI_COMM_WORLD_RANK", "RANK", "SLURM_NTASKS",
 
 
 @pytest.mark.parametrize("fields,error,match", [
-    ({"mesh_model": 2}, NotImplementedError, "item 8e-ii"),
+    ({"mesh_model": 2}, ValueError, "not divisible by model=2"),
     ({"coordinator_address": "127.0.0.1:1"}, ValueError, "num_processes"),
     ({"coordinator_address": "auto"}, ValueError, "environment"),
     ({"coordinator_address": "127.0.0.1:1", "num_processes": 2,
@@ -59,7 +59,8 @@ LAUNCH_ENV = ("SLURM_PROCID", "OMPI_COMM_WORLD_RANK", "RANK", "SLURM_NTASKS",
     ({"rng_impl": "philox"}, ValueError, "rng_impl")])
 def test_config_fields_that_raise(tmp_path, monkeypatch, fields, error,
                                   match):
-    """The fields the port refuses: the model axis (item 8e-ii), a
+    """The fields the port refuses: a model axis the processes do not
+    divide (one process here), a
     multi-process launch without its ranks (no launcher environment), an
     unknown platform or PRNG. The data axis's fields finalize: one process
     has no mesh, so ``fsdp`` changes nothing there."""
