@@ -530,7 +530,16 @@ class Encoder(nn.Module):
                                     for _ in range(cfg.num_hidden_layers))
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def forward(self, h, frame_lengths, output_hidden_states: bool = False):
+    def forward(self, h, frame_lengths, output_hidden_states: bool = False,
+                layer_stack_fn=None):
+        """``layer_stack_fn``: a callable ``(h, frame_lengths) -> h`` that
+        replaces the transformer-layer loop (the pipe axis's schedule,
+        ``parallel/pipeline.py``), between the positional conv and the
+        final LayerNorm; no sequence parallelism under it."""
+        if layer_stack_fn is not None and output_hidden_states:
+            raise ValueError(
+                "layer_stack_fn and output_hidden_states are exclusive: "
+                "an external stack executor returns only the final state")
         stable = self.cfg.do_stable_layer_norm
         h = h + self.pos_conv_embed(h)
         if not stable:
@@ -539,6 +548,9 @@ class Encoder(nn.Module):
             # to float32
             h = _layer_norm(self.layer_norm, h, torch.float32)
         h = _dropout(h, self.cfg.hidden_dropout, self.training)
+        if layer_stack_fn is not None:
+            h = layer_stack_fn(h, frame_lengths)
+            return (_layer_norm(self.layer_norm, h) if stable else h), None
         # per-layer recomputation in the backward, like the JAX package's
         # nn.remat (with jax.checkpoint_policies.dots_saveable for "dots");
         # only while training with a gradient to take
@@ -664,14 +676,17 @@ class Wav2Vec2Model(nn.Module):
                 output_hidden_states: bool = False,
                 time_mask: Optional[torch.Tensor] = None,
                 precomputed_features: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                layer_stack_fn=None):
         """``time_mask`` (B, T_frames) bool, True = masked: replaces the
         sampled SpecAugment time mask, in either mode. ``precomputed_
         features`` (B, T_frames, conv_dim[-1]): the feature extractor's
         output, replacing its forward (``input_values`` may then be None;
         ``input_lengths`` stays in audio samples). ``generator``: the
         source of SpecAugment's random spans in ``train()`` mode (dropout
-        draws from the default generator)."""
+        draws from the default generator). ``layer_stack_fn``: replaces
+        the encoder's layer loop (``Encoder.forward``); it excludes
+        ``output_hidden_states``."""
         cfg = self.cfg
         dtype = compute_dtype(cfg)
         if precomputed_features is not None:
@@ -697,7 +712,8 @@ class Wav2Vec2Model(nn.Module):
                                generator)
         # pad frames are zeroed before the positional conv
         h = h * frame_mask[:, :, None].to(h.dtype)
-        h, all_hidden = self.encoder(h, frame_lengths, output_hidden_states)
+        h, all_hidden = self.encoder(h, frame_lengths, output_hidden_states,
+                                     layer_stack_fn)
         if output_hidden_states:
             return h, frame_lengths, feats, all_hidden
         return h, frame_lengths, feats

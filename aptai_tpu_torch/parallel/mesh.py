@@ -85,7 +85,11 @@ def make_mesh(data: int = -1, model: int = 1, device: Optional[str] = None):
 
     Raises the JAX package's ``ValueError`` when the processes do not
     divide by ``model`` or the mesh needs more than there are;
-    ``NotImplementedError`` for a mesh over part of the processes."""
+    ``NotImplementedError`` for a mesh over part of the processes.
+
+    The pipe axis (``parallel/pipeline.py``) takes a mesh with a
+    ``"pipe"`` dimension in place of this one: ``init_device_mesh(device,
+    (data, pipe), mesh_dim_names=("data", "pipe"))``."""
     n = process_count()
     if data == -1:
         if n % model:

@@ -362,6 +362,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import functools
 import http.client
 import io
 import json
@@ -437,7 +438,9 @@ from aptai_tpu_torch.train.train_force_aptai import ctc_seq_per
 from aptai_tpu_torch.train.train_force_aptai import \
     make_eval_forward as force_eval_forward
 from aptai_tpu_torch.train.train_pr import make_eval_forward
-from aptai_tpu_torch.parallel import init_distributed, make_mesh, shard_tree
+from aptai_tpu_torch.parallel import (init_distributed, make_mesh,
+                                      pipelined_encoder_apply, shard_tree)
+from aptai_tpu_torch.parallel import pipeline
 from aptai_tpu_torch.parallel.mesh import full_state_dict, gather_full
 from aptai_tpu_torch.utils.flops import (aptai_forward_flops,
                                          device_peak_int8_tops,
@@ -5930,6 +5933,9 @@ TP_TIMEOUT = 600  # seconds the ranks may take together
 SP = ("data", "model", None)  # the residual stream's time on the model axis
 TP_DEVICE = "cuda"  # the ranks' device (and their mesh's)
 T_START = time.perf_counter()  # a rank's stage times count from its imports
+PP_MICRO = 4  # 17d: the 8 x 5 s batch in 4 microbatches of 2 rows
+PP_INTERLEAVE = 2  # 17d's interleaved schedule: 2 chunks of 6 layers a rank
+PP_TIMED = 2  # 17d: timed gradient steps of each schedule after the first
 
 
 def tp_config():
@@ -6016,6 +6022,162 @@ def model_on_card(cfg, state_dict):
         model = APTAI(cfg, num_phonemes=46)
     model.load_state_dict(state_dict)
     return model
+
+
+def rel_gap(got, want) -> float:
+    """The largest difference over the largest magnitude of ``want``."""
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+
+def handoff_ms(mesh, shape, n: int = 10) -> float:
+    """Mean wall time of one hand-off of a bf16 ``shape`` from pipe stage 0
+    to stage 1 as ``parallel/pipeline.py`` makes it (gloo: staged through
+    a pinned host buffer), measured on the receiver, after two warm."""
+    x = torch.randn(shape, device=TP_DEVICE).to(torch.bfloat16)
+    axis = pipeline._PipeAxis(mesh, pipeline.PIPE_AXIS, x)
+    torch.distributed.barrier()
+    for i in range(2 + n):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if axis.stage == 0:
+            axis.send(x, axis.next)
+            axis.wait()
+        else:
+            x = axis.recv(x.shape, x.dtype, x.device, axis.prev)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def grad_sums(model, ref, names):
+    """float64 (sum (a − b)², sum b², sum a·b, sum a²) over ``names`` of
+    ``model``'s gradients ``a`` against ``ref``'s ``b``."""
+    sums = torch.zeros(4, dtype=torch.float64)
+    params = dict(model.named_parameters())
+    for n in names:
+        a, b = params[n].grad.double(), ref[n].double()
+        sums += torch.stack([(a - b).square().sum(), b.square().sum(),
+                             (a * b).sum(), a.square().sum()]).cpu()
+    return sums
+
+
+def pipe_rank(cfg, init, batch, heads, rank):
+    """17d in one of phase 17's ranks, after 17c on the same processes: a
+    ``("data", "pipe")`` = (1, 2) mesh over the two ranks and full-width
+    APTAI's encoder from phase 17's weights, piped at 8 x 5 s in
+    ``PP_MICRO`` microbatches by GPipe and by the interleaved schedule
+    (``PP_INTERLEAVE`` chunks a rank). Each schedule's forward against
+    the single-device encoder run microbatch by microbatch (bit for bit)
+    and whole (the largest difference over the largest magnitude, beside
+    bf16's noise floor: the whole batch with plain attention); its
+    gradients of ``mean(h²)`` against the single device's, as the four
+    float64 sums of :func:`grad_sums` over this rank's gradients (the
+    layers it holds, and on rank 0 the rest, which every rank holds
+    whole), summed over the ranks; launches, heads, the stack's bytes on
+    this rank, forward and step times beside the plain step's, one
+    hand-off's time."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh(TP_DEVICE, (1, TP_RANKS),
+                            mesh_dim_names=("data", pipeline.PIPE_AXIS))
+    audio = torch.as_tensor(batch["audio"]).cuda()
+    lengths = torch.as_tensor(batch["audio_lengths"]).cuda()
+    full = model_on_card(cfg, init).wav2vec2.eval()
+    mb = audio.shape[0] // PP_MICRO
+
+    def microbatched(h, frame_lengths):
+        outs = []
+        for x, n in zip(h.split(mb), frame_lengths.split(mb)):
+            for layer in full.encoder.layers:
+                x = layer(x, n)
+            outs.append(x)
+        return torch.cat(outs)
+
+    with torch.no_grad():
+        want = full(audio, lengths, layer_stack_fn=microbatched)[0]
+        whole = full(audio, lengths)[0]
+        w2v.multi_head_attention_bhtd = attention.flash_attention_bhtd_plain
+        try:
+            floor = rel_gap(full(audio, lengths)[0], whole)
+        finally:
+            w2v.multi_head_attention_bhtd = attention.multi_head_attention_bhtd
+    # the single device's gradients, each rank's step timed alone
+    plain_ms = []
+    for turn in range(TP_RANKS):
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        if turn != rank:
+            continue
+        for _ in range(1 + PP_TIMED):
+            full.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (full(audio, lengths)[0].float() ** 2).mean().backward()
+            torch.cuda.synchronize()
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.distributed.barrier()
+    ref = {n: p.grad for n, p in full.named_parameters() if p.grad is not None}
+    stack = sum(p.numel() * p.element_size()
+                for p in full.encoder.layers.parameters())
+    out = {"floor": floor, "plain_step_ms": plain_ms[1:],
+           "full_stack_bytes": stack, "handoff_bytes":
+           mb * want.shape[1] * want.shape[2] * want.element_size(),
+           "handoff_dtype": str(want.dtype),
+           "handoff_ms": handoff_ms(mesh, (mb,) + tuple(want.shape[1:]))}
+    for name, v in (("gpipe", 1), ("interleaved", PP_INTERLEAVE)):
+        model = copy.deepcopy(full)
+        model.zero_grad(set_to_none=True)
+        run = functools.partial(pipelined_encoder_apply, model, audio,
+                                lengths, mesh, num_microbatches=PP_MICRO,
+                                interleave=v)
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        heads.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            h = run()[0]
+        torch.cuda.synchronize()
+        res = {"forward_ms": (time.perf_counter() - t0) * 1e3,
+               "forward_counts": read_counts(),
+               "bit_for_bit": torch.equal(h, want),
+               "vs_microbatched": rel_gap(h, want),
+               "vs_whole": rel_gap(h, whole),
+               "stack_bytes": sum(p.numel() * p.element_size()
+                                  for p in model.encoder.layers.parameters()),
+               "rest_bytes": sum(p.numel() * p.element_size()
+                                 for n, p in model.named_parameters()
+                                 if not n.startswith("encoder.layers."))}
+        times = []
+        for i in range(1 + PP_TIMED):
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.distributed.barrier()
+            reset_counts()
+            t0 = time.perf_counter()
+            (run()[0].float() ** 2).mean().backward()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                res["step_counts"] = read_counts()
+        res["step_ms"] = times[1:]
+        held = [n for n, p in model.named_parameters() if p.grad is not None]
+        mine = [n for n in held if rank == 0 or n.startswith("encoder.layers.")]
+        sums = grad_sums(model, ref, mine)
+        torch.distributed.all_reduce(sums)
+        names = [None] * TP_RANKS
+        torch.distributed.all_gather_object(names, held)
+        d2, b2, ab, a2 = sums.tolist()
+        res.update(grad_rel=(d2 / b2) ** 0.5, grad_cos=ab / (a2 * b2) ** 0.5,
+                   grads_cover=set().union(*names) == set(ref),
+                   heads=sorted(heads))
+        out[name] = res
+        del model, h
+        torch.cuda.empty_cache()
+    del full, ref
+    torch.cuda.empty_cache()
+    return out
 
 
 def tensor_parallel_rank(rank: int, port: int, work: Path) -> None:
@@ -6127,6 +6289,8 @@ def tensor_parallel_rank(rank: int, port: int, work: Path) -> None:
     torch.save(codes, work / f"codes{rank}.pt")
     stages["quant"] = time.perf_counter() - T_START
     out["heads"] = sorted(heads)
+    out["pipe"] = pipe_rank(cfg, init, inp["batch"], heads, rank)
+    stages["pipe"] = time.perf_counter() - T_START
     out["stages"] = stages
     torch.save(out, work / f"out{rank}.pt")
     torch.distributed.destroy_process_group()
@@ -6469,10 +6633,64 @@ def phase_tensor_parallel(card):
             raise AssertionError("17c: the ranks' w8a8_ffn batch disagrees "
                                  "with the unsharded model")
         paths["tp_w8a8_ffn_serving"] = (1, tp_q[0]["counts"])
+        paths.update(check_pipe(ranks, layers, cfg.num_attention_heads,
+                                card))
     log("  17 the ranks' stages, s from their imports: " + "; ".join(
         ", ".join(f"{k} {v:.1f}" for k, v in r["stages"].items())
         for r in ranks))
     log(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return paths
+
+
+def check_pipe(ranks, layers, heads, card):
+    """17d's gates on the ranks' results (:func:`pipe_rank`); the paths'
+    launch counts (rank 0's)."""
+    pp = [r["pipe"] for r in ranks]
+    p0 = pp[0]
+    log(f"  17d the pipe axis, (data, pipe) = (1, {TP_RANKS}), 8 x 5 s in "
+        f"{PP_MICRO} microbatches: a hand-off {p0['handoff_bytes']} bytes "
+        f"({p0['handoff_dtype']}), {pp[1]['handoff_ms']:.3f} ms through "
+        f"pinned host memory (gloo takes no CUDA tensor point to point; two "
+        f"processes on one card, not NVLink); plain step (forward and "
+        f"backward of mean(h^2), one rank alone) "
+        f"{[[round(t, 2) for t in q['plain_step_ms']] for q in pp]} ms; "
+        f"bf16's noise floor (the whole batch, plain attention against the "
+        f"kernel) {p0['floor']:.3e} of the largest magnitude on {card}")
+    fwd = PP_MICRO * layers // TP_RANKS  # a rank: each of its layers a microbatch
+    paths = {}
+    for name in ("gpipe", "interleaved"):
+        runs = [q[name] for q in pp]
+        r0 = runs[0]
+        log(f"  17d {name}: forward bit for bit the microbatched single-"
+            f"device encoder {[r['bit_for_bit'] for r in runs]} (largest "
+            f"difference {max(r['vs_microbatched'] for r in runs):.3e}); "
+            f"against the whole batch {max(r['vs_whole'] for r in runs):.3e}"
+            f" of the largest magnitude; gradients of every parameter, both "
+            f"ranks', against the single device's: relative L2 "
+            f"{r0['grad_rel']:.3e}, cosine {r0['grad_cos']:.12f}; stack "
+            f"bytes a rank {[r['stack_bytes'] for r in runs]} of "
+            f"{p0['full_stack_bytes']}, the rest "
+            f"{[r['rest_bytes'] for r in runs]} (whole); forward "
+            f"{[round(r['forward_ms'], 2) for r in runs]} ms, steps "
+            f"{[[round(t, 2) for t in r['step_ms']] for r in runs]} ms; "
+            f"launches a forward {r0['forward_counts']}, a step "
+            f"{r0['step_counts']}; heads a launch "
+            f"{[r['heads'] for r in runs]} on {card}")
+        for r in runs:
+            f, st = r["forward_counts"], r["step_counts"]
+            if not (f["flash_attn_fwd"] == fwd and f["flash_attn_bwd_dq"] == 0
+                    and f["flash_attn_bwd_dkv"] == 0
+                    and all(st[n] == fwd for n in FLASH)
+                    and f["fused_conv_ln_gelu"] == st["fused_conv_ln_gelu"]
+                    == 0):
+                raise AssertionError(f"17d {name}: launches {f}, {st}")
+            if not (r["bit_for_bit"] and r["grads_cover"]
+                    and r["grad_rel"] <= 0.1 and r["grad_cos"] >= 0.99
+                    and r["stack_bytes"] * TP_RANKS == p0["full_stack_bytes"]
+                    and r["heads"] == [heads]):
+                raise AssertionError(f"17d {name}: outside its gates")
+        paths[f"pp_{name}_forward"] = (1, r0["forward_counts"])
+        paths[f"pp_{name}_grad_step"] = (1, r0["step_counts"])
     return paths
 
 

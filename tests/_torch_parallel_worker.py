@@ -1,6 +1,7 @@
 """One rank of the port's multi-process CPU tests (gloo), launched by
-``tests/test_torch_parallel.py``, ``tests/test_torch_parallel_fit.py`` and
-``tests/test_torch_tensor_parallel*.py`` as ``python
+``tests/test_torch_parallel.py``, ``tests/test_torch_parallel_fit.py``,
+``tests/test_torch_tensor_parallel*.py`` and ``tests/test_torch_pipeline.
+py`` as ``python
 _torch_parallel_worker.py SCENARIO RANK WORLD PORT DIR``.
 
 It imports torch and the port only, never JAX. Its inputs (``DIR/in.pt``:
@@ -306,6 +307,90 @@ def tensor_serving(inp, rank, world):
     return out
 
 
+PIPE_FORWARDS = {  # name: (mesh, microbatches, interleave, data axis)
+    "gpipe_4_2": ("pipe4", 2, 1, None), "gpipe_4_4": ("pipe4", 4, 1, None),
+    "gpipe_2_4": ("pairs", 4, 1, None), "inter_2_2_2": ("pairs", 2, 2, None),
+    "inter_2_4_2": ("pairs", 4, 2, None),
+    "data_pipe": ("pairs", 2, 1, "data")}
+PIPE_GRADS = {"gpipe_4_2": ("pipe4", 2, 1), "inter_2_2_2": ("pairs", 2, 2)}
+PIPE_REFUSALS = {  # name: (mesh, microbatches, interleave)
+    "ragged_groups": ("pairs", 1, 2), "microbatches": ("pipe4", 3, 1),
+    "stages": ("pipe3", 2, 1), "model_axis": ("model", 2, 1)}
+
+
+def pipeline(inp, rank, world):
+    """Four ranks: the pipe axis over a pipe-4 mesh, over pipe-2 pairs (a
+    (data, pipe) = (2, 2) mesh: each pair runs the whole batch, or with
+    ``data_axis`` its rows) and the refusals. Each forward's outputs and
+    attention calls, each gradient run's gradients (the model in
+    ``train()`` mode: the pipe runs it deterministically) and the names
+    of the parameters this rank holds, each refusal's error."""
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+    from aptai_tpu_torch.models import wav2vec2 as tw2v
+    from aptai_tpu_torch.parallel import pipelined_encoder_apply
+
+    cfg = tcfg.tiny_config(**inp["cfg"])
+    audio, lens = (torch.from_numpy(inp[k]) for k in ("audio", "lens"))
+    meshes = {"pipe4": init_device_mesh("cpu", (4,),
+                                        mesh_dim_names=("pipe",)),
+              "pairs": init_device_mesh("cpu", (2, 2),
+                                        mesh_dim_names=("data", "pipe")),
+              "model": init_device_mesh("cpu", (2, 2),
+                                        mesh_dim_names=("model", "pipe")),
+              "pipe3": DeviceMesh("cpu", [0, 1, 2],
+                                  mesh_dim_names=("pipe",))}
+    calls = [0]
+    real = tw2v.multi_head_attention_bhtd
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    tw2v.multi_head_attention_bhtd = counted
+
+    def encoder():
+        model = tw2v.Wav2Vec2Model(cfg)
+        model.load_state_dict(inp["sd"])
+        return model
+
+    def run(model, mesh, m, v, data_axis=None):
+        calls[0] = 0
+        return pipelined_encoder_apply(model, audio, lens, meshes[mesh],
+                                       num_microbatches=m, interleave=v,
+                                       data_axis=data_axis)
+
+    # a rank's first calls of the ops take seconds on the CPU: made here
+    # on every rank at once, not in the pipe one stage after another
+    (encoder().eval()(audio, lens)[0] ** 2).mean().backward()
+    out = {}
+    for name, (mesh, m, v, data_axis) in PIPE_FORWARDS.items():
+        with torch.no_grad():
+            h, fl, _ = run(encoder().eval(), mesh, m, v, data_axis)
+        out[name] = {"h": h.numpy(), "fl": fl.numpy(), "calls": calls[0]}
+    for name, (mesh, m, v) in PIPE_GRADS.items():
+        model = encoder().train()
+        h, _, _ = run(model, mesh, m, v)
+        (h ** 2).mean().backward()
+        out["grad_" + name] = {
+            "grads": {n: p.grad.numpy().copy()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None},
+            "held": [n for n, _ in model.named_parameters()],
+            "stack_bytes": sum(p.numel() * p.element_size() for p in
+                               model.encoder.layers.parameters()),
+            "calls": calls[0], "training": model.training}
+    for name, (mesh, m, v) in PIPE_REFUSALS.items():
+        if name == "stages" and rank == 3:
+            continue  # not on the three-process mesh
+        try:
+            run(encoder(), mesh, m, v)
+            out[name] = None
+        except Exception as e:  # the refusal, its type and text
+            out[name] = (type(e).__name__, str(e))
+    return out
+
+
 def start(scenario, inp, work, world=2):
     """Start ``scenario`` on ``world`` gloo ranks, one child process each,
     over the inputs ``inp``; :func:`finish` waits for them. Called by the
@@ -359,7 +444,8 @@ def main():
     inp = torch.load(work / "in.pt", weights_only=False)
     assert init_distributed(f"127.0.0.1:{port}", world, rank, device="cpu")
     out = {"steps": steps, "fits": fits, "tensor_steps": tensor_steps,
-           "tensor_serving": tensor_serving}[scenario](inp, rank, world)
+           "tensor_serving": tensor_serving,
+           "pipeline": pipeline}[scenario](inp, rank, world)
     out["jax_loaded"] = any(m.split(".")[0] in ("jax", "aptai_tpu")
                             for m in sys.modules)
     torch.save(out, work / f"out{rank}.pt")

@@ -164,3 +164,50 @@ def test_bf16_policy_casts_matmul_weights_only():
         h_serving, _, _ = serving.wav2vec2(audio, lens)
     assert h.dtype == torch.bfloat16 and torch.isfinite(h.float()).all()
     torch.testing.assert_close(h_serving, h, rtol=0, atol=0)
+
+
+def test_layer_stack_fn_replaces_the_layer_loop(pair):
+    """The hook (the pipe axis's seat, ``parallel/pipeline.py``) sits where
+    the JAX package's does: an identity hook skips exactly the layers (the
+    positional conv before it and the final LayerNorm after it run), and a
+    hook that runs the layers is the built-in loop bit for bit."""
+    enc, params, model, audio, lens = pair
+    a, n = torch.from_numpy(audio), torch.from_numpy(lens)
+
+    def skip(h, frame_lengths):
+        return h
+
+    want, _, _ = jax.jit(lambda p: enc.apply(
+        {"params": p}, jnp.asarray(audio), jnp.asarray(lens),
+        layer_stack_fn=skip))(params)
+    with torch.no_grad():
+        got, _, _ = model(a, n, layer_stack_fn=skip)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-5)
+
+        def loop(h, frame_lengths):
+            for layer in model.encoder.layers:
+                h = layer(h, frame_lengths)
+            return h
+
+        hooked, _, _ = model(a, n, layer_stack_fn=loop)
+        plain, _, _ = model(a, n)
+    torch.testing.assert_close(hooked, plain, rtol=0, atol=0)
+
+
+def test_layer_stack_fn_refuses_hidden_states(pair):
+    """With ``output_hidden_states`` the hook raises the JAX package's
+    ``ValueError``."""
+    enc, params, model, audio, lens = pair
+
+    def skip(h, frame_lengths):
+        return h
+
+    with pytest.raises(ValueError) as want:
+        jax.eval_shape(lambda p: enc.apply(
+            {"params": p}, jnp.asarray(audio), jnp.asarray(lens),
+            output_hidden_states=True, layer_stack_fn=skip), params)
+    with pytest.raises(ValueError) as got:
+        model(torch.from_numpy(audio), torch.from_numpy(lens),
+              output_hidden_states=True, layer_stack_fn=skip)
+    assert str(got.value) == str(want.value)
