@@ -52,6 +52,7 @@ from aptai_tpu_torch.models.wav2vec2 import init_weights_
 from aptai_tpu_torch.ops.ctc import greedy_decode
 from aptai_tpu_torch.ops.fir import fir_lowpass, lowpass_fir_taps
 from aptai_tpu_torch.ops.forward_sum import forward_sum_loss
+from aptai_tpu_torch.parallel.global_batch import global_mean
 
 DECODE_METHODS = ("greedy", "beam_host", "beam_device")
 PREDICT_FIELDS = ("tvs_pred", "pred_frame_phns", "pred_ctc_phn_seq",
@@ -239,8 +240,9 @@ class ForceAPTAI(nn.Module):
         tvs = fir_lowpass(rnn_out, self.fir_taps)
 
         tv_mask = (tv_targets != TV_PAD_VALUE).float()
-        tv_loss = ((tv_mask * (tvs - tv_targets) ** 2).sum()
-                   / tv_mask.sum().clamp(min=1.0))
+        # the masked means are over the (global) batch's frames
+        tv_loss = global_mean((tv_mask * (tvs - tv_targets) ** 2).sum(),
+                              tv_mask.sum())
         align_loss = forward_sum_loss(
             a["att"], a["phn_seq_lengths"], frame_lengths,
             blank_logprob=self.blank_logprob,
@@ -260,8 +262,9 @@ class ForceAPTAI(nn.Module):
                       < frame_lengths[:, None])
             valid = (tl != 0) & in_len
             ce = -torch.log(p_match.clamp(min=1e-8))
-            aux_ce = (torch.where(valid, ce, torch.zeros_like(ce)).sum()
-                      / valid.sum().clamp(min=1))
+            aux_ce = global_mean(
+                torch.where(valid, ce, torch.zeros_like(ce)).sum(),
+                valid.sum())
             loss = loss + self.aux_frame_ce_weight * aux_ce
 
         return {"loss": loss, "tv_loss": tv_loss, "align_loss": align_loss,

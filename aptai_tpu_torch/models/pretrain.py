@@ -28,6 +28,14 @@ Random draws come from the ``generator`` given to ``forward`` (the train
 step's), or are given as tensors (``gumbel_noise``, ``negative_indices``),
 which is how the tests and the card check hold the port to the JAX module
 on the same draws: torch cannot reproduce flax's random streams.
+
+In a data-parallel step (``parallel/global_batch.py``) the loss is the
+global batch's: the codebook usage the perplexity reads is summed over the
+data axis (:func:`global_total`), the contrastive loss, the accuracy and
+the feature penalty divide by the global counts (:func:`global_mean`), and
+the Gumbel noise and the distractors are drawn for the global batch, of
+which each process keeps its rows, so a process draws for each row what
+one process draws for it.
 """
 
 from __future__ import annotations
@@ -40,13 +48,19 @@ from torch import nn
 
 from aptai_tpu_torch.models.configs import Wav2Vec2Config
 from aptai_tpu_torch.models.wav2vec2 import Wav2Vec2Model, init_weights_
+from aptai_tpu_torch.parallel.global_batch import (global_mean, global_rows,
+                                                   global_total)
 
 
 def gumbel_noise(shape, generator: Optional[torch.Generator],
                  device) -> torch.Tensor:
     """Standard Gumbel draws, float32: ``-log(-log(u))`` with ``u`` uniform
-    in [tiny, 1), as ``jax.random.gumbel`` makes them."""
-    u = torch.rand(shape, generator=generator, device=device)
+    in [tiny, 1), as ``jax.random.gumbel`` makes them. ``shape`` leads
+    with the batch; in a data-parallel step the draws are the global
+    batch's, of which this process keeps its rows."""
+    rows, lo = global_rows(shape[0])
+    u = torch.rand((rows, *shape[1:]), generator=generator,
+                   device=device)[lo:lo + shape[0]]
     return -torch.log(-torch.log(u.clamp(min=torch.finfo(u.dtype).tiny)))
 
 
@@ -89,13 +103,16 @@ class GumbelVectorQuantizer(nn.Module):
             probs = F.one_hot(logits.argmax(-1), v).float()
 
         # codebook usage from the noise-free softmax over the selected
-        # positions, a perplexity per group, summed
+        # positions (the global batch's in a data-parallel step), a
+        # perplexity per group, summed
         marg = torch.softmax(logits, dim=-1)
         if pos_mask is not None:
             w = pos_mask.to(marg.device, torch.float32)[:, :, None, None]
-            mean_probs = (marg * w).sum((0, 1)) / w.sum().clamp(min=1.0)
         else:
-            mean_probs = marg.mean((0, 1))
+            w = marg.new_ones((b, t, 1, 1))
+        usage = global_total(torch.cat([(marg * w).sum((0, 1)).reshape(-1),
+                                        w.sum().reshape(1)]))
+        mean_probs = usage[:-1].view(g, v) / usage[-1].clamp(min=1.0)
         perplexity = torch.exp(-(mean_probs * torch.log(mean_probs + 1e-7))
                                .sum(-1)).sum()
 
@@ -126,9 +143,11 @@ def sample_negative_indices(generator: Optional[torch.Generator], b: int,
                             num_negatives: int) -> torch.Tensor:
     """(B, T, K) distractor indices: uniform over the valid frames of the
     same utterance other than the frame itself, the uniforms drawn from
-    ``generator`` on ``frame_lengths``' device."""
-    u = torch.rand((b, t, num_negatives), generator=generator,
-                   device=frame_lengths.device)
+    ``generator`` on ``frame_lengths``' device (for the global batch in a
+    data-parallel step, of which this process keeps its rows)."""
+    rows, lo = global_rows(b)
+    u = torch.rand((rows, t, num_negatives), generator=generator,
+                   device=frame_lengths.device)[lo:lo + b]
     return negative_indices_from_uniform(u, frame_lengths)
 
 
@@ -218,17 +237,21 @@ class Wav2Vec2Pretrain(nn.Module):
             neg_is_pos, float("-inf"))], dim=2)
 
         logp = torch.log_softmax(logits, dim=-1)[:, :, 0]  # (B, T)
-        n_masked = mask.sum()
-        denom = n_masked.clamp(min=1)
-        contrastive = -torch.where(mask, logp, 0.0).sum() / denom
+        # masked-frame top-1 accuracy (argmax takes the first index) and
+        # the contrastive loss, over the global batch's masked frames
+        hits = (mask & (logits.argmax(-1) == 0)).sum()
+        contrastive, acc = global_mean(torch.stack([
+            -torch.where(mask, logp, 0.0).sum(), hits.to(logp.dtype)]),
+            mask.sum()).unbind()
+        n_masked = global_total(mask.sum())
 
         gv = self.quantizer.num_groups * self.quantizer.num_vars
         diversity = (gv - perplexity) / gv
-        feat_pen = torch.where(valid[:, :, None], extract, 0.0).pow(2).mean()
+        sq = torch.where(valid[:, :, None], extract, 0.0).pow(2)
+        feat_pen = global_mean(sq.sum(),
+                               torch.full((), sq.numel(), device=dev))
         loss = (contrastive + self.diversity_weight * diversity
                 + self.feature_penalty_weight * feat_pen)
-        # masked-frame top-1 accuracy (argmax takes the first index)
-        acc = (mask & (logits.argmax(-1) == 0)).sum() / denom
         return {
             "loss": loss,
             "contrastive_loss": contrastive,

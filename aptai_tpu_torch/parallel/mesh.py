@@ -62,9 +62,12 @@ MODEL_AXIS = "model"
 FSDP_MIN_SIZE = 65_536
 
 # the model methods besides forward that training and evaluation call (the
-# loss adapters from cached features, APTAI's predict); neither calls
-# another, and FSDP2 all-gathers the root group's parameters around each
-FSDP_FORWARD_METHODS = ("train_from_features", "predict")
+# loss adapters from cached features or encodings, APTAI's predict,
+# FORCE-APTAI's tower pass); FSDP2 all-gathers the root group's parameters
+# around each, and a call nested in another (FORCE's forward runs
+# encode_and_decode) finds them gathered
+FSDP_FORWARD_METHODS = ("train_from_features", "train_from_encoded",
+                        "encode_and_decode", "predict")
 
 # the JAX package's tensor-parallel rules (``parallel/mesh.py::
 # _PARAM_RULES``) on this package's modules: the dimension of each split
@@ -167,9 +170,13 @@ def frozen_parameter_names(model: nn.Module) -> List[str]:
     """Names of ``model``'s parameters that require a gradient yet never get
     one in a training forward: the feature extractor of an encoder built
     with ``freeze_feature_encoder`` (run under ``no_grad``), and
-    SpecAugment's mask embedding when no time mask is drawn."""
+    SpecAugment's mask embedding when no time mask is drawn (pretraining
+    passes its own time mask, so its encoder's embedding always trains)."""
+    from aptai_tpu_torch.models.pretrain import Wav2Vec2Pretrain
     from aptai_tpu_torch.models.wav2vec2 import Wav2Vec2Model
 
+    masked_outside = {id(m.wav2vec2) for m in model.modules()
+                      if isinstance(m, Wav2Vec2Pretrain)}
     names = []
     for prefix, m in model.named_modules():
         if not isinstance(m, Wav2Vec2Model):
@@ -179,7 +186,8 @@ def frozen_parameter_names(model: nn.Module) -> List[str]:
             names += [dot + "feature_extractor." + n for n, p in
                       m.feature_extractor.named_parameters()
                       if p.requires_grad]
-        if hasattr(m, "masked_spec_embed") and m.cfg.mask_time_prob == 0:
+        if (hasattr(m, "masked_spec_embed") and m.cfg.mask_time_prob == 0
+                and id(m) not in masked_outside):
             names.append(dot + "masked_spec_embed")
     return names
 
@@ -470,23 +478,24 @@ def full_optimizer_state(model: nn.Module, optimizer) -> dict:
     return out
 
 
-def load_full_state_dict(model: nn.Module, state_dict) -> None:
+def load_full_state_dict(model: nn.Module, state_dict,
+                         strict: bool = True) -> None:
     """Load a single device's state dict into ``model``, keeping this
     process's slices on a placed model (every process passes the same
-    dict)."""
+    dict); ``strict`` as ``nn.Module.load_state_dict``'s."""
     axis = placed_model_axis(model)
     if axis is not None:
         dims = model_parallel_dims(model)
         state_dict = {k: _own_slice(v, dims.get(k), axis)
                       for k, v in state_dict.items()}
     if not is_fsdp(model):
-        model.load_state_dict(state_dict)
+        model.load_state_dict(state_dict, strict=strict)
         return
     from torch.distributed.checkpoint.state_dict import (StateDictOptions,
                                                          set_model_state_dict)
 
     set_model_state_dict(model, state_dict, options=StateDictOptions(
-        full_state_dict=True))
+        full_state_dict=True, strict=strict))
 
 
 def full_shapes(model: nn.Module) -> Dict[str, torch.Size]:

@@ -11,7 +11,10 @@ batches carrying ``fe_features`` in place of ``audio``, the inputs of
 cache is the step from audio.
 
 The cache holds only while the extractor is frozen and each utterance's
-audio is fixed (not under random cropping).
+audio is fixed (not under random cropping). Over a mesh each process of
+the data axis runs the extractor over its rows of every batch, and the
+features are all-gathered (``frozen_cache.sharded_encode``), so every
+process holds the whole cache for 1/N of the pass.
 """
 
 from __future__ import annotations
@@ -28,23 +31,28 @@ from aptai_tpu_torch.data.batching import (FRAME_BUCKET, LABEL_BUCKET,
                                            _round_up)
 from aptai_tpu_torch.infer.api import fetch_outputs
 from aptai_tpu_torch.models.wav2vec2 import compute_dtype
-from aptai_tpu_torch.train.frozen_cache import _CachedItems
+from aptai_tpu_torch.train.frozen_cache import _CachedItems, sharded_encode
 
 
-def _cache_items(loader, model) -> List[Dict]:
+def _cache_items(loader, model, mesh=None) -> List[Dict]:
     """One pass over ``loader``: the feature extractor of ``model`` (an
-    APTAI or W2V2PR) over each batch on the model's device, then per real
-    row the features trimmed to its frames and the label fields a step
-    needs."""
+    APTAI or W2V2PR) over each batch on the model's device (this process's
+    rows of it over ``mesh``, gathered back), then per real row the
+    features trimmed to its frames and the label fields a step needs."""
     encoder = model.wav2vec2
     cfg = encoder.cfg
     dev = next(model.parameters()).device
+
+    @torch.no_grad()
+    def encode(audio, lengths, n_real):
+        del lengths, n_real  # every row, the whole padded width
+        return {"fe": encoder.feature_extractor(
+            torch.as_tensor(audio).to(dev, compute_dtype(cfg)))}
+
     items: List[Dict] = []
     for batch in loader:
-        audio = torch.as_tensor(batch["audio"]).to(dev, compute_dtype(cfg))
-        with torch.no_grad():
-            feats = fetch_outputs(
-                {"fe": encoder.feature_extractor(audio)})["fe"]
+        feats = fetch_outputs(sharded_encode(
+            encode, mesh, batch["audio"], batch["audio_lengths"]))["fe"]
         a_len = np.asarray(batch["audio_lengths"])
         f_len = cfg.feat_extract_output_lengths(a_len)
         mask = np.asarray(batch.get("batch_pad_mask",
@@ -99,10 +107,12 @@ class FECachedLoader(BucketedLoader):
     """Shuffled, frame-bucketed batches over the feature extractor's
     output: ``loader`` (``collate_tv`` or ``collate_ctc`` batches) is read
     once at construction through ``model``'s frozen extractor (the fused
-    kernel under ``fused_feature_extractor=True``)."""
+    kernel under ``fused_feature_extractor=True``), split over ``mesh``'s
+    data axis when given."""
 
-    def __init__(self, loader, model, shuffle: bool = True, seed: int = 0):
-        super().__init__(_CachedItems(_cache_items(loader, model)),
+    def __init__(self, loader, model, shuffle: bool = True, seed: int = 0,
+                 mesh=None):
+        super().__init__(_CachedItems(_cache_items(loader, model, mesh)),
                          batch_size=loader.batch_size, collate_fn=collate_fe,
                          shuffle=shuffle, seed=seed)
 

@@ -10,6 +10,11 @@ head alone from the cached outputs (``ForceAPTAI.train_from_encoded``):
   the host (``decode_method="beam_host"``, real rows only), and trimmed
   per-utterance items with the tower's per-frame CTC argmax
   (``tower_frame_labels``, for the aux frame CE);
+* :func:`place_params` and :func:`sharded_encode` — the pass over a mesh
+  (``parallel/``): each process of the data axis encodes its rows of
+  every batch, with the tower split over the model axis as the step splits
+  the encoder, and the outputs are all-gathered over the data axis, so
+  every process holds the items of a one-process pass, in its order;
 * :func:`collate_encoded` — a batch of items padded to ``FRAME_BUCKET``
   multiples;
 * :class:`EncodedItemsLoader` — shuffled, frame-bucketed batches over
@@ -22,10 +27,13 @@ head alone from the cached outputs (``ForceAPTAI.train_from_encoded``):
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional, Sequence
+import copy
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
 
 from aptai_tpu_torch import (CTC_LABEL_PAD_ID, PHONEME_FRAME_PAD_ID,
                              TV_PAD_VALUE)
@@ -33,6 +41,9 @@ from aptai_tpu_torch.data.batching import (FRAME_BUCKET, LABEL_BUCKET,
                                            BucketedLoader, _pad_to,
                                            _round_up)
 from aptai_tpu_torch.infer.api import fetch_outputs
+from aptai_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, axis_size,
+                                           is_fsdp, placed_model_axis,
+                                           split_model_axis)
 
 
 def encode_batch(model, audio, audio_lengths,
@@ -47,20 +58,72 @@ def encode_batch(model, audio, audio_lengths,
                                    n_real)
 
 
-def encode_items(batches: Iterable[Dict], model) -> List[Dict]:
+def place_params(model: nn.Module, mesh) -> nn.Module:
+    """The model a cache pass encodes with on ``mesh``: on a model axis of
+    several processes, a copy of ``model`` split as the step splits it
+    (``parallel.mesh.split_model_axis``), so the trained model's
+    parameters are neither sliced nor shared; ``model`` itself otherwise,
+    and when it is already placed (split, or sharded by FSDP), since the
+    pass only reads it."""
+    if (axis_size(mesh, MODEL_AXIS) == 1 or is_fsdp(model)
+            or placed_model_axis(model) is not None):
+        return model
+    return split_model_axis(copy.deepcopy(model), mesh)
+
+
+def sharded_encode(encode: Callable, mesh, audio, audio_lengths,
+                   n_real: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """``encode(audio, audio_lengths, n_real)`` over a global batch whose
+    real rows lead (``n_real`` of them; None: all), split over the data
+    axis of ``mesh``: this process encodes its rows ``[r·B/N, (r+1)·B/N)``
+    (``n_real`` becoming the number of real rows among them), then every
+    output, batch-leading and equally shaped on every process, is
+    all-gathered over the axis, so every process returns the whole batch's
+    outputs in its order. Without a data axis of several processes, the
+    call on the whole batch. A batch that does not divide over the axis
+    raises ``ValueError``."""
+    n = axis_size(mesh, DATA_AXIS)
+    if n == 1:
+        return encode(audio, audio_lengths, n_real)
+    b = len(audio)
+    if b % n:
+        raise ValueError(f"batch {b} does not divide over the {n} "
+                         "processes of the data axis")
+    k, r = b // n, mesh.get_local_rank(DATA_AXIS)
+    lo = r * k
+    own_real = None if n_real is None else min(max(n_real - lo, 0), k)
+    out = encode(audio[lo:lo + k], audio_lengths[lo:lo + k], own_real)
+    group = mesh.get_group(DATA_AXIS)
+    gathered = {}
+    for name, t in out.items():
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t, group=group)
+        gathered[name] = torch.cat(parts)
+    return gathered
+
+
+def encode_items(batches: Iterable[Dict], model, mesh=None) -> List[Dict]:
     """The one-time cache pass: each ``collate_tv``-style batch (``audio``,
     ``audio_lengths``, ``tv_targets``, ``phoneme_labels``; optionally
     ``batch_pad_mask``, ``frame_lengths``, ``phn_frames``, ``utt_keys``)
     through :func:`encode_batch`, then trimmed per-utterance host items in
     batch order. Rows whose ``batch_pad_mask`` is False (a partial batch's
-    repeats) are left out; the real rows lead."""
+    repeats) are left out; the real rows lead. ``mesh``: the batches are
+    global batches, split over its data axis and gathered back
+    (:func:`sharded_encode`, the tower placed by :func:`place_params`)."""
+    tower = place_params(model, mesh)
+
+    def encode(audio, lengths, n_real):
+        return encode_batch(tower, audio, lengths, n_real=n_real)
+
     items: List[Dict] = []
     for batch in batches:
         mask = np.asarray(batch.get(
             "batch_pad_mask", np.ones(len(batch["audio"]), bool)))
-        enc = fetch_outputs(encode_batch(model, batch["audio"],
-                                         batch["audio_lengths"],
-                                         n_real=int(mask.sum())))
+        enc = fetch_outputs(sharded_encode(
+            encode, mesh, batch["audio"], batch["audio_lengths"],
+            n_real=int(mask.sum())))
         fl = enc["frame_lengths"]
         embs = enc["frame_embs"]
         tvs = np.asarray(batch["tv_targets"])
@@ -158,11 +221,12 @@ class EncodedItemsLoader(BucketedLoader):
 
 class FrozenEncodedLoader(EncodedItemsLoader):
     """One fold's cache: ``loader`` (``collate_tv`` batches) read once at
-    construction through :func:`encode_items`, then batches as an
-    :class:`EncodedItemsLoader`."""
+    construction through :func:`encode_items` (split over ``mesh``'s data
+    axis when given), then batches as an :class:`EncodedItemsLoader`."""
 
-    def __init__(self, loader, model, shuffle: bool = True, seed: int = 0):
-        super().__init__(encode_items(loader, model),
+    def __init__(self, loader, model, shuffle: bool = True, seed: int = 0,
+                 mesh=None):
+        super().__init__(encode_items(loader, model, mesh),
                          batch_size=loader.batch_size, shuffle=shuffle,
                          seed=seed)
 
@@ -170,11 +234,11 @@ class FrozenEncodedLoader(EncodedItemsLoader):
 class FrozenEncodedCorpus:
     """One run's cache: every row of an HPRC manifest encoded once
     (:func:`encode_items` over unshuffled ``collate_tv`` batches of
-    ``batch_size``), keyed by ``path_wav``; :meth:`loader_for` serves a
-    fold's rows from it."""
+    ``batch_size``, split over ``mesh``'s data axis when given), keyed by
+    ``path_wav``; :meth:`loader_for` serves a fold's rows from it."""
 
     def __init__(self, rows: Sequence[Dict], vocab: Dict[str, int], model,
-                 batch_size: int):
+                 batch_size: int, mesh=None):
         from aptai_tpu_torch.data import HPRCDataset, collate_tv
 
         def collate_with_keys(items):
@@ -185,7 +249,7 @@ class FrozenEncodedCorpus:
         loader = BucketedLoader(HPRCDataset(rows, vocab, rate="both"),
                                 batch_size=batch_size,
                                 collate_fn=collate_with_keys, shuffle=False)
-        items = encode_items(loader, model)
+        items = encode_items(loader, model, mesh)
         self.by_key: Dict[str, Dict] = {it["utt_key"]: it for it in items}
         if len(self.by_key) != len(items):
             raise ValueError("the manifest lists a path_wav twice")

@@ -239,21 +239,30 @@ class _LossModule(nn.Module):
         return self.loss_fn(self.model, batch, generator)
 
 
+def run_mesh(cfg):
+    """The mesh of the run's processes: ``parallel.make_mesh(
+    cfg.mesh_data, cfg.mesh_model)``; None when the process runs alone."""
+    from aptai_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(data=cfg.mesh_data, model=cfg.mesh_model)
+
+
 def make_engine(cfg, loss_fn: Callable, model: nn.Module,
                 frozen_prefixes: Sequence[str] = ()) -> TrainStep:
     """The trainers' step for ``model``: :func:`torch_adam` with the
     config's betas, eps and weight decay, ``cfg.grad_accum``, seeded with
     ``cfg.seed``, on the config's device (``train/config.py::run_device``),
-    on the mesh of the run's processes (``parallel.make_mesh(
-    cfg.mesh_data, cfg.mesh_model)``; none when the process runs alone),
-    ``model`` sharded first under ``cfg.fsdp``.
+    on the mesh of the run's processes (:func:`run_mesh`), ``model``
+    sharded first under ``cfg.fsdp`` (a model sharded by an earlier engine
+    steps as it is).
     """
-    from aptai_tpu_torch.parallel.mesh import make_mesh, shard_tree
+    from aptai_tpu_torch.parallel.mesh import is_fsdp, shard_tree
     from aptai_tpu_torch.train.config import run_device
 
     device = run_device(cfg)
-    mesh = make_mesh(data=cfg.mesh_data, model=cfg.mesh_model)
-    if mesh is not None and getattr(cfg, "fsdp", False):
+    mesh = run_mesh(cfg)
+    if mesh is not None and getattr(cfg, "fsdp", False) and not is_fsdp(
+            model):
         model = shard_tree(model.to(device), mesh, fsdp=True)
     optimizer = torch_adam(model, b1=cfg.adam_beta1, b2=cfg.adam_beta2,
                            eps=cfg.adam_epsilon,

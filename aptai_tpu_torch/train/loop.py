@@ -115,17 +115,6 @@ class _PreemptionGuard:
         return False
 
 
-def require_one_process(what: str) -> None:
-    """Raise ``NotImplementedError`` in a run of several processes: for
-    the trainers that do not run over several yet (pretraining's diversity
-    loss reads the whole batch's code distribution; FORCE-APTAI's fold
-    loop refits after a collapse and writes its tower outside ``fit``)."""
-    if process_count() > 1:
-        raise NotImplementedError(
-            f"{what} runs in one process only (ROADMAP Queue 1 item "
-            "8e-iv); launch it without --coordinator_address")
-
-
 def split_rows(loader, index: int, count: int) -> None:
     """Make ``loader`` (a ``BucketedLoader``, or a loader wrapping one as
     its ``.loader``) serve process ``index`` of ``count`` its rows of each

@@ -14,6 +14,12 @@ Gumbel temperature → ``fit`` (the 3-phase LR schedule, best/last
 checkpoints on ``val_loss``, resume, preemption) with a deterministic
 masked-objective validation.
 
+Over several processes (``--coordinator_address``, on the mesh of
+``--mesh_data``, ``--mesh_model`` and ``--fsdp``) each process steps on
+its rows of every global batch, the objective's means, codebook usage and
+draws being the global batch's (``models/pretrain.py``); every process
+validates, and the primary alone writes files and logs.
+
 Usage:
   python -m aptai_tpu_torch.train.pretrain \\
       --audio_csv_path data/CommonPhone/commonphone.csv \\
@@ -37,11 +43,12 @@ from aptai_tpu_torch.data.manifest import read_rows, select
 from aptai_tpu_torch.models.pretrain import (Wav2Vec2Pretrain,
                                              random_wav2vec2_pretrain)
 from aptai_tpu_torch.models.wav2vec2 import compute_time_mask
+from aptai_tpu_torch.parallel.multihost import is_primary
 from aptai_tpu_torch.train.builders import make_backbone_config
 from aptai_tpu_torch.train.checkpoints import CheckpointManager, save_json
 from aptai_tpu_torch.train.config import (TrainConfig, parse_config,
                                           run_device)
-from aptai_tpu_torch.train.loop import fit, require_one_process
+from aptai_tpu_torch.train.loop import fit
 from aptai_tpu_torch.train.train_aptai import eval_call
 from aptai_tpu_torch.utils.logging import init_logger
 
@@ -248,11 +255,12 @@ def split_rows(rows, val_fraction: float):
 def run(cfg: PretrainConfig, tiny_backbone=None):
     """Pretrain one encoder; returns ``(history, model)``.
     ``tiny_backbone`` replaces the wav2vec2-large config (tests)."""
-    require_one_process("pretraining")
     device = run_device(cfg)
     exp_dir = Path(cfg.exp_dir)
     exp_dir.mkdir(parents=True, exist_ok=True)
-    save_json(exp_dir / "experiment_args.json", cfg)
+    primary = is_primary()  # the process that writes files
+    if primary:
+        save_json(exp_dir / "experiment_args.json", cfg)
 
     if not Path(cfg.audio_csv_path).exists():
         raise SystemExit(
@@ -295,7 +303,7 @@ def run(cfg: PretrainConfig, tiny_backbone=None):
         bigger_is_better=cfg.target_metric_bigger_better,
         save_all_epochs=cfg.save_all_epochs,
     )
-    logger = init_logger(cfg, "pretrain")
+    logger = init_logger(cfg, "pretrain") if primary else None
     _, history = fit(
         cfg, pretrain_loss_fn(cfg.mask_prob, cfg.mask_span,
                               cfg.mask_min_masks),

@@ -34,6 +34,7 @@ from aptai_tpu_torch.train.checkpoints import CheckpointManager, save_json
 from aptai_tpu_torch.train.config import APTAIConfig, parse_config, run_device
 from aptai_tpu_torch.train.evaluate import test_tv, validate_tv
 from aptai_tpu_torch.train.fe_cache import FECachedLoader
+from aptai_tpu_torch.train.harness import run_mesh
 from aptai_tpu_torch.train.loop import fit
 from aptai_tpu_torch.train.metrics import aggregate_mean_std, dict_to_csv
 from aptai_tpu_torch.utils.logging import RunLogger
@@ -133,7 +134,7 @@ def run_speaker(cfg, rows, vocab, test_spk, model, model_cfg):
         # the FE is frozen and this fold's FE weights are fixed: run it
         # once over the training rows
         fe_dl = FECachedLoader(_loader(train, vocab, cfg.batch_size, False),
-                               model, seed=cfg.seed)
+                               model, seed=cfg.seed, mesh=run_mesh(cfg))
         print(f"frozen-FE cache: {len(fe_dl.dataset)} utterances, "
               f"{fe_dl.cache_bytes / 1e6:.1f} MB host")
         train_dl = PrefetchLoader(fe_dl)

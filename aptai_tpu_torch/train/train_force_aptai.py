@@ -11,6 +11,14 @@ trains from the cache; when the tower comes from a W2V2PR checkpoint
 (``pr_spliced``) the whole manifest is encoded once per run and shared by
 the folds.
 
+Over several processes (``--coordinator_address``, on the mesh of
+``--mesh_data``, ``--mesh_model`` and ``--fsdp``) each cache pass splits
+its batches over the data axis and gathers the encodings, so every process
+holds the whole cache; the head steps on each process's rows of every
+batch; the collapse guard's decision is agreed by every process, so all
+fall back to ``beam_host`` together; every process validates and tests,
+and the primary alone writes files.
+
 Usage:
   python -m aptai_tpu_torch.train.train_force_aptai --hprc_csv_path ... \
       --pr_model_path <W2V2PR run> --vocab_path <W2V2PR run>/vocab.json
@@ -31,6 +39,9 @@ from aptai_tpu_torch.data.hprc import loso_split
 from aptai_tpu_torch.data.manifest import unique
 from aptai_tpu_torch.decode.native import edit_distance
 from aptai_tpu_torch.infer.api import fetch_outputs
+from aptai_tpu_torch.parallel.mesh import load_full_state_dict
+from aptai_tpu_torch.parallel.multihost import (any_process, host_barrier,
+                                                is_primary)
 from aptai_tpu_torch.train.builders import build_force_model
 from aptai_tpu_torch.models.convert import (
     jax_w2v2_pr_params_from_state_dict)
@@ -45,7 +56,8 @@ from aptai_tpu_torch.train.evaluate import test_tv, validate_tv
 from aptai_tpu_torch.train.frozen_cache import (FrozenEncodedCorpus,
                                                 FrozenEncodedLoader,
                                                 encode_batch)
-from aptai_tpu_torch.train.loop import fit, require_one_process
+from aptai_tpu_torch.train.harness import run_mesh
+from aptai_tpu_torch.train.loop import fit
 from aptai_tpu_torch.train.metrics import aggregate_mean_std, dict_to_csv
 from aptai_tpu_torch.train.train_aptai import (_loader, eval_call,
                                                fold_peak_memory, read_hprc)
@@ -97,17 +109,19 @@ class BeamDecodedBatches:
     model's device, the beam search on the calling thread
     (``ForceAPTAI.decode``, real rows only), and the batch with ``audio``
     replaced by ``frame_embs``, ``enc_frame_lengths``, the decoded
-    sequences and ``tower_frame_labels`` (device tensors)."""
+    sequences and ``tower_frame_labels`` (device tensors). Over several
+    processes ``fit`` splits ``loader``'s batches (``loop.split_rows``
+    reaches it as ``.loader``): each process encodes its own rows."""
 
-    def __init__(self, batches: Iterable[Dict], model):
-        self.batches = batches
+    def __init__(self, loader: Iterable[Dict], model):
+        self.loader = loader
         self.model = model
 
     def __len__(self):
-        return len(self.batches)
+        return len(self.loader)
 
     def __iter__(self):
-        for batch in self.batches:
+        for batch in self.loader:
             mask = batch.get("batch_pad_mask")
             n = None if mask is None else int(np.asarray(mask).sum())
             enc = encode_batch(self.model, batch["audio"],
@@ -260,11 +274,15 @@ class _TowerMergingCkpt:
 
 
 def run_speaker(cfg, rows, vocab, test_spk, model, model_cfg,
-                corpus_cache: Optional[FrozenEncodedCorpus] = None):
+                corpus_cache: Optional[FrozenEncodedCorpus] = None,
+                mesh=None):
     """One LOSO fold of ``model`` (on the run's device); returns the test
     metric dict for ``test_spk``, with ``decode_fallback`` 1 when the
-    blank-collapse guard switched the fold to ``beam_host``."""
+    blank-collapse guard switched the fold to ``beam_host``. ``mesh``: the
+    run's (``harness.run_mesh``), over which the fold's cache passes
+    split."""
     device = run_device(cfg)
+    primary = is_primary()
     exp_dir = Path(cfg.exp_dir)
     train, valid, test_n, test_f = loso_split(rows, test_spk,
                                               cfg.train_val_rate,
@@ -283,7 +301,7 @@ def run_speaker(cfg, rows, vocab, test_spk, model, model_cfg,
             else:
                 enc_dl = FrozenEncodedLoader(
                     _loader(train, vocab, cfg.batch_size, False), model,
-                    seed=cfg.seed)
+                    seed=cfg.seed, mesh=mesh)
                 print(f"frozen-tower cache: {len(enc_dl.dataset)} "
                       f"utterances, {enc_dl.cache_bytes / 1e6:.1f} MB host")
             return PrefetchLoader(enc_dl)
@@ -302,7 +320,8 @@ def run_speaker(cfg, rows, vocab, test_spk, model, model_cfg,
             val_dl = corpus_cache.loader_for(valid, eval_bs, shuffle=False)
         else:
             val_dl = FrozenEncodedLoader(_loader(valid, vocab, eval_bs,
-                                                 False), model, shuffle=False)
+                                                 False), model, shuffle=False,
+                                         mesh=mesh)
         return make_encoded_eval_forward(model), val_dl
 
     max_b = 5 if cfg.laptop else None
@@ -320,8 +339,10 @@ def run_speaker(cfg, rows, vocab, test_spk, model, model_cfg,
             per = logs["val_ctc_seq_per"]
             streak["n"] = streak["n"] + 1 if (
                 per >= cfg.collapse_per_threshold) else 0
-            if streak["n"] >= cfg.collapse_patience:
-                if allow_fallback and cfg.collapse_fallback:
+            collapsed = streak["n"] >= cfg.collapse_patience
+            fall_back = allow_fallback and cfg.collapse_fallback
+            if collapsed:
+                if fall_back:
                     tail = ", falling back to decode_method=beam_host"
                 elif already_beam:
                     tail = ("; beam decode is ALREADY active, so the "
@@ -339,8 +360,9 @@ def run_speaker(cfg, rows, vocab, test_spk, model, model_cfg,
                     "degenerate phoneme sequences.  Verify the stage-1 PR "
                     "checkpoint is converged" + tail
                 )
-                if allow_fallback and cfg.collapse_fallback:
-                    raise _DecodeCollapse
+            # every process falls back, or none: the decision is agreed
+            if fall_back and any_process(collapsed):
+                raise _DecodeCollapse
             return logs
 
         return validate
@@ -352,9 +374,9 @@ def run_speaker(cfg, rows, vocab, test_spk, model, model_cfg,
     tower, head = _split_tower(model.state_dict())
     if cached:
         ckpt = _TowerMergingCkpt(ckpt, tower)
-    logger = RunLogger(exp_dir, "FORCE_APTAI",
-                       run_name=f"{cfg.prefix}_{test_spk}",
-                       use_wandb=cfg.logging)
+    logger = (RunLogger(exp_dir, "FORCE_APTAI",
+                        run_name=f"{cfg.prefix}_{test_spk}",
+                        use_wandb=cfg.logging) if primary else None)
     from_encoded = cached or model.decode_method == "beam_host"
     # only the greedy decode has a beam to fall back to
     can_fall_back = model.decode_method == "greedy"
@@ -374,7 +396,7 @@ def run_speaker(cfg, rows, vocab, test_spk, model, model_cfg,
               "from the last checkpoint")
         # from the fold's start, or from its last checkpoint when one was
         # written before the collapse
-        model.load_state_dict(initial_head, strict=False)
+        load_full_state_dict(model, initial_head, strict=False)
         model.decode_method = "beam_host"
         fit(dataclasses.replace(cfg, train_from_ckpt=True),
             force_loss_fn(from_encoded=True), model, train_loader(beam=True),
@@ -382,9 +404,11 @@ def run_speaker(cfg, rows, vocab, test_spk, model, model_cfg,
             ckpt, model_cfg=model_cfg, logger=logger,
             frozen_prefixes=(TOWER,))
 
-    model.load_state_dict(ckpt.restore_best(map_location=device))
+    load_full_state_dict(model, ckpt.restore_best(map_location=device))
     if cached:
-        ckpt.finalize()
+        if primary:
+            ckpt.finalize()
+        host_barrier()
     fwd = make_eval_forward(model)
     results = {"decode_fallback": int(fell_back)}
     tmax = 1 if cfg.laptop else None
@@ -395,9 +419,10 @@ def run_speaker(cfg, rows, vocab, test_spk, model, model_cfg,
     for rate, dl in test_dls.items():
         results[f"test_{rate}_ctc_seq_per"] = ctc_seq_per(fwd, dl, tmax,
                                                           log_fn=print)
-    metrics_dir = exp_dir / "test_metrics"
-    metrics_dir.mkdir(parents=True, exist_ok=True)
-    dict_to_csv(results, metrics_dir / f"{test_spk}.csv")
+    if primary:
+        metrics_dir = exp_dir / "test_metrics"
+        metrics_dir.mkdir(parents=True, exist_ok=True)
+        dict_to_csv(results, metrics_dir / f"{test_spk}.csv")
     return results
 
 
@@ -405,12 +430,13 @@ def run(cfg, tiny_backbone=None, speakers=None):
     """The LOSO run over ``speakers`` (every speaker of the manifest by
     default); returns ``(mean, std, per-speaker results)``. Each fold draws
     a fresh head (``seed + fold``) over the checkpoint's tower and frees
-    the previous fold's model and optimizer first."""
-    require_one_process("FORCE-APTAI's trainer")
+    the previous fold's model and optimizer first. Over several processes
+    every process runs every fold, and the primary writes the files."""
     device = run_device(cfg)
     exp_dir = Path(cfg.exp_dir)
     exp_dir.mkdir(parents=True, exist_ok=True)
-    save_json(exp_dir / "experiment_args.json", cfg)
+    if is_primary():
+        save_json(exp_dir / "experiment_args.json", cfg)
     rows, vocab = read_hprc(cfg)
     speakers = speakers or unique(rows, "speaker")
 
@@ -419,11 +445,13 @@ def run(cfg, tiny_backbone=None, speakers=None):
     model, model_cfg = build_force_model(cfg, vocab, cfg.pr_model_path,
                                          tiny=tiny_backbone)
     model.to(device)
+    mesh = run_mesh(cfg)
     # a tower from the checkpoint is the same in every fold: encode the
     # whole manifest once and share it; a random tower differs per fold
     corpus_cache = None
     if cfg.cache_frozen_encodings and model_cfg["pr_spliced"]:
-        corpus_cache = FrozenEncodedCorpus(rows, vocab, model, cfg.batch_size)
+        corpus_cache = FrozenEncodedCorpus(rows, vocab, model, cfg.batch_size,
+                                           mesh=mesh)
         print(f"corpus frozen-tower cache: {len(corpus_cache)} utterances, "
               f"{corpus_cache.cache_bytes / 1e6:.1f} MB host "
               "(shared across LOSO folds)")
@@ -441,11 +469,13 @@ def run(cfg, tiny_backbone=None, speakers=None):
                                          seed=cfg.seed + fold)
             model.to(device)
         per_speaker.append(run_speaker(cfg, rows, vocab, test_spk, model,
-                                       model_cfg, corpus_cache=corpus_cache))
+                                       model_cfg, corpus_cache=corpus_cache,
+                                       mesh=mesh))
         fold_peak_memory(device, test_spk)
     mean, std = aggregate_mean_std(per_speaker)
-    dict_to_csv(mean, exp_dir / "loso_mean.csv")
-    dict_to_csv(std, exp_dir / "loso_std.csv")
+    if is_primary():
+        dict_to_csv(mean, exp_dir / "loso_mean.csv")
+        dict_to_csv(std, exp_dir / "loso_std.csv")
     return mean, std, per_speaker
 
 

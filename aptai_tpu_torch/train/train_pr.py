@@ -31,6 +31,7 @@ from aptai_tpu_torch.train.checkpoints import CheckpointManager, save_json
 from aptai_tpu_torch.train.config import PRConfig, parse_config, run_device
 from aptai_tpu_torch.train.evaluate import validate_pr
 from aptai_tpu_torch.train.fe_cache import FECachedLoader
+from aptai_tpu_torch.train.harness import run_mesh
 from aptai_tpu_torch.train.loop import fit
 from aptai_tpu_torch.train.train_aptai import eval_call
 from aptai_tpu_torch.utils.logging import init_logger
@@ -125,7 +126,8 @@ def run(cfg: PRConfig, tiny_backbone=None):
     use_fe_cache = (cfg.cache_frozen_fe and cfg.freeze_feature_extractor
                     and not cfg.cropping)
     if use_fe_cache:
-        fe_dl = FECachedLoader(train_dl.loader, model, seed=cfg.seed)
+        fe_dl = FECachedLoader(train_dl.loader, model, seed=cfg.seed,
+                               mesh=run_mesh(cfg))
         print(f"frozen-FE cache: {len(fe_dl.dataset)} utterances, "
               f"{fe_dl.cache_bytes / 1e6:.1f} MB host")
         train_dl = PrefetchLoader(fe_dl)

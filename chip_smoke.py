@@ -309,7 +309,21 @@ Phases (any failure ends the run with a non-zero exit code):
    audio-s/s; 17c one ``w8a8_ffn`` batch of 4 x 10 s against the
    unsharded model, given the ranks' codes and free, the codes that
    differ counted; gloo's all-reduce time at the train and serving
-   shapes; each rank's stage times.
+   shapes; each rank's stage times; 17d the pipe axis on the same two
+   ranks; 17e the data axis on the same two ranks, a (data, model) =
+   (2, 1) mesh of the same group: full-width FORCE-APTAI's cache pass
+   (``FrozenEncodedCorpus``) over a synthetic HPRC corpus split over the
+   ranks and gathered, against rank 0's one-process pass (keys, lengths
+   and sequences equal, embeddings within bf16's tolerance), 24 forward
+   launches a batch on each rank and half a batch a call; two
+   data-parallel FORCE head steps from that cache (float32: losses within
+   1e-4, the averaged first-step gradients within 1e-4 relative L2 of one
+   process's, no launch); two data-parallel pretraining steps at 8 x 5 s
+   (4 rows a rank, the step's own draws, which are the global batch's)
+   within 1e-3 of one process's losses and phase 5's bf16 gradient gates,
+   24 launches of each flash kernel a step on each rank, and one FSDP
+   step of it; step times beside one process's, gloo's all-reduce of the
+   step's gradient bytes, per-rank Adam bytes under DDP and FSDP.
 
 Output: the phases' lines, then one JSON line of kernel records, the card
 line, and last ``{"ok": true, "device": {...}}``. A flash kernel record's
@@ -331,8 +345,11 @@ the train step of 13c, the two ``w8a8`` batches of 13d, the APTAI
 epoch of 14 from the prepared manifest, the six APTAI steps of 15, and
 the two DDP and two FSDP steps of 16, rank 0's two tensor-parallel and
 two sequence-parallel steps, one tensor-parallel batch and one
-``w8a8_ffn`` batch on the model axis of 17), each read with the counts
-set to 0 just before it.
+``w8a8_ffn`` batch on the model axis of 17, the pipe schedules' forwards
+and gradient steps of 17d, and 17e's split FORCE cache pass, two
+data-parallel FORCE head steps, two data-parallel pretraining steps and
+one FSDP pretraining step), each read with the counts set to 0 just
+before it.
 
 Phase 13 alone, from the repository root (the kernels build at first
 use; ``main`` also turns TF32 off, which the small float32 models' gates
@@ -410,7 +427,8 @@ from aptai_tpu_torch.models import (APTAI, W2V2PR, ForceAPTAI, Wav2Vec2Config,
 from aptai_tpu_torch.models import w2v2_pr
 from aptai_tpu_torch.models import wav2vec2 as w2v
 from aptai_tpu_torch.models.convert import fuse_qkv_state_dict
-from aptai_tpu_torch.models.pretrain import (negative_indices_from_uniform,
+from aptai_tpu_torch.models.pretrain import (Wav2Vec2Pretrain,
+                                             negative_indices_from_uniform,
                                              random_wav2vec2_pretrain,
                                              sample_negative_indices)
 from aptai_tpu_torch.ops import attention, fused_conv, kernels, quant, signal
@@ -441,7 +459,8 @@ from aptai_tpu_torch.train.train_pr import make_eval_forward
 from aptai_tpu_torch.parallel import (init_distributed, make_mesh,
                                       pipelined_encoder_apply, shard_tree)
 from aptai_tpu_torch.parallel import pipeline
-from aptai_tpu_torch.parallel.mesh import full_state_dict, gather_full
+from aptai_tpu_torch.parallel.mesh import (full_state_dict, gather_full,
+                                           shard_batch)
 from aptai_tpu_torch.utils.flops import (aptai_forward_flops,
                                          device_peak_int8_tops,
                                          device_peak_tflops, encoder_flops,
@@ -5936,6 +5955,9 @@ T_START = time.perf_counter()  # a rank's stage times count from its imports
 PP_MICRO = 4  # 17d: the 8 x 5 s batch in 4 microbatches of 2 rows
 PP_INTERLEAVE = 2  # 17d's interleaved schedule: 2 chunks of 6 layers a rank
 PP_TIMED = 2  # 17d: timed gradient steps of each schedule after the first
+DP_CACHE_BATCH = 4  # 17e: the cache pass's global batches, 2 rows a rank
+DP_STEPS = 2  # 17e: data-parallel steps of each model, and one process's
+DP_SPEAKERS = 2  # 17e's corpus: 2 utterances a speaker, both rates
 
 
 def tp_config():
@@ -6050,13 +6072,12 @@ def handoff_ms(mesh, shape, n: int = 10) -> float:
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def grad_sums(model, ref, names):
+def grad_sums(grads, ref, names):
     """float64 (sum (a − b)², sum b², sum a·b, sum a²) over ``names`` of
-    ``model``'s gradients ``a`` against ``ref``'s ``b``."""
+    the gradients ``grads`` (``a``) against ``ref``'s (``b``)."""
     sums = torch.zeros(4, dtype=torch.float64)
-    params = dict(model.named_parameters())
     for n in names:
-        a, b = params[n].grad.double(), ref[n].double()
+        a, b = grads[n].double(), ref[n].double()
         sums += torch.stack([(a - b).square().sum(), b.square().sum(),
                              (a * b).sum(), a.square().sum()]).cpu()
     return sums
@@ -6164,7 +6185,8 @@ def pipe_rank(cfg, init, batch, heads, rank):
         res["step_ms"] = times[1:]
         held = [n for n, p in model.named_parameters() if p.grad is not None]
         mine = [n for n in held if rank == 0 or n.startswith("encoder.layers.")]
-        sums = grad_sums(model, ref, mine)
+        sums = grad_sums({n: p.grad for n, p in model.named_parameters()},
+                         ref, mine)
         torch.distributed.all_reduce(sums)
         names = [None] * TP_RANKS
         torch.distributed.all_gather_object(names, held)
@@ -6178,6 +6200,290 @@ def pipe_rank(cfg, init, batch, heads, rank):
     del full, ref
     torch.cuda.empty_cache()
     return out
+
+
+def dp_force_model():
+    """17e's FORCE-APTAI: the full-width tower in bf16 and the head at its
+    published dimensions in float32, the head's dropout off, drawn on the
+    card from seed 0 (both ranks draw the same weights)."""
+    with torch.device(TP_DEVICE):
+        model = ForceAPTAI(Wav2Vec2Config(dtype="bfloat16"), hidden_drop=0.0,
+                           rnn_drop=0.0)
+    w2v.init_weights_(model, torch.Generator(TP_DEVICE).manual_seed(0))
+    return model
+
+
+def dp_pretrain_model():
+    """17e's pretraining model: full width in bf16 (G 2 x V 320, d = P =
+    256, K 100), dropout off, drawn on the card from seed 0 in
+    ``random_wav2vec2_pretrain``'s distributions."""
+    cfg = Wav2Vec2Config(dtype="bfloat16", mask_time_prob=0.0,
+                         apply_spec_augment=True, **NO_DROP)
+    with torch.device(TP_DEVICE):
+        model = Wav2Vec2Pretrain(cfg)
+    gen = torch.Generator(TP_DEVICE).manual_seed(0)
+    w2v.init_weights_(model, gen)
+    q = model.quantizer
+    with torch.no_grad():
+        q.codevectors.copy_(torch.rand(q.codevectors.shape, generator=gen,
+                                       device=TP_DEVICE))
+        q.weight_proj.weight.copy_(torch.randn(
+            q.weight_proj.weight.shape, generator=gen, device=TP_DEVICE))
+    return model
+
+
+def dp_steps(model, loss_fn, batch, mesh, frozen=(), n=DP_STEPS):
+    """``n`` steps of ``TrainStep`` (Adam, LR 1e-5) on this
+    process's rows of ``batch`` over ``mesh`` (the whole batch without
+    one): losses, wall times (ms), launch counts, the first step's
+    gradients (averaged over the data axis: the global batch's) and the
+    optimizer's state bytes."""
+    step = TrainStep(model, torch_adam(model, frozen_prefixes=frozen),
+                     loss_fn, device=TP_DEVICE, mesh=mesh)
+    rows = shard_batch(mesh, batch)
+    losses, times, counts = [], [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        if mesh is not None:
+            torch.distributed.barrier()
+        reset_counts()
+        t0 = time.perf_counter()
+        losses.append(step(rows, 1e-5)["loss"].item())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts.append(read_counts())
+        if i == 0:
+            grads = {n: p.grad.detach().clone()
+                     for n, p in step.model.named_parameters()
+                     if p.grad is not None}
+    return {"losses": losses, "times": times, "counts": counts,
+            "grads": grads,
+            "grad_bytes": sum(g.numel() * 4 for g in grads.values()),
+            "adam_bytes": tree_bytes(step.optimizer.state_dict()["state"])}
+
+
+def grad_gap(got, want):
+    """(relative L2, cosine) of the gradients ``got`` against ``want``
+    over ``want``'s names, in float64."""
+    if set(got) != set(want):
+        raise AssertionError("different parameters have gradients")
+    d2, b2, ab, a2 = grad_sums(got, want, want).tolist()
+    return (d2 / b2) ** 0.5, ab / (a2 * b2) ** 0.5
+
+
+def data_rank(work: Path, rank: int):
+    """17e in one of phase 17's ranks, after 17d on the same processes: a
+    ``(data, model)`` = (``TP_RANKS``, 1) mesh of the same gloo group on
+    the card. Full-width FORCE-APTAI's cache pass over the synthetic HPRC
+    corpus the script made (``FrozenEncodedCorpus``, global batches of
+    ``DP_CACHE_BATCH``) split over the ranks and gathered; ``DP_STEPS``
+    data-parallel FORCE head steps from it on the first global batch;
+    ``DP_STEPS`` data-parallel pretraining steps at 8 x 5 s, and one FSDP
+    step. Rank 0 runs each one-process reference alone (rank 1 waits) and
+    compares; every rank reports its times, launches and bytes."""
+    from aptai_tpu_torch.train.pretrain import pretrain_loss_fn
+
+    mesh = make_mesh(data=TP_RANKS, model=1, device=TP_DEVICE)
+    primary = rank == 0
+    rows = read_rows(Path(torch.load(work / "data.pt")["hprc"]))
+    vocab = build_vocab(r["phoneme_labels"] for r in rows)
+    out = {}
+
+    def alone(fn):
+        """``fn()`` on rank 0 while the other ranks wait."""
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        res = fn() if primary else None
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        return res
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    # i. the split cache pass, then rank 0's one-process pass
+    force = dp_force_model()
+    calls = []
+    real = force.encode_and_decode
+
+    def counted(audio, *a, **k):
+        calls.append(int(audio.shape[0]))
+        return real(audio, *a, **k)
+
+    force.encode_and_decode = counted
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    reset_counts()
+    corpus, ms = timed(lambda: FrozenEncodedCorpus(
+        rows, vocab, force, DP_CACHE_BATCH, mesh=mesh))
+    cache = {"ms": ms, "counts": read_counts(), "calls": list(calls),
+             "items": len(corpus)}
+    one = alone(lambda: timed(lambda: FrozenEncodedCorpus(
+        rows, vocab, force, DP_CACHE_BATCH)))
+    del force.encode_and_decode
+    if primary:
+        ref, cache["one_ms"] = one
+        cache["one_calls"] = calls[len(cache["calls"]):]
+        gaps, seqs, same = [], 0, list(corpus.by_key) == list(ref.by_key)
+        for key, w in ref.by_key.items():
+            g = corpus.by_key[key]
+            same &= all(np.array_equal(g[k], w[k]) for k in (
+                "frame_length", "frame_length_raw", "tv_targets",
+                "phoneme_label", "phn_frames"))
+            seqs += (g["phn_seq_length"] == w["phn_seq_length"]
+                     and np.array_equal(g["phn_pred_seq"], w["phn_pred_seq"])
+                     and np.array_equal(g["tower_frame_labels"],
+                                        w["tower_frame_labels"]))
+            gaps.append(float(np.abs(g["frame_embs"] - w["frame_embs"]).max()
+                              / np.abs(w["frame_embs"]).max()))
+        cache.update(same=same, seqs_equal=seqs, emb_gap=max(gaps),
+                     tokens=sum(int(w["phn_seq_length"])
+                                for w in ref.by_key.values()))
+        del ref
+    out["cache"] = cache
+
+    # ii. FORCE's head from the cache: one process, then the data axis
+    batch = next(iter(corpus.loader_for(rows, DP_CACHE_BATCH,
+                                        shuffle=False)))
+    loss_fn = force_loss_fn(from_encoded=True)
+    head = ("w2v2_pr.",)
+    one = alone(lambda: dp_steps(copy.deepcopy(force), loss_fn, batch,
+                                 None, head))
+    res = dp_steps(force, loss_fn, batch, mesh, head)
+    if primary:
+        res["one"] = {k: one[k] for k in ("losses", "times", "counts")}
+        res["grad_rel"], res["grad_cos"] = grad_gap(res["grads"],
+                                                    one["grads"])
+    del res["grads"], force, corpus, one
+    out["force_head"] = res
+    torch.cuda.empty_cache()
+
+    # iii. pretraining at 8 x 5 s: one process, the data axis, FSDP
+    model = dp_pretrain_model()
+    batch = pretrain_batch(model.cfg, 8, 5)
+    loss_fn = pretrain_loss_fn()
+    one = alone(lambda: dp_steps(copy.deepcopy(model), loss_fn, batch,
+                                 None))
+    torch.cuda.empty_cache()
+    res = dp_steps(model, loss_fn, batch, mesh)
+    if primary:
+        res["one"] = {k: one[k] for k in ("losses", "times", "counts",
+                                          "adam_bytes")}
+        res["grad_rel"], res["grad_cos"] = grad_gap(res["grads"],
+                                                    one["grads"])
+    flat = torch.zeros(res["grad_bytes"] // 4, device=TP_DEVICE)
+    del res["grads"], model, one
+    torch.cuda.empty_cache()
+    # gloo's all-reduce of one step's gradient bytes (float32), alone
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    torch.distributed.all_reduce(flat, group=mesh.get_group("data"))
+    torch.cuda.synchronize()
+    res["allreduce_ms"] = (time.perf_counter() - t0) * 1e3
+    del flat
+    out["pretrain"] = res
+    torch.cuda.empty_cache()
+    fsdp = shard_tree(dp_pretrain_model(), mesh, fsdp=True)
+    res = dp_steps(fsdp, loss_fn, batch, mesh, n=1)
+    res["param_bytes"] = tree_bytes(fsdp.state_dict())
+    del res["grads"], fsdp
+    out["fsdp_pretrain"] = res
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_data(ranks, layers, card):
+    """17e's gates on the ranks' results (:func:`data_rank`); the paths'
+    launch counts (rank 0's)."""
+    dd = [r["data"] for r in ranks]
+    c0 = dd[0]["cache"]
+    n = len(c0["calls"])
+    log(f"  17e the data axis, (data, model) = ({TP_RANKS}, 1), two "
+        f"processes sharing the card over gloo through host memory (not "
+        f"NVLink) on {card}")
+    log(f"  17e FrozenEncodedCorpus, full-width FORCE (bf16 tower), "
+        f"{c0['items']} utterances in {n} global batches of "
+        f"{DP_CACHE_BATCH}: split {[round(d['cache']['ms'], 1) for d in dd]}"
+        f" ms a rank ({[round(d['cache']['ms'] / n, 1) for d in dd]} ms a "
+        f"batch), rows a call {[d['cache']['calls'] for d in dd]}; one "
+        f"process {c0['one_ms']:.1f} ms ({c0['one_ms'] / n:.1f} ms a batch), "
+        f"rows a call {c0['one_calls']}; keys, lengths and labels equal "
+        f"{c0['same']}, sequences equal {c0['seqs_equal']} of "
+        f"{c0['items']} ({c0['tokens']} tokens), embeddings' largest "
+        f"difference {c0['emb_gap']:.3e} of their largest magnitude; "
+        f"launches {[d['cache']['counts'] for d in dd]}")
+    for d in dd:
+        c = d["cache"]
+        if not (c["counts"]["flash_attn_fwd"] == layers * n
+                and c["counts"]["flash_attn_bwd_dq"] == 0
+                and c["calls"] == [DP_CACHE_BATCH // TP_RANKS] * n
+                and c["items"] == c0["items"]):
+            raise AssertionError(f"17e cache pass: launches {c['counts']}, "
+                                 f"rows a call {c['calls']}")
+    if not (c0["same"] and c0["seqs_equal"] == c0["items"]
+            and c0["emb_gap"] <= BF16_TOL and c0["tokens"] > 0):
+        raise AssertionError("17e: the split cache pass disagrees with one "
+                             "process's")
+    paths = {"dp_force_cache_pass": (n, c0["counts"])}
+
+    for name, what, loss_tol, max_rel, min_cos in (
+            ("force_head", "FORCE head steps from the cache (float32)",
+             1e-4, 1e-4, 1 - 1e-6),
+            ("pretrain", "pretraining steps at 8 x 5 s (bf16, 4 rows a "
+             "rank)", 1e-3, 0.1, 0.99)):
+        rr = [d[name] for d in dd]
+        r0 = rr[0]
+        gap = max(abs(a - b) / abs(b) for r in rr
+                  for a, b in zip(r["losses"], r0["one"]["losses"]))
+        log(f"  17e {what}: losses {[r['losses'] for r in rr]} against one "
+            f"process's {r0['one']['losses']} (largest relative gap "
+            f"{gap:.3e}); the averaged first-step gradients against one "
+            f"process's: relative L2 {r0['grad_rel']:.3e}, cosine "
+            f"{r0['grad_cos']:.12f}; steps "
+            f"{[[round(t, 2) for t in r['times']] for r in rr]} ms, one "
+            f"process {[round(t, 2) for t in r0['one']['times']]} ms; "
+            f"gradient bytes all-reduced a step {r0['grad_bytes']}; Adam "
+            f"state {[r['adam_bytes'] for r in rr]} bytes a rank; launches "
+            f"a step {r0['counts'][-1]} on {card}")
+        want = 0 if name == "force_head" else layers
+        for r in rr + [r0["one"]]:
+            for c in r["counts"]:
+                if not (all(c[k] == want for k in FLASH)
+                        and c["fused_conv_ln_gelu"] == 0):
+                    raise AssertionError(f"17e {name}: launches {c}")
+        if not (gap <= loss_tol and r0["grad_rel"] <= max_rel
+                and r0["grad_cos"] >= min_cos):
+            raise AssertionError(f"17e {name}: outside its gates")
+        total = {k: sum(c[k] for c in r0["counts"]) for k in r0["counts"][0]}
+        paths[f"dp_{name}_step"] = (DP_STEPS, total)
+    p0 = dd[0]["pretrain"]
+    fs = [d["fsdp_pretrain"] for d in dd]
+    log(f"  17e gloo all-reduce of one pretraining step's gradients "
+        f"({p0['grad_bytes']} bytes, float32) between the two processes: "
+        f"{[round(d['pretrain']['allreduce_ms'], 1) for d in dd]} ms; an FSDP "
+        f"pretraining step {[round(f['times'][0], 2) for f in fs]} ms, loss "
+        f"{[f['losses'][0] for f in fs]}, per-rank parameters "
+        f"{[f['param_bytes'] for f in fs]} and Adam state "
+        f"{[f['adam_bytes'] for f in fs]} bytes (DDP: "
+        f"{p0['adam_bytes']}, one process "
+        f"{p0['one']['adam_bytes']}) on {card}")
+    for f in fs:
+        for c in f["counts"]:
+            if not (all(c[k] == layers for k in FLASH)
+                    and c["fused_conv_ln_gelu"] == 0):
+                raise AssertionError(f"17e fsdp: launches {c}")
+        if not (abs(f["losses"][0] - p0["one"]["losses"][0])
+                <= 1e-3 * abs(p0["one"]["losses"][0])
+                and f["adam_bytes"] * TP_RANKS
+                <= 1.01 * p0["one"]["adam_bytes"]):
+            raise AssertionError("17e fsdp: outside its gates")
+    paths["fsdp_pretrain_step"] = (1, fs[0]["counts"][0])
+    return paths
 
 
 def tensor_parallel_rank(rank: int, port: int, work: Path) -> None:
@@ -6291,6 +6597,8 @@ def tensor_parallel_rank(rank: int, port: int, work: Path) -> None:
     out["heads"] = sorted(heads)
     out["pipe"] = pipe_rank(cfg, init, inp["batch"], heads, rank)
     stages["pipe"] = time.perf_counter() - T_START
+    out["data"] = data_rank(work, rank)
+    stages["data"] = time.perf_counter() - T_START
     out["stages"] = stages
     torch.save(out, work / f"out{rank}.pt")
     torch.distributed.destroy_process_group()
@@ -6456,6 +6764,10 @@ def phase_tensor_parallel(card):
                 p.wait()
             raise
         model, plain_grads, floor = refs["model"], refs["grads"], refs["floor"]
+        # 17e's corpus, made on the card while the ranks wait
+        torch.save({"hprc": str(make_synthetic_hprc(
+            work / "hprc", 2, HPRC_SPEAKERS[:DP_SPEAKERS]))},
+            work / "data.pt")
         (work / "go").touch()
         t0 = time.perf_counter()
         ranks = finish_tp_ranks(procs, work)
@@ -6635,6 +6947,7 @@ def phase_tensor_parallel(card):
         paths["tp_w8a8_ffn_serving"] = (1, tp_q[0]["counts"])
         paths.update(check_pipe(ranks, layers, cfg.num_attention_heads,
                                 card))
+        paths.update(check_data(ranks, layers, card))
     log("  17 the ranks' stages, s from their imports: " + "; ".join(
         ", ".join(f"{k} {v:.1f}" for k, v in r["stages"].items())
         for r in ranks))

@@ -1,5 +1,6 @@
 """One rank of the port's multi-process CPU tests (gloo), launched by
 ``tests/test_torch_parallel.py``, ``tests/test_torch_parallel_fit.py``,
+``tests/test_torch_parallel_{pretrain,force}.py``,
 ``tests/test_torch_tensor_parallel*.py`` and ``tests/test_torch_pipeline.
 py`` as ``python
 _torch_parallel_worker.py SCENARIO RANK WORLD PORT DIR``.
@@ -391,6 +392,310 @@ def pipeline(inp, rank, world):
     return out
 
 
+class Writes:
+    """The paths under ``root`` this process opens for writing while the
+    block runs (``open`` and ``io.open``, which ``Path.write_text`` and
+    the checkpoint writers go through)."""
+
+    def __init__(self, root):
+        self.root, self.paths = str(root), []
+
+    def __enter__(self):
+        import builtins
+        import io
+
+        self._real = builtins.open
+
+        def recording(file, mode="r", *a, **k):
+            if any(c in mode for c in "wax") and str(file).startswith(
+                    self.root):
+                self.paths.append(str(file))
+            return self._real(file, mode, *a, **k)
+
+        builtins.open = io.open = recording
+        return self
+
+    def __exit__(self, *exc):
+        import builtins
+        import io
+
+        builtins.open = io.open = self._real
+        return False
+
+
+def pretrain_loss_injected(model, batch, generator):
+    """Pretraining's loss on the batch's own draws (``time_mask``,
+    ``gumbel_noise``, ``negative_indices``, this process's rows of the
+    global batch's), recording the forward's outputs of each call."""
+    out = model(batch["audio"], batch["audio_lengths"], batch["time_mask"],
+                batch["gumbel_temp"].float().mean(),
+                gumbel_noise=batch["gumbel_noise"],
+                negative_indices=batch["negative_indices"])
+    pretrain_loss_injected.seen.append(
+        {k: out[k].detach().clone() for k in (
+            "loss", "contrastive_loss", "diversity_loss", "feature_penalty",
+            "codebook_perplexity", "contrastive_accuracy", "num_masked")})
+    return out["loss"], {}
+
+
+pretrain_loss_injected.batch_keys = ("audio", "audio_lengths", "time_mask",
+                                     "gumbel_temp", "gumbel_noise",
+                                     "negative_indices")
+pretrain_loss_injected.seen = []
+
+
+def pretrain_model(inp):
+    from aptai_tpu_torch.models.pretrain import Wav2Vec2Pretrain
+
+    model = Wav2Vec2Pretrain(tcfg.tiny_config(**inp["cfg"]), **inp["head"])
+    model.load_state_dict(inp["sd"])
+    return model
+
+
+def pretrain_adam_steps(inp, mesh, fsdp=False, n=2):
+    """``n`` Adam steps of the pretraining model on this rank's rows of the
+    global batch and its draws: the forward's outputs on this rank at
+    each step, and the whole parameters after them."""
+    model = pretrain_model(inp)
+    if fsdp:
+        model = shard_tree(model, mesh, fsdp=True, fsdp_min_size=0)
+    step = TrainStep(model, torch_adam(model, eps=inp["adam_eps"]),
+                     pretrain_loss_injected, device="cpu", mesh=mesh)
+    pretrain_loss_injected.seen = []
+    for _ in range(n):
+        step(shard_batch(mesh, inp["batch"]), inp["lr"])
+    # where the quantizer's parameters are: an FSDP shard's dimension, or
+    # the shape of a tensor this rank holds whole
+    quantizer = {n: (("shard", p.placements[0].dim)
+                     if hasattr(p, "placements") else ("whole",
+                                                       tuple(p.shape)))
+                 for n, p in model.quantizer.named_parameters()}
+    return {"seen": [{k: v.numpy() for k, v in o.items()}
+                     for o in pretrain_loss_injected.seen],
+            "params": whole_params(model), "quantizer": quantizer}
+
+
+def pretrain_draws(inp, mesh):
+    """This rank's span mask, Gumbel noise and distractors from one
+    generator seed under the data axis, and one SGD step of the real
+    adapter (its own draws) on this rank's rows."""
+    from aptai_tpu_torch.models import pretrain as tpre
+    from aptai_tpu_torch.models.wav2vec2 import compute_time_mask
+    from aptai_tpu_torch.parallel.global_batch import data_parallel_batch
+    from aptai_tpu_torch.train.pretrain import pretrain_loss_fn
+
+    d = inp["draws"]
+    b = len(d["frames"]) // 2
+    lo = mesh.get_local_rank("data") * b
+    frames = torch.from_numpy(d["frames"][lo:lo + b])
+    gen = torch.Generator().manual_seed(d["seed"])
+    with data_parallel_batch(mesh.get_group("data"),
+                             mesh.get_local_rank("data"), 2):
+        out = {"mask": compute_time_mask(gen, frames, d["t"], *d["mask"]),
+               "noise": tpre.gumbel_noise((b, d["t"], 2, d["v"]), gen,
+                                          "cpu"),
+               "idx": tpre.sample_negative_indices(gen, b, d["t"], frames,
+                                                   d["k"])}
+    out = {k: v.numpy() for k, v in out.items()}
+    model = pretrain_model(inp)
+    step = TrainStep(model, torch.optim.SGD(model.parameters(), lr=1e-2),
+                     pretrain_loss_fn(0.5, 4, 1), device="cpu", mesh=mesh,
+                     seed=3)
+    metrics = step(shard_batch(mesh, {k: inp["batch"][k] for k in (
+        "audio", "audio_lengths", "gumbel_temp")}), 1e-2)
+    out["step"] = {"metrics": {k: v.item() for k, v in metrics.items()},
+                   "params": whole_params(model)}
+    return out
+
+
+def global_total_grad(inp, mesh):
+    """A nonlinear function of :func:`global_total` of this rank's rows:
+    its value, and the gradient averaged over the data axis as DDP
+    averages it."""
+    from aptai_tpu_torch.parallel.global_batch import (data_parallel_batch,
+                                                       global_total)
+
+    x = torch.from_numpy(inp["rows"])
+    b = len(x) // 2
+    r = mesh.get_local_rank("data")
+    w = torch.from_numpy(inp["w"]).requires_grad_()
+    with data_parallel_batch(mesh.get_group("data"), r, 2):
+        total = global_total((x[r * b:(r + 1) * b] * w).sum(0))
+        value = torch.log((total ** 2).sum())
+    value.backward()
+    grad = w.grad.clone()
+    torch.distributed.all_reduce(grad, group=mesh.get_group("data"))
+    return {"value": value.item(), "grad": (grad / 2).numpy()}
+
+
+def pretrain_runs(inp, rank):
+    """``pretrain.run`` over the two ranks under DDP, FSDP and a 1×2 model
+    axis, each into its own directory; the paths this rank wrote."""
+    import dataclasses
+
+    from aptai_tpu_torch.train import pretrain as tpretrain
+
+    out = {}
+    for name, kw in inp["runs"].items():
+        cfg = tpretrain.PretrainConfig(
+            exp_dir=str(Path(inp["root"]) / name), **inp["run_cfg"], **kw
+        ).finalize("pretrain")
+        with Writes(inp["root"]) as w:
+            history, _ = tpretrain.run(cfg, tcfg.tiny_config(**inp["cfg"]))
+        out[name] = {"history": history, "writes": w.paths,
+                     "cfg": dataclasses.asdict(cfg)}
+    return out
+
+
+def pretrain_parallel(inp, rank, world):
+    """Two ranks: pretraining's Adam steps on their rows of one global
+    batch and its draws over a (2, 1) mesh (DDP and FSDP) and a (1, 2)
+    model axis; the draws and a step of the real adapter under the data
+    axis; the all-reduce helper's gradient; ``pretrain.run`` under each
+    layout."""
+    data_mesh = make_mesh()
+    model_mesh = make_mesh(model=2)
+    out = {"dp": pretrain_adam_steps(inp, data_mesh),
+           "fsdp": pretrain_adam_steps(inp, data_mesh, fsdp=True),
+           "tp": pretrain_adam_steps(inp, model_mesh),
+           "draws": pretrain_draws(inp, data_mesh),
+           "total": global_total_grad(inp, data_mesh)}
+    out["runs"] = pretrain_runs(inp, rank)
+    return out
+
+
+def force_model(inp, **kw) -> ForceAPTAI:
+    """FORCE-APTAI on the tiny tower, its head's dropout off."""
+    f = inp["force"]
+    model = ForceAPTAI(tcfg.tiny_config(**f["cfg"]), hidden_drop=0.0,
+                       rnn_drop=0.0, **f["kw"], **kw)
+    model.load_state_dict(f["sd"])
+    return model
+
+
+def force_head_steps(inp, mesh):
+    """Two SGD steps of FORCE's head from cached encodings on this rank's
+    rows; the forward's losses on this rank at each step, and the whole
+    parameters after them."""
+    from aptai_tpu_torch.train.train_force_aptai import force_loss_fn
+
+    model = force_model(inp)
+    adapter = force_loss_fn(from_encoded=True)
+    seen = []
+
+    def loss_fn(m, batch, generator):
+        out = m.train_from_encoded(
+            *(batch[k] for k in adapter.batch_keys), generator=generator,
+            tower_frame_labels=batch["tower_frame_labels"])
+        seen.append({k: out[k].detach().numpy().copy()
+                     for k in ("loss", "tv_loss", "align_loss", "aux_ce")})
+        return out["loss"], {}
+
+    loss_fn.batch_keys = adapter.batch_keys + ("tower_frame_labels",)
+    head = [p for n, p in model.named_parameters()
+            if not n.startswith("w2v2_pr.")]
+    step = TrainStep(model, torch.optim.SGD(head, lr=inp["lr"]), loss_fn,
+                     device="cpu", mesh=mesh)
+    for _ in range(2):
+        step(shard_batch(mesh, inp["encoded"]), inp["lr"])
+    return {"seen": seen, "params": {k: v for k, v in whole_params(
+        model).items() if not k.startswith("w2v2_pr.")}}
+
+
+def counted_rows(model, method):
+    """Wrap ``model.<method>`` to record the rows of each call."""
+    rows = []
+    real = getattr(model, method)
+
+    def call(x, *a, **k):
+        rows.append(int(x.shape[0]))
+        return real(x, *a, **k)
+
+    setattr(model, method, call)
+    return rows
+
+
+def cache_items(items, keys):
+    return [{k: (v.copy() if hasattr(v, "copy") else v)
+             for k, v in it.items() if k in keys} for it in items]
+
+
+def force_caches(inp, mesh):
+    """The split cache passes: ``FrozenEncodedCorpus`` greedy and
+    ``beam_host``, ``FECachedLoader``; each pass's items and the rows each
+    call of the tower (or extractor) encoded on this rank."""
+    from aptai_tpu_torch.data import HPRCDataset, collate_tv
+    from aptai_tpu_torch.train import FECachedLoader, FrozenEncodedCorpus
+
+    out = {}
+    for method in ("greedy", "beam_host"):
+        model = force_model(inp, decode_method=method)
+        rows = counted_rows(model, "encode_and_decode")
+        corpus = FrozenEncodedCorpus(inp["rows"], inp["vocab"], model,
+                                     inp["cache_batch"], mesh=mesh)
+        out[method] = {"keys": list(corpus.by_key),
+                       "items": cache_items(corpus.by_key.values(),
+                                            inp["item_keys"]),
+                       "rows": rows}
+    model = aptai(inp["aptai_cfg"], inp["sd_aptai"])
+    fe = model.wav2vec2.feature_extractor
+    seen = []
+    fe.register_forward_hook(lambda m, a, o: seen.append(int(a[0].shape[0])))
+    loader = BucketedLoader(HPRCDataset(inp["rows"], inp["vocab"],
+                                        rate="both"),
+                            batch_size=inp["cache_batch"],
+                            collate_fn=collate_tv, shuffle=False)
+    fe_cache = FECachedLoader(loader, model, shuffle=False, mesh=mesh)
+    out["fe"] = {"items": cache_items(fe_cache.dataset.items,
+                                      inp["fe_item_keys"]), "rows": seen}
+    return out
+
+
+def force_runs(inp, rank):
+    """``train_force_aptai.run`` over the two ranks under DDP, FSDP and a
+    1×2 model axis, and a run whose validation collapses on rank 0 alone;
+    per run its results and the paths this rank wrote."""
+    from aptai_tpu_torch.train import builders, train_force_aptai
+    from aptai_tpu_torch.train.config import ForceAPTAIConfig
+
+    real_build = builders.random_force_aptai
+
+    def no_dropout(*a, **k):
+        return real_build(*a, **dict(k, hidden_drop=0.0, rnn_drop=0.0))
+
+    builders.random_force_aptai = no_dropout
+    real_per = train_force_aptai.ctc_seq_per
+    out = {}
+    for name, (kw, speakers) in inp["force_runs"].items():
+        cfg = ForceAPTAIConfig(exp_dir=str(Path(inp["root"]) / name),
+                               **inp["force_run_cfg"], **kw
+                               ).finalize("FORCE_APTAI")
+        if name == "collapse":
+            # rank 0's validation sees a collapsed decode, rank 1's not
+            per = 1.0 if rank == 0 else 0.0
+            train_force_aptai.ctc_seq_per = lambda *a, **k: per
+        try:
+            with Writes(inp["root"]) as w:
+                mean, _, per_spk = train_force_aptai.run(
+                    cfg, tcfg.tiny_config(**inp["force"]["cfg"]), speakers)
+        finally:
+            train_force_aptai.ctc_seq_per = real_per
+        out[name] = {"mean": mean, "per": per_spk, "writes": w.paths}
+    builders.random_force_aptai = real_build
+    return out
+
+
+def force_parallel(inp, rank, world):
+    """Two ranks: FORCE's head step from cached encodings over a (2, 1)
+    mesh, the split cache passes, and ``train_force_aptai.run`` under each
+    layout."""
+    mesh = make_mesh()
+    out = {"head": force_head_steps(inp, mesh),
+           "caches": force_caches(inp, mesh)}
+    out["runs"] = force_runs(inp, rank)
+    return out
+
+
 def start(scenario, inp, work, world=2):
     """Start ``scenario`` on ``world`` gloo ranks, one child process each,
     over the inputs ``inp``; :func:`finish` waits for them. Called by the
@@ -444,8 +749,9 @@ def main():
     inp = torch.load(work / "in.pt", weights_only=False)
     assert init_distributed(f"127.0.0.1:{port}", world, rank, device="cpu")
     out = {"steps": steps, "fits": fits, "tensor_steps": tensor_steps,
-           "tensor_serving": tensor_serving,
-           "pipeline": pipeline}[scenario](inp, rank, world)
+           "tensor_serving": tensor_serving, "pipeline": pipeline,
+           "pretrain_parallel": pretrain_parallel,
+           "force_parallel": force_parallel}[scenario](inp, rank, world)
     out["jax_loaded"] = any(m.split(".")[0] in ("jax", "aptai_tpu")
                             for m in sys.modules)
     torch.save(out, work / f"out{rank}.pt")

@@ -16,7 +16,7 @@ import torch
 from aptai_tpu_torch.models import configs as tcfg
 from aptai_tpu_torch.models.aptai import APTAI
 from aptai_tpu_torch.models.wav2vec2 import init_weights_
-from aptai_tpu_torch.train import loop, pretrain, train_force_aptai
+from aptai_tpu_torch.train import loop
 from aptai_tpu_torch.train.checkpoints import (load_flax_params, load_json,
                                                read_params)
 
@@ -166,15 +166,6 @@ def test_a_signal_to_one_rank_stops_both(runs):
 
 def test_children_import_only_the_port(runs):
     assert [out["jax_loaded"] for out in runs["ranks"]] == [False, False]
-
-
-@pytest.mark.parametrize("run", [train_force_aptai.run, pretrain.run])
-def test_single_process_trainers_refuse_several(monkeypatch, run):
-    """FORCE-APTAI's trainer and pretraining run in one process only
-    (ROADMAP item 8e-iv)."""
-    monkeypatch.setattr(loop, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="8e-iv"):
-        run(object())
 
 
 def test_training_loader_must_split():
